@@ -1,0 +1,31 @@
+"""PyTorch/CUDA port of the holostyle field-retrieval framework.
+
+A second package beside the JAX one (``style_transfer_based_holographic_imaging_tpu``),
+written in PyTorch, with the JAX package's Pallas TPU kernels rewritten by hand
+for NVIDIA Hopper (CUDA C++ under ``kernels/csrc``, built with ``nvcc`` at first
+use and loaded with ``ctypes``). It imports ``torch`` and ``numpy`` only: never
+``jax`` and nothing of the JAX package.
+
+Subpackages mirror the JAX package's layout:
+
+- ``ops``       — angular-spectrum propagation, hologram formation, phase
+                  unwrap, AdaIN statistics.
+- ``kernels``   — the hand-written CUDA kernels, their wrappers and plain
+                  PyTorch versions.
+- ``models``    — ``nn.Module`` networks: VGG encoder, decoder, distance MLP.
+- ``pipelines`` — eager end-to-end field retrieval and the golden-suite eval.
+- ``interop``   — carrying JAX parameter trees (as numpy) across.
+
+Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
+"""
+
+from style_transfer_based_holographic_imaging_tpu_torch.config import (
+    EvalConfig,
+    ExperimentConfig,
+    ModelConfig,
+    PhysicsConfig,
+)
+
+__version__ = "0.1.0"
+
+__all__ = ["PhysicsConfig", "ModelConfig", "EvalConfig", "ExperimentConfig", "__version__"]

@@ -1,0 +1,8 @@
+"""Converters from the JAX package's artifacts (numpy in, torch out)."""
+
+from style_transfer_based_holographic_imaging_tpu_torch.interop.from_jax import (
+    convert_params,
+    load_style_vector,
+)
+
+__all__ = ["convert_params", "load_style_vector"]

@@ -1,0 +1,358 @@
+"""The fused angular-spectrum propagator: Hopper kernels, wrappers, plain versions.
+
+Two kernels of ``csrc/asm_propagate.cu``, built by ``_build`` with ``nvcc``
+and called through ``ctypes``:
+
+* ``asm_const``   replaces ``_make_kernel_const`` (kernels/asm_pallas.py of
+  the JAX package), the serving refocus by one host-scalar distance. The
+  transfer function ``H = exp(i d kz_rel) exp(i d 2pi/lambda)`` is built once
+  per distance on the host, with the fp32 ops of the JAX const path, and
+  cached on the device.
+* ``asm_dynamic`` replaces ``_make_kernel``, one distance per image: the
+  kernel computes ``cos/sin(d kz_rel)`` and applies the global phasor.
+
+Both compute, per image, ``U = C (A x B * H) D``: the replicate pad and the
+centre crop are folded into thin DFT factors (``folded_factors``, a copy of
+the JAX package's ``_folded_factors``, bit-identical). What bounds them on
+the card and what the design does about it is noted in the CUDA source.
+
+Beside each kernel: its plain PyTorch version (the same four complex products
+with the same bf16 roundings), which the wrapper takes only for a tensor on
+the CPU, and a launch count. For a CUDA tensor the wrapper launches the
+kernel or raises; it never falls back.
+
+Precision modes keep the JAX package's ``set_dft_precision`` names:
+``"highest"`` (fp32), ``"high"`` (bf16 hi/lo three-product split, the
+default) and ``"bf16"`` (one bf16 product).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import kz_rel_grid
+from style_transfer_based_holographic_imaging_tpu_torch.utils.misc import static_scalar
+
+__all__ = [
+    "asm_const",
+    "asm_dynamic",
+    "asm_const_plain",
+    "asm_dynamic_plain",
+    "propagate_cuda",
+    "folded_factors",
+    "set_dft_precision",
+    "LAUNCHES",
+    "reset_launches",
+]
+
+_PRECISIONS = ("highest", "high", "bf16")  # index = the kernel's template code
+_DFT_PRECISION = "high"
+
+# Launches of each kernel by its wrapper (one per propagate call).
+LAUNCHES = {"asm_const": 0, "asm_dynamic": 0}
+
+_SOURCE = "asm_propagate"
+
+
+def set_dft_precision(precision: str) -> None:
+    """Default precision mode: 'highest', 'high' (default) or 'bf16'."""
+    global _DFT_PRECISION
+    if precision not in _PRECISIONS:
+        raise ValueError(f"unknown dft precision {precision!r}")
+    _DFT_PRECISION = precision
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------------
+# Factors and transfer functions (host fp64 -> fp32, as in the JAX package)
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_matrix(n: int):
+    """(n, n) fp64 re/im planes of exp(-2 pi i j k / n), angle reduced mod n."""
+    j = np.arange(n, dtype=np.int64)
+    jk = np.outer(j, j) % n
+    ang = -2.0 * np.pi * jk.astype(np.float64) / n
+    return np.cos(ang), np.sin(ang)
+
+
+@functools.lru_cache(maxsize=None)
+def folded_factors(n: int, full: int):
+    """Factors folding the replicate pad and centre crop into the DFTs.
+
+    With R (full, n) the edge-replication matrix, the padded fft2 is
+    ``A x B`` with ``A = F R`` (full, n) and ``B = A^T``; ifft2-then-crop is
+    ``C T D`` with ``C = conj(F)[lo:hi, :] / full`` and ``D = C^T``. Built in
+    fp64 and cast to fp32. Returns read-only (Are, Aim, Cre, Cim).
+    """
+    fre, fim = _dft_matrix(full)
+    lo = (full - n) // 2
+    r = np.zeros((full, n), np.float64)
+    r[np.arange(full), np.clip(np.arange(full) - lo, 0, n - 1)] = 1.0
+    are, aim = fre @ r, fim @ r
+    inv_n = 1.0 / float(full)
+    cre = fre[lo : lo + n, :] * inv_n
+    cim = -fim[lo : lo + n, :] * inv_n
+    out = tuple(m.astype(np.float32) for m in (are, aim, cre, cim))
+    for m in out:
+        m.setflags(write=False)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _factor_tensors(h: int, w: int, device: torch.device):
+    """(are, aim, bre, bim, cre, cim, dre, dim) on ``device``, contiguous."""
+    fh, fw = 2 * h, 2 * w
+    are, aim, cre, cim = folded_factors(h, fh)
+    awre, awim, cwre, cwim = folded_factors(w, fw)
+    mats = (are, aim, awre.T, awim.T, cre, cim, cwre.T, cwim.T)
+    return tuple(torch.tensor(np.ascontiguousarray(m), device=device) for m in mats)
+
+
+@functools.lru_cache(maxsize=8)
+def _kz_tensor(fh: int, fw: int, pixel_size: float, wavelength: float, device: torch.device):
+    return torch.tensor(kz_rel_grid(fh, fw, pixel_size=pixel_size, wavelength=wavelength), device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _const_transfer(fh, fw, d32: float, wavelength, pixel_size, device):
+    """(hre, him) of H for one static distance ``d32`` (an fp32 value), the
+    global phasor folded in, with the fp32 ops of the JAX const path; built
+    on the host, cached on ``device``."""
+    kz = torch.tensor(kz_rel_grid(fh, fw, pixel_size=pixel_size, wavelength=wavelength))
+    d32 = torch.tensor(d32, dtype=torch.float32)
+    phase = d32 * kz
+    g_phase = d32 * torch.tensor(2.0 * math.pi / wavelength, dtype=torch.float32)
+    c, s = torch.cos(phase), torch.sin(phase)
+    gc, gs = torch.cos(g_phase), torch.sin(g_phase)
+    return (c * gc - s * gs).to(device), (s * gc + c * gs).to(device)
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions
+# --------------------------------------------------------------------------
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    if precision == "highest":
+        return torch.matmul(a, b)
+    if precision == "bf16":
+        return torch.matmul(_bf16(a), _bf16(b))
+    ahi, bhi = _bf16(a), _bf16(b)
+    alo, blo = _bf16(a - ahi), _bf16(b - bhi)
+    return torch.matmul(ahi, bhi) + torch.matmul(ahi, blo) + torch.matmul(alo, bhi)
+
+
+def _cmm(are, aim, bre, bim, precision):
+    """(are + i aim) @ (bre + i bim) as four real products."""
+    return (
+        _dot(are, bre, precision) - _dot(aim, bim, precision),
+        _dot(are, bim, precision) + _dot(aim, bre, precision),
+    )
+
+
+def _plain(xre, xim, factors, precision, transfer, phasor):
+    are, aim, bre, bim, cre, cim, dre, dim = factors
+    s1re, s1im = _cmm(are, aim, xre, xim, precision)
+    sre, sim = _cmm(s1re, s1im, bre, bim, precision)
+    hre, him = transfer
+    tre = sre * hre - sim * him
+    tim = sre * him + sim * hre
+    u1re, u1im = _cmm(cre, cim, tre, tim, precision)
+    ure, uim = _cmm(u1re, u1im, dre, dim, precision)
+    if phasor is None:
+        return ure, uim
+    gc, gs = phasor
+    return ure * gc - uim * gs, ure * gs + uim * gc
+
+
+def asm_const_plain(xre, xim, distance: float, *, wavelength, pixel_size, precision=None):
+    """Plain PyTorch version of ``asm_const`` (same factors, same roundings)."""
+    precision = precision or _DFT_PRECISION
+    b, h, w = xre.shape
+    dev = xre.device
+    transfer = _const_transfer(
+        2 * h, 2 * w, float(np.float32(distance)), wavelength, pixel_size, dev
+    )
+    return _plain(xre, xim, _factor_tensors(h, w, dev), precision, transfer, None)
+
+
+def asm_dynamic_plain(xre, xim, dist, *, wavelength, pixel_size, precision=None):
+    """Plain PyTorch version of ``asm_dynamic``; ``dist`` is ``(B,)`` fp32."""
+    precision = precision or _DFT_PRECISION
+    b, h, w = xre.shape
+    dev = xre.device
+    kz = _kz_tensor(2 * h, 2 * w, pixel_size, wavelength, dev)
+    d = dist.reshape(b, 1, 1)
+    phase = d * kz
+    g = d * float(np.float32(2.0 * math.pi / wavelength))
+    return _plain(
+        xre,
+        xim,
+        _factor_tensors(h, w, dev),
+        precision,
+        (torch.cos(phase), torch.sin(phase)),
+        (torch.cos(g), torch.sin(g)),
+    )
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_COMMON = [_I, _P, _P, _I, _I, _I, _I, _I] + [_P] * 8  # precision .. x, dims, factors
+_SCRATCH_OUT = [_P] * 8 + [_P]                         # s1, t, u1, y planes, stream
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
+
+    lib = _build.load(_SOURCE)
+    lib.asm_const.argtypes = _COMMON + [_P, _P] + _SCRATCH_OUT
+    lib.asm_const.restype = ctypes.c_int
+    lib.asm_dynamic.argtypes = _COMMON + [_P, _P, ctypes.c_float] + _SCRATCH_OUT
+    lib.asm_dynamic.restype = ctypes.c_int
+    return lib
+
+
+def _check_planes(xre: torch.Tensor, xim: torch.Tensor) -> None:
+    for name, t in (("xre", xre), ("xim", xim)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.ndim != 3:
+            raise ValueError(f"{name} must be (B, H, W), got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xre.shape != xim.shape or xre.device != xim.device:
+        raise ValueError("xre and xim must share shape and device")
+    b, h, w = xre.shape
+    if b < 1 or h % 2 or w % 2 or min(h, w) < 16 or max(h, w) > 256:
+        raise ValueError(f"unsupported field shape {tuple(xre.shape)}: even H/W in [16, 256]")
+
+
+def _launch_buffers(xre: torch.Tensor):
+    b, h, w = xre.shape
+    fh, fw = 2 * h, 2 * w
+    e = functools.partial(torch.empty, dtype=torch.float32, device=xre.device)
+    scratch = (e(b, fh, w), e(b, fh, w), e(b, fh, fw), e(b, fh, fw), e(b, h, fw), e(b, h, fw))
+    return scratch, e(b, h, w), e(b, h, w)
+
+
+def _check_status(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {status}")
+
+
+def _device_of(xre: torch.Tensor) -> str:
+    kind = xre.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"asm kernels take CPU or CUDA tensors, got {xre.device}")
+    return kind
+
+
+def asm_const(xre, xim, distance: float, *, wavelength, pixel_size, precision=None):
+    """Propagate ``(B, H, W)`` fp32 re/im planes by one static distance
+    (metres), replicate-padded 2x. Returns ``(yre, yim)``."""
+    precision = precision or _DFT_PRECISION
+    if precision not in _PRECISIONS:
+        raise ValueError(f"unknown dft precision {precision!r}")
+    _check_planes(xre, xim)
+    if _device_of(xre) == "cpu":
+        return asm_const_plain(
+            xre, xim, distance, wavelength=wavelength, pixel_size=pixel_size, precision=precision
+        )
+    b, h, w = xre.shape
+    dev = xre.device
+    factors = _factor_tensors(h, w, dev)
+    hre, him = _const_transfer(
+        2 * h, 2 * w, float(np.float32(distance)), wavelength, pixel_size, dev
+    )
+    scratch, yre, yim = _launch_buffers(xre)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = _lib().asm_const(
+            _PRECISIONS.index(precision),
+            xre.data_ptr(), xim.data_ptr(), b, h, w, 2 * h, 2 * w,
+            *(m.data_ptr() for m in factors),
+            hre.data_ptr(), him.data_ptr(),
+            *(s.data_ptr() for s in scratch),
+            yre.data_ptr(), yim.data_ptr(),
+            stream,
+        )
+    _check_status(status, "asm_const")
+    LAUNCHES["asm_const"] += 1
+    return yre, yim
+
+
+def asm_dynamic(xre, xim, dist, *, wavelength, pixel_size, precision=None):
+    """Propagate ``(B, H, W)`` fp32 re/im planes, image ``i`` by ``dist[i]``
+    metres (``dist`` a ``(B,)`` fp32 tensor). Returns ``(yre, yim)``."""
+    precision = precision or _DFT_PRECISION
+    if precision not in _PRECISIONS:
+        raise ValueError(f"unknown dft precision {precision!r}")
+    _check_planes(xre, xim)
+    b, h, w = xre.shape
+    if dist.dtype != torch.float32 or tuple(dist.shape) != (b,) or not dist.is_contiguous():
+        raise ValueError(f"dist must be a contiguous float32 ({b},) tensor")
+    if dist.device != xre.device:
+        raise ValueError("dist must lie on the field's device")
+    if _device_of(xre) == "cpu":
+        return asm_dynamic_plain(
+            xre, xim, dist, wavelength=wavelength, pixel_size=pixel_size, precision=precision
+        )
+    dev = xre.device
+    factors = _factor_tensors(h, w, dev)
+    kz = _kz_tensor(2 * h, 2 * w, pixel_size, wavelength, dev)
+    scratch, yre, yim = _launch_buffers(xre)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = _lib().asm_dynamic(
+            _PRECISIONS.index(precision),
+            xre.data_ptr(), xim.data_ptr(), b, h, w, 2 * h, 2 * w,
+            *(m.data_ptr() for m in factors),
+            kz.data_ptr(), dist.data_ptr(), float(np.float32(2.0 * math.pi / wavelength)),
+            *(s.data_ptr() for s in scratch),
+            yre.data_ptr(), yim.data_ptr(),
+            stream,
+        )
+    _check_status(status, "asm_dynamic")
+    LAUNCHES["asm_dynamic"] += 1
+    return yre, yim
+
+
+def propagate_cuda(field: torch.Tensor, distance, *, wavelength, pixel_size, precision=None):
+    """Complex ``(..., H, W)`` field through the kernels: a host-scalar
+    distance takes ``asm_const``, anything else ``asm_dynamic`` with the
+    distance broadcast to the leading axes."""
+    lead = tuple(field.shape[:-2])
+    h, w = field.shape[-2], field.shape[-1]
+    b = int(np.prod(lead)) if lead else 1
+    flat = field.reshape(b, h, w)
+    xre = flat.real.float().contiguous()
+    xim = flat.imag.float().contiguous()
+    kw = dict(wavelength=wavelength, pixel_size=pixel_size, precision=precision)
+    static_d = static_scalar(distance)
+    if static_d is not None:
+        yre, yim = asm_const(xre, xim, static_d, **kw)
+    else:
+        dist = torch.as_tensor(distance, dtype=torch.float32, device=field.device)
+        dist = dist.broadcast_to(lead + (1, 1)).reshape(b).contiguous()
+        yre, yim = asm_dynamic(xre, xim, dist, **kw)
+    return torch.complex(yre, yim).reshape(field.shape)

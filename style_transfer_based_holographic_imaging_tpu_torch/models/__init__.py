@@ -1,0 +1,29 @@
+"""``nn.Module`` networks of the field-retrieval path."""
+
+from style_transfer_based_holographic_imaging_tpu_torch.models.decoder import AmpPhaseDecoder
+from style_transfer_based_holographic_imaging_tpu_torch.models.distance import DistanceMLP
+from style_transfer_based_holographic_imaging_tpu_torch.models.layers import (
+    ConvTranspose2x2,
+    ReflectConv,
+    instance_norm_rows,
+    max_pool_ceil,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
+    StyleTransferNet,
+    has_phase_decoder,
+    split_style_vector,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.models.vgg import VggEncoder
+
+__all__ = [
+    "AmpPhaseDecoder",
+    "DistanceMLP",
+    "ConvTranspose2x2",
+    "ReflectConv",
+    "instance_norm_rows",
+    "max_pool_ceil",
+    "StyleTransferNet",
+    "has_phase_decoder",
+    "split_style_vector",
+    "VggEncoder",
+]

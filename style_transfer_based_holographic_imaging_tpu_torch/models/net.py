@@ -1,0 +1,93 @@
+"""The combined field-retrieval network (port of the JAX ``models/net.py``).
+
+VGG encoder + AdaIN against a stored style vector + amplitude/phase decoder
++ distance regressor. Only the inference path (``field_retrieval``) is
+ported; the training forward comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Tuple
+
+import torch
+from torch import nn
+
+from style_transfer_based_holographic_imaging_tpu_torch.models.decoder import AmpPhaseDecoder
+from style_transfer_based_holographic_imaging_tpu_torch.models.distance import DistanceMLP
+from style_transfer_based_holographic_imaging_tpu_torch.models.vgg import VggEncoder
+from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (
+    adain_with_stats,
+    calc_mean_std,
+)
+
+__all__ = ["StyleTransferNet", "split_style_vector", "has_phase_decoder", "style_stats_nchw"]
+
+
+def has_phase_decoder(params: Mapping) -> bool:
+    """True iff a parameter tree (JAX nested dict, optionally under
+    ``'params'``) or a port state dict carries a ``decoder_ph`` head."""
+    inner = params.get("params", params)
+    return any(k == "decoder_ph" or str(k).startswith("decoder_ph.") for k in inner)
+
+
+def split_style_vector(style_vector) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split a stored ``(2n, C, 1, 1)`` or ``(2n, 1, 1, C)`` style vector into
+    NCHW-broadcastable ``(n, C, 1, 1)`` (mean, std): first half means, second
+    half stds."""
+    sv = torch.as_tensor(style_vector, dtype=torch.float32)
+    if sv.ndim != 4:
+        raise ValueError(f"style vector must be 4D, got {tuple(sv.shape)}")
+    sv = style_stats_nchw(sv)
+    half = sv.shape[0] // 2
+    return sv[:half], sv[half:]
+
+
+def style_stats_nchw(x: torch.Tensor) -> torch.Tensor:
+    """Style statistics in the JAX package's NHWC ``(n, 1, 1, C)`` layout ->
+    NCHW ``(n, C, 1, 1)``; NCHW input passes through."""
+    if x.ndim == 4 and x.shape[1] == 1 and x.shape[2] == 1 and x.shape[3] != 1:
+        return x.permute(0, 3, 1, 2)
+    return x
+
+
+class StyleTransferNet(nn.Module):
+    """VGG encoder + AdaIN + amp/phase decoder + distance regressor."""
+
+    def __init__(self, width: float = 1.0, with_phase_decoder: bool = False):
+        super().__init__()
+        self.width = width
+        self.with_phase_decoder = with_phase_decoder
+        self.encoder = VggEncoder(width=width)
+        self.decoder = AmpPhaseDecoder(width=width)
+        if with_phase_decoder:
+            self.decoder_ph = AmpPhaseDecoder(width=width)
+        self.distance_g = DistanceMLP(self.encoder.out_channels)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+    def field_retrieval(
+        self,
+        content: torch.Tensor,
+        style_mean: torch.Tensor,
+        style_std: torch.Tensor,
+        alpha: float = 1.0,
+        *,
+        unknown_distance: bool = False,
+    ):
+        """sqrt-intensity hologram ``(B, 1, H, W)`` -> (A_t, phi_t[, d]) at the
+        style plane, each ``(B, 1, H, W)`` (d: ``(B, 1)``). ``style_mean`` /
+        ``style_std`` broadcast against the ``(B, C, h, w)`` relu4_1 features."""
+        content_feat = self.encode(content)
+        t = adain_with_stats(content_feat, style_mean, style_std)
+        t = alpha * t + (1.0 - alpha) * content_feat
+
+        g = self.decoder(t)
+        amp, phase = g[:, 0:1], g[:, 1:2]
+        if self.with_phase_decoder:
+            phase = self.decoder_ph(t)[:, 0:1]
+        if unknown_distance:
+            d = self.distance_g(calc_mean_std(content_feat))
+            return amp, phase, d
+        return amp, phase
+

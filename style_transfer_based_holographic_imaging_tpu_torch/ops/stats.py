@@ -1,0 +1,62 @@
+"""Feature statistics: AdaIN and friends (port of the JAX ``ops/stats.py``).
+
+The port's conv stack is NCHW, so ``channel_axis`` defaults to 1. Statistics
+reduce over the spatial axes per (sample, channel), with the unbiased (N-1)
+variance plus eps of the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+__all__ = ["calc_mean_std", "adain", "adain_with_stats"]
+
+
+def _spatial_axes(ndim: int, channel_axis: int) -> Tuple[int, ...]:
+    channel_axis = channel_axis % ndim
+    return tuple(a for a in range(1, ndim) if a != channel_axis)
+
+
+def calc_mean_std(
+    feat: torch.Tensor, eps: float = 1e-5, *, channel_axis: int = 1
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(sample, channel) spatial mean and std, spatial axes kept as size 1."""
+    if feat.ndim < 4:
+        raise ValueError(
+            f"calc_mean_std expects batched (N, C, ...) features with >= 2 "
+            f"spatial axes, got shape {tuple(feat.shape)}; add a leading batch axis"
+        )
+    axes = _spatial_axes(feat.ndim, channel_axis)
+    n = 1
+    for a in axes:
+        n *= feat.shape[a]
+    mean = feat.mean(dim=axes, keepdim=True)
+    centered = feat - mean
+    var = (centered * centered).sum(dim=axes, keepdim=True) / max(n - 1, 1)
+    std = torch.sqrt(var + eps)
+    return mean, std
+
+
+def adain(
+    content_feat: torch.Tensor, style_feat: torch.Tensor, *, channel_axis: int = 1
+) -> torch.Tensor:
+    """Adaptive instance normalization."""
+    style_mean, style_std = calc_mean_std(style_feat, channel_axis=channel_axis)
+    content_mean, content_std = calc_mean_std(content_feat, channel_axis=channel_axis)
+    return (content_feat - content_mean) / content_std * style_std + style_mean
+
+
+def adain_with_stats(
+    content_feat: torch.Tensor,
+    style_mean: torch.Tensor,
+    style_std: torch.Tensor,
+    *,
+    channel_axis: int = 1,
+) -> torch.Tensor:
+    """AdaIN against precomputed style statistics that broadcast against
+    ``content_feat`` (e.g. ``(1, C, 1, 1)``)."""
+    content_mean, content_std = calc_mean_std(content_feat, channel_axis=channel_axis)
+    normalized = (content_feat - content_mean) / content_std
+    return normalized * style_std + style_mean
