@@ -8,22 +8,41 @@ line naming it and ends the run with exit code 3; nothing hangs):
 
 1. ``device``  — a CUDA card must be present (else exit 2); prints the card's
    name and power limit (``nvidia-smi``) and the TF32 flags.
-2. ``build``   — removes stale build files, compiles the kernels' source with
-   ``nvcc``, loads the library with ``ctypes``.
-3. ``kernels`` — each kernel against its plain PyTorch version and against
-   the ``torch.fft`` composition, at B = 5 and B = 256, in every precision
-   mode, with per-sample distances spread over the suite's range for
-   ``asm_dynamic``. Tolerance on max|err| / max|ref|: 1e-5 (highest),
-   1e-4 (high), 2e-2 (bf16), the JAX package's budgets.
+2. ``build``   — removes stale build files, compiles the three kernel sources
+   with one ``nvcc`` each, all started together, loads the libraries with
+   ``ctypes``.
+3. ``kernels`` — each kernel against its plain PyTorch version. The ASM
+   kernels also against the ``torch.fft`` composition, at B = 5 and 256, in
+   every precision mode, with per-sample distances spread over the suite's
+   range for ``asm_dynamic``; tolerance on max|err| / max|ref|: 1e-5
+   (highest), 1e-4 (high), 2e-2 (bf16), the JAX package's budgets. The conv
+   stacks at flagship shapes and the border ring at three of the net's
+   layers and one odd H, at B = 5 and 256, in fp32 and bf16; tolerance
+   1e-5 in fp32 (summation order) and 1e-2 in bf16 (a value that the other
+   summation order puts on a bf16 rounding boundary rounds the other way,
+   2^-8 relative, and carries into the next layer).
 4. ``slice``   — the flagship-width net (width 1.0) on weights drawn from
    ``torch.Generator`` seed 0: the whole 20 x 5 golden suite through
    ``evaluate_golden_suite`` and one ``retrieval_step`` with per-sample style
    distances, with the launch counts reset just before and read just after;
-   both kernels must have launched. Then one golden batch on the card
+   both ASM kernels must have launched. Then one golden batch on the card
    against the same port on the CPU.
-5. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
-   version and the ``torch.fft`` composition, and of the whole
-   ``retrieval_step`` (holograms/s).
+5. ``quant``   — the int8 serving path on the same net: int8 scales
+   calibrated on the golden suite, then the suite through
+   ``evaluate_golden_suite(quant_scales=..., dtype=bf16)`` with the fused
+   stacks on, the counts reset just before and read just after (both stack
+   kernels must have launched). Then one golden batch against the same
+   port on the CPU: every int8 conv, stack and transposed conv of the
+   card's run again on the CPU from the same inputs, where the two runs
+   part (differing int8 steps, call by call), what one int8 step moves, the
+   outputs, and the same path without int8 convs. Last, the suite once more
+   with the stacks off.
+6. ``reflect`` — ``retrieval_step`` on one golden batch with the reflect
+   backend ``cuda`` (the border ring must launch once for each of the net's
+   20 reflect convs), against the ``matpad`` backend on the card.
+7. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
+   version and its library call, and of the whole ``retrieval_step``
+   (holograms/s): fp32, int8 with the stacks on, fp32 with the ring.
 
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -53,21 +72,37 @@ import torch  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch import ExperimentConfig  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.eval import zero_mean  # noqa: E402
-from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build, asm_cuda  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import (  # noqa: E402
+    _build,
+    asm_cuda,
+    conv_stack,
+    reflect_border,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.models import (  # noqa: E402
     ConvTranspose2x2,
     StyleTransferNet,
+    set_reflect_backend,
     split_style_vector,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.models import quant  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward, unwrap_phase  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import propagate_torch  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # noqa: E402
+    adain_with_stats,
+    calc_mean_std,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # noqa: E402
     evaluate_golden_suite,
     retrieval_step,
 )
 
 TOTAL_BUDGET_S = 285.0
-BUDGETS_S = {"device": 60.0, "build": 150.0, "kernels": 60.0, "slice": 90.0, "timing": 60.0}
+BUDGETS_S = {
+    "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0,
+    "quant": 90.0, "reflect": 60.0, "timing": 120.0,
+}
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
 # Card tolerances for the same golden batch on the card (cuDNN fp32 convs,
 # the "high" DFT kernel) against the CPU (fp32 convs, the torch.fft path):
@@ -78,6 +113,35 @@ SLICE_AMP_TOL = 1e-3
 SLICE_DIST_TOL = 1e-4
 SLICE_PHASE_TOL = 1e-2
 SLICE_PHASE_FRACTION = 0.999
+# The conv kernels against their plain versions, by dtype (see the docstring).
+CONV_TOLERANCES = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# The int8 path on the card against the same port on the CPU, one golden
+# batch, in fp32 and in bf16 compute. Every call of these ops in the card's
+# run is recomputed on the CPU from the same inputs: the int8 convs must
+# agree bit for bit (the int32 sums are exact, the rest single IEEE
+# operations on both), the stacks and the transposed convs within
+# CONV_TOLERANCES. The two runs' own inputs part where the fp parts sum in
+# other orders and an activation crosses a rounding tie: it requantizes to
+# the neighbouring int8 step. The run counts those steps call by call, and
+# measures what one step in the first int8 conv's input moves at the
+# output (``one_int8_step``). On the seeded net, golden batch 10, that one
+# step moves amp_foc by 14.5 % (fp32) and 12.5 % (bf16) of max|ref|, 5.8 %
+# and 5.7 % in L2 norm (NVIDIA H100 80GB HBM3, 700 W; this script). The
+# whole path's outputs are held to QUANT_PATH_TOL, about 2.5 times those
+# readings; the path with no int8 conv (empty scales: the stacks, cuDNN and
+# the transposed convs in fp32, nothing to requantize) is held to the
+# slice's tolerances.
+QUANT_OPS = ("int8_conv_valid", "fused_encoder_head", "fused_conv_tail", "_conv_fp")
+QUANT_PATH_TOL = {
+    torch.float32: {"amp_foc_rel_err": 0.35, "amp_foc_rel_l2": 0.15, "distance_pred_abs_err": 1e-3},
+    torch.bfloat16: {"amp_foc_rel_err": 0.35, "amp_foc_rel_l2": 0.15, "distance_pred_abs_err": 0.05},
+}
+# The net's reflect convs: 9 in the encoder, 11 in the decoder.
+REFLECT_CONVS = 20
+# Layers of the border ring's checks: (C, H, W, O) of three of the net's
+# reflect convs and one odd H; the first is timed.
+RING_LAYERS = ((64, 128, 128, 64), (3, 128, 128, 64), (64, 64, 64, 128), (512, 16, 16, 256),
+               (64, 127, 128, 64))
 B_TIMING = 256
 IMAGE = 128
 SERVING_REFOCUS_M = -2e-4  # -d_style = -0.2 mm, the golden suite's style plane
@@ -133,6 +197,10 @@ class Phase:
             return False
         emit({"phase": self.name, "seconds": round(time.monotonic() - self._t0, 3), **self.info})
         return False
+
+
+def _dt(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def rel_err(got, ref) -> float:
@@ -266,22 +334,259 @@ def compare_card_cpu(net, goldens, cfg, batch: int):
             float(goldens.distance_style[batch].reshape(-1)[0]), cfg.physics)
     gpu = retrieval_step(net, *args, device="cuda")
     cpu = retrieval_step(net_cpu, *args, device="cpu")
-    amp_err = rel_err(gpu["amp_foc"].cpu(), cpu["amp_foc"])
-    dist_err = float((gpu["distance_pred"].cpu() - cpu["distance_pred"]).abs().max())
-    dph = zero_mean(gpu["ph_foc"].cpu()) - zero_mean(cpu["ph_foc"])
+    return {"batch": batch, **compare_outputs(
+        gpu, cpu, SLICE_AMP_TOL, SLICE_DIST_TOL, SLICE_PHASE_TOL, SLICE_PHASE_FRACTION,
+        "card and CPU on the slice")}
+
+
+def stack_args(b: int, dtype, c_in: int, widths, seed: int, device):
+    """Input and (kernel, bias) pairs of a conv stack at flagship shapes:
+    He-normal kernels in ``dtype``, fp32 biases, activations in [0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    args = [torch.rand(b, c_in, IMAGE, IMAGE, generator=g).to(device, dtype)]
+    c = c_in
+    for o in widths:
+        k = torch.randn(o, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5
+        args += [k.to(device, dtype), (0.01 * torch.randn(o, generator=g)).to(device)]
+        c = o
+    return args
+
+
+HEAD_WIDTHS = (64, 64)      # conv1_1 on the folded one-channel stem, conv1_2
+TAIL_WIDTHS = (64, 64, 2)   # conv8, conv9, conv10
+
+
+def ring_args(b: int, dtype, layer, seed: int, device):
+    c, h, w, o = layer
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, h, w, generator=g).to(device, dtype)
+    k = (torch.randn(o, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5).to(device, dtype)
+    return x, k
+
+
+def check_conv_kernels(device, batches=(5, 256)):
+    """The stack kernels and the border ring against their plain versions."""
+    rows = []
+    cases = []
+    for b in batches:
+        for dtype in CONV_TOLERANCES:
+            cases.append(("fused_encoder_head", b, dtype, None,
+                          lambda b=b, dt=dtype: stack_args(b, dt, 1, HEAD_WIDTHS, b, device),
+                          conv_stack.fused_encoder_head, conv_stack.encoder_head_plain))
+            cases.append(("fused_conv_tail", b, dtype, None,
+                          lambda b=b, dt=dtype: stack_args(b, dt, 64, TAIL_WIDTHS, b, device),
+                          conv_stack.fused_conv_tail, conv_stack.conv_tail_plain))
+            for layer in RING_LAYERS:
+                cases.append(("border_lines", b, dtype, layer,
+                              lambda b=b, dt=dtype, layer=layer: ring_args(b, dt, layer, b, device),
+                              reflect_border.border_lines, reflect_border.border_lines_plain))
+    for name, b, dtype, layer, make, run, plain in cases:
+        args = make()
+        got, ref = run(*args), plain(*args)
+        if name != "border_lines":
+            got, ref = (got,), (ref,)
+        torch.cuda.synchronize()
+        err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+        rel = max(rel_err(g.float(), r.float()) for g, r in zip(got, ref))
+        row = {"kernel": name, "B": b, "dtype": _dt(dtype),
+               "layer": layer, "tol": CONV_TOLERANCES[dtype],
+               "max_abs_err": err, "rel_err_vs_plain": rel}
+        rows.append(row)
+        if not rel < CONV_TOLERANCES[dtype]:
+            _die(f"kernel check failed: {json.dumps(row)}", 1)
+        del args, got, ref
+    return rows
+
+
+def compare_outputs(got, ref, amp_tol, dist_tol, phase_tol, phase_fraction, label):
+    """Two retrieval outputs of one batch: amp_foc relative to max|ref|,
+    distance_pred absolute, the zero-meaned phase modulo 2 pi."""
+    amp_err = rel_err(got["amp_foc"].cpu(), ref["amp_foc"].cpu())
+    dist_err = float((got["distance_pred"].cpu() - ref["distance_pred"].cpu()).abs().max())
+    dph = zero_mean(got["ph_foc"].cpu()) - zero_mean(ref["ph_foc"].cpu())
     wrapped = torch.remainder(dph - dph.flatten()[0] + math.pi, 2 * math.pi) - math.pi
-    ok_frac = float((wrapped.abs() < SLICE_PHASE_TOL).float().mean())
-    jumps = int(((dph.abs() > SLICE_PHASE_TOL) & (wrapped.abs() < SLICE_PHASE_TOL)).sum())
+    ok_frac = float((wrapped.abs() < phase_tol).float().mean())
+    jumps = int(((dph.abs() > phase_tol) & (wrapped.abs() < phase_tol)).sum())
     result = {
-        "batch": batch, "amp_foc_rel_err": amp_err, "amp_tol": SLICE_AMP_TOL,
-        "distance_pred_abs_err": dist_err, "distance_tol": SLICE_DIST_TOL,
-        "ph_foc_frac_within_tol_mod_2pi": ok_frac, "phase_tol": SLICE_PHASE_TOL,
-        "ph_foc_2pi_jumps": jumps,
+        "amp_foc_rel_err": amp_err, "amp_tol": amp_tol,
+        "distance_pred_abs_err": dist_err, "distance_tol": dist_tol,
+        "ph_foc_frac_within_tol_mod_2pi": ok_frac, "phase_tol": phase_tol,
+        "phase_fraction": phase_fraction, "ph_foc_2pi_jumps": jumps,
     }
-    if not (amp_err < SLICE_AMP_TOL and dist_err < SLICE_DIST_TOL
-            and ok_frac >= SLICE_PHASE_FRACTION):
-        _die(f"card and CPU disagree on the slice: {json.dumps(result)}", 1)
+    if not (amp_err < amp_tol and dist_err < dist_tol and ok_frac >= phase_fraction):
+        _die(f"{label} disagree: {json.dumps(result)}", 1)
     return result
+
+
+def _cpu(v):
+    return v.cpu() if torch.is_tensor(v) else v
+
+
+def _one_int8_step(x, act_max):
+    """``x`` with one zero activation (after the relu; the middle one in
+    memory order) set to one int8 step, act_max / 127: its quantized value
+    goes from 0 to 1 and nothing else moves."""
+    flat = x.clone().reshape(-1)
+    zeros = (flat == 0).nonzero().reshape(-1)
+    if zeros.numel() == 0:
+        _die("the first int8 conv's input has no zero to move by one step", 1)
+    flat[zeros[zeros.numel() // 2]] = float(act_max) / 127.0
+    return flat.reshape(x.shape)
+
+
+def run_recorded(net, args, scales, dt, device, one_step=False):
+    """``retrieval_step`` on the int8 path with every call of QUANT_OPS
+    recorded as (op, args, kwargs, output); ``one_step`` moves one activation
+    of the first int8 conv's input by one int8 step."""
+    calls = []
+    real = {op: getattr(quant, op) for op in QUANT_OPS}
+
+    def recording(op):
+        def call(*a, **kw):
+            if one_step and op == "int8_conv_valid" and not any(c[0] == op for c in calls):
+                a = (_one_int8_step(a[0], kw["act_max"]),) + a[1:]
+            y = real[op](*a, **kw)
+            calls.append((op, a, kw, y))
+            return y
+        return call
+
+    for op in QUANT_OPS:
+        setattr(quant, op, recording(op))
+    try:
+        out = retrieval_step(net, *args, quant_scales=scales, quant_dtype=dt, device=device)
+    finally:
+        for op, fn in real.items():
+            setattr(quant, op, fn)
+    return out, calls
+
+
+@torch.inference_mode()
+def ops_on_cpu(calls, dt):
+    """Each recorded call again on the CPU from the same inputs (the stack
+    wrappers take their plain versions there). Returns, by op, the calls
+    and the largest max|err| / max|ref|."""
+    worst = {}
+    for op, a, kw, y in calls:
+        ref = getattr(quant, op)(*map(_cpu, a), **{k: _cpu(v) for k, v in kw.items()}).float()
+        err = float((y.cpu().float() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        n, e = worst.get(op, (0, 0.0))
+        worst[op] = (n + 1, max(e, err))
+    return {op: {"calls": n, "rel_err": e} for op, (n, e) in worst.items()}
+
+
+def divergence(calls, calls_ref):
+    """Where two runs of the path part, call by call: the inputs' max|diff|
+    / max|ref| and, at an int8 conv, how many quantized activations differ."""
+    if [c[0] for c in calls] != [c[0] for c in calls_ref]:
+        _die("two runs of the int8 path called different ops", 1)
+    rows = []
+    for (op, a, kw, _), (_, a_ref, _, _) in zip(calls, calls_ref):
+        i = 1 if op == "_conv_fp" else 0  # _conv_fp(op, x, kernel, bias, dt)
+        x, x_ref = a[i].cpu().float(), a_ref[i].cpu().float()
+        row = {"op": op, "input_rel_diff": rel_err(x, x_ref)}
+        if op == "int8_conv_valid":
+            sx = torch.tensor(127.0) / torch.clamp(kw["act_max"].float().cpu(), min=1e-8)
+            row["int8_steps_differ"] = int((quant._quantize(x, sx) != quant._quantize(x_ref, sx)).sum())
+        rows.append(row)
+    return rows
+
+
+def output_diffs(got, ref):
+    """amp_foc's max|err| / max|ref| and ||err|| / ||ref||, distance_pred's
+    max|err|."""
+    amp, amp_ref = got["amp_foc"].cpu(), ref["amp_foc"].cpu()
+    return {
+        "amp_foc_rel_err": rel_err(amp, amp_ref),
+        "amp_foc_rel_l2": float((amp - amp_ref).norm() / amp_ref.norm()),
+        "distance_pred_abs_err": float((got["distance_pred"].cpu() - ref["distance_pred"].cpu()).abs().max()),
+    }
+
+
+def int8_path_card_vs_cpu(net, net_cpu, args, scales, dt):
+    """One golden batch of the int8 path on the card against the same port
+    on the CPU: every op of the card's run again on the CPU from the same
+    inputs, where the two runs part, what one int8 step moves, and the
+    outputs."""
+    got, calls = run_recorded(net, args, scales, dt, "cuda")
+    ref, calls_ref = run_recorded(net_cpu, args, scales, dt, "cpu")
+    stepped, calls_stepped = run_recorded(net, args, scales, dt, "cuda", one_step=True)
+    ops = ops_on_cpu(calls, dt)
+    trace = divergence(calls, calls_ref)
+    result = {
+        "ops_same_inputs": ops, "op_tol": CONV_TOLERANCES[dt],
+        "card_vs_cpu_by_call": trace,
+        "card_vs_cpu": output_diffs(got, ref),
+        "one_int8_step": {
+            "int8_steps_differ": divergence(calls_stepped, calls)[next(
+                i for i, c in enumerate(calls) if c[0] == "int8_conv_valid")]["int8_steps_differ"],
+            **output_diffs(stepped, got),
+        },
+        "tol": QUANT_PATH_TOL[dt],
+    }
+    held = (
+        ops["int8_conv_valid"]["calls"] > 0 and ops["int8_conv_valid"]["rel_err"] == 0.0
+        and all(v["rel_err"] < CONV_TOLERANCES[dt] for k, v in ops.items() if k != "int8_conv_valid")
+        and result["one_int8_step"]["int8_steps_differ"] == 1
+        and all(result["card_vs_cpu"][k] < t for k, t in QUANT_PATH_TOL[dt].items())
+    )
+    if not held:
+        _die(f"int8 path ({_dt(dt)}) on the card and the CPU disagree: {json.dumps(result)}", 1)
+    return result
+
+
+def golden_contents(goldens):
+    """The golden suite's sqrt-intensity batches, (B, 1, H, W) each."""
+    return [np.sqrt(goldens.content_holo[i]) for i in range(goldens.n_batches)]
+
+
+def suite_summary(metrics):
+    for key in ("mean_psnr", "mean_mae", "r2"):
+        if not math.isfinite(metrics[key]):
+            _die(f"int8 suite metric {key} is not finite: {metrics[key]}", 1)
+    return {k: metrics[k] for k in ("mean_psnr", "heldout_mean_psnr", "mean_mae", "r2")}
+
+
+def head_library(x, k1, b1, k2, b2):
+    """The cuDNN composition of the head in x's dtype (timing yardstick)."""
+    for k, b in ((k1, b1), (k2, b2)):
+        x = F.relu(F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), k, b.to(x.dtype)))
+    return F.max_pool2d(x, 2, 2)
+
+
+def tail_library(x, k8, b8, k9, b9, k10, b10):
+    """The cuDNN composition of the tail in x's dtype (timing yardstick)."""
+    for k, b, relu in ((k8, b8, True), (k9, b9, True), (k10, b10, False)):
+        x = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), k, b.to(x.dtype))
+        x = F.relu(x) if relu else x
+    return x
+
+
+def conv_bounds(peak_flops, peak_bytes, b: int):
+    """Least time (ms) and what bounds it, for each conv kernel at batch b
+    and dtype: the larger of its operations over the card's peak rate for
+    their type (bf16 products with fp32 sums at the tensor cores' bf16 rate,
+    fp32 at the fp32 rate) and its bytes (each input once, each output
+    once) over the memory rate. The ring counts the eight edge lines it
+    reads, at the timed layer."""
+    hw = IMAGE * IMAGE
+    out = {}
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        size = 2 if dtype == torch.bfloat16 else 4
+        head_flops = 2 * hw * 9 * (1 * 64 + 64 * 64) * b
+        head_bytes = (hw * 1 + 64 * hw // 4) * size * b + (64 * 9 + 64 * 64 * 9) * size + 128 * 4
+        tail_flops = 2 * hw * 9 * (64 * 64 + 64 * 64 + 64 * 2) * b
+        tail_bytes = (64 * hw + 2 * hw) * size * b + (2 * 64 * 64 * 9 + 2 * 64 * 9) * size + 130 * 4
+        c, h, w, o = RING_LAYERS[0]
+        ring_flops = 12 * c * o * 2 * (h + w) * b
+        ring_bytes = (4 * (h + w) * c + 2 * o * (h + w)) * size * b + o * c * 9 * size
+        # the ring multiplies by taps folded in fp32: fp32 products either way
+        for name, flops, nbytes, k in (("fused_encoder_head", head_flops, head_bytes, kind),
+                                       ("fused_conv_tail", tail_flops, tail_bytes, kind),
+                                       ("border_lines", ring_flops, ring_bytes, "fp32")):
+            t_ops = flops / peak_flops[k] * 1e3
+            t_bytes = nbytes / peak_bytes * 1e3
+            out[name, dtype] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return out
 
 
 def main() -> int:
@@ -302,8 +607,10 @@ def main() -> int:
 
     with Phase("build") as phase:
         removed = _build.remove_stale()
-        seconds = _build.build("asm_propagate")
+        seconds = _build.build(*_build.SOURCES)
         asm_cuda._lib()
+        conv_stack._lib()
+        reflect_border._lib()
         phase.info = {"nvcc_seconds": seconds, "removed_stale": removed, "build_dir": _build.BUILD_DIR}
 
     with open(os.path.join(REPO, "checkpoints", "config.json")) as f:
@@ -313,7 +620,8 @@ def main() -> int:
 
     with Phase("kernels") as phase:
         rows = check_kernels(physics, dev)
-        phase.info = {"checks": rows}
+        conv_rows = check_conv_kernels(dev)
+        phase.info = {"checks": rows, "conv_checks": conv_rows}
 
     with Phase("slice") as phase:
         goldens = load_golden_suite()
@@ -331,6 +639,64 @@ def main() -> int:
             "mean_psnr_random_weights": metrics["mean_psnr"],
             "r2_random_weights": metrics["r2"],
             "card_vs_cpu": card_vs_cpu,
+        }
+
+    with Phase("quant") as phase:
+        scales = quant.calibrate_scales(
+            net, golden_contents(goldens), goldens.style_mean, goldens.style_std, device=dev)
+        bf16 = torch.bfloat16
+        quant.set_fused_stacks("on")
+        conv_stack.reset_launches()
+        metrics_on = evaluate_golden_suite(
+            net, goldens, cfg, quant_scales=scales, dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        launches.update(conv_stack.LAUNCHES)
+        if not all(launches[k] > 0 for k in conv_stack.LAUNCHES):
+            _die(f"the int8 path did not launch both stack kernels: {conv_stack.LAUNCHES}", 1)
+        args = (goldens.content_holo[10], goldens.style_mean, goldens.style_std,
+                float(goldens.distance_style[10].reshape(-1)[0]), physics)
+        net_cpu = copy.deepcopy(net).cpu()
+        quant_card_vs_cpu = {
+            _dt(dt): int8_path_card_vs_cpu(net, net_cpu, args, scales, dt)
+            for dt in (torch.float32, bf16)
+        }
+        no_int8 = [retrieval_step(n, *args, quant_scales={}, quant_dtype=torch.float32, device=d)
+                   for n, d in ((net, "cuda"), (net_cpu, "cpu"))]
+        quant_card_vs_cpu["float32_no_int8"] = compare_outputs(
+            *no_int8, SLICE_AMP_TOL, SLICE_DIST_TOL, SLICE_PHASE_TOL, SLICE_PHASE_FRACTION,
+            "the stacks-on path without int8 convs on the card and the CPU")
+        quant.set_fused_stacks("off")
+        metrics_off = evaluate_golden_suite(
+            net, goldens, cfg, quant_scales=scales, dtype=bf16, device=dev)
+        quant.set_fused_stacks("auto")
+        phase.info = {
+            "n_scales": len(scales),
+            "launches": {k: launches[k] for k in conv_stack.LAUNCHES},
+            "stacks_on_random_weights": suite_summary(metrics_on),
+            "stacks_off_random_weights": suite_summary(metrics_off),
+            "fp32_random_weights": {"mean_psnr": metrics["mean_psnr"], "r2": metrics["r2"]},
+            "card_vs_cpu_batch_10": quant_card_vs_cpu,
+        }
+
+    with Phase("reflect") as phase:
+        args = (goldens.content_holo[10], goldens.style_mean, goldens.style_std,
+                float(goldens.distance_style[10].reshape(-1)[0]), physics)
+        set_reflect_backend("cuda")
+        reflect_border.reset_launches()
+        r_cuda = retrieval_step(net, *args, device=dev)
+        torch.cuda.synchronize()
+        launches.update(reflect_border.LAUNCHES)
+        set_reflect_backend("matpad")
+        r_matpad = retrieval_step(net, *args, device=dev)
+        set_reflect_backend("auto")
+        if launches["border_lines"] != REFLECT_CONVS:
+            _die(f"the ring launched {launches['border_lines']} times a step, want {REFLECT_CONVS}", 1)
+        # Two fp32 conv algorithms on the card: the tolerances of card vs CPU.
+        phase.info = {
+            "launches_per_step": launches["border_lines"],
+            "cuda_vs_matpad_batch_10": compare_outputs(
+                r_cuda, r_matpad, SLICE_AMP_TOL, SLICE_DIST_TOL, SLICE_PHASE_TOL,
+                SLICE_PHASE_FRACTION, "reflect backends cuda and matpad"),
         }
 
     with Phase("timing") as phase:
@@ -383,6 +749,67 @@ def main() -> int:
                     amp_t, ph_t, -0.2, physics, return_field=True), reps=5, warmup=1),
                 "unwrap": cuda_ms(lambda: unwrap_phase(ph_foc), reps=5, warmup=1),
             }
+        # The conv kernels: kernel, plain version and library call (the cuDNN
+        # composition of the same stack in the same dtype; the ring has no
+        # single PyTorch call), bf16 (the int8 path's dtype) and fp32; the
+        # ring at the decoder's 128^2 64->64 layer, and in fp32 at each
+        # checked layer.
+        conv_timings = {}
+        for dtype in CONV_TOLERANCES:
+            for kname, c_in, widths, run, plain, lib in (
+                ("fused_encoder_head", 1, HEAD_WIDTHS, conv_stack.fused_encoder_head,
+                 conv_stack.encoder_head_plain, head_library),
+                ("fused_conv_tail", 64, TAIL_WIDTHS, conv_stack.fused_conv_tail,
+                 conv_stack.conv_tail_plain, tail_library),
+            ):
+                a = stack_args(b, dtype, c_in, widths, 2, dev)
+                conv_timings[kname, dtype] = (
+                    cuda_ms(lambda: run(*a), reps=7), cuda_ms(lambda: plain(*a), reps=5),
+                    cuda_ms(lambda: lib(*a), reps=7))
+                del a
+            x, k = ring_args(b, dtype, RING_LAYERS[0], 2, dev)
+            conv_timings["border_lines", dtype] = (
+                cuda_ms(lambda: reflect_border.border_lines(x, k)),
+                cuda_ms(lambda: reflect_border.border_lines_plain(x, k), reps=7), None)
+        ring_layers_ms = {}
+        for layer in RING_LAYERS:
+            x, k = ring_args(b, torch.float32, layer, 2, dev)
+            ring_layers_ms["x".join(map(str, layer))] = cuda_ms(lambda: reflect_border.border_lines(x, k))
+        del x, k
+        conv_b = conv_bounds(peak_flops, peak_bytes, b)
+
+        # retrieval_step in int8 with the stacks on, and its stages alone on
+        # the same batch; then fp32 with the reflect backend cuda.
+        bf16 = torch.bfloat16
+        quant.set_fused_stacks("on")
+        q_step = lambda: retrieval_step(  # noqa: E731
+            net, holo, goldens.style_mean, goldens.style_std, 0.2, physics,
+            quant_scales=scales, device=dev)
+        q_step_ms = cuda_ms(q_step, reps=5, warmup=2)
+        qkw = dict(scales=scales, compute_dtype=bf16)
+        with torch.inference_mode():
+            feat = quant.quant_encode(net.encoder, content, **qkw)
+            t_feat = adain_with_stats(feat, sm, ss)
+            g_out = quant.quant_decode(net.decoder, t_feat, **qkw)
+            q_amp, q_ph = g_out[:, 0:1], g_out[:, 1:2]
+            _, q_ph_foc = holo_forward(q_amp, q_ph, -0.2, physics, return_field=True)
+            q_stages_ms = {
+                "encoder": cuda_ms(lambda: quant.quant_encode(net.encoder, content, **qkw),
+                                   reps=5, warmup=1),
+                "adain": cuda_ms(lambda: adain_with_stats(feat, sm, ss), reps=5, warmup=1),
+                "decoder": cuda_ms(lambda: quant.quant_decode(net.decoder, t_feat, **qkw),
+                                   reps=5, warmup=1),
+                "distance_head": cuda_ms(lambda: net.distance_g(calc_mean_std(feat), dtype=bf16),
+                                         reps=5, warmup=1),
+                "refocus": cuda_ms(lambda: holo_forward(
+                    q_amp, q_ph, -0.2, physics, return_field=True), reps=5, warmup=1),
+                "unwrap": cuda_ms(lambda: unwrap_phase(q_ph_foc), reps=5, warmup=1),
+            }
+        quant.set_fused_stacks("auto")
+        set_reflect_backend("cuda")
+        r_step_ms = cuda_ms(step, reps=5, warmup=2)
+        set_reflect_backend("auto")
+
         # The least time for one propagate of b images, in each precision
         # mode: the larger of its operations over the card's peak rate for
         # their type and the bytes (x and y planes, factors, transfer
@@ -412,6 +839,14 @@ def main() -> int:
                 prec: {k: bounds[k, prec][0] for k in timings} for prec in PRODUCTS},
             "retrieval_step_ms": step_ms, "retrieval_holograms_per_s": b / step_ms * 1e3,
             "step_stages_ms": stages_ms,
+            "int8_stacks_on_step_ms": q_step_ms,
+            "int8_stacks_on_holograms_per_s": b / q_step_ms * 1e3,
+            "int8_stacks_on_stages_ms": q_stages_ms,
+            "fp32_reflect_cuda_step_ms": r_step_ms,
+            "fp32_reflect_cuda_holograms_per_s": b / r_step_ms * 1e3,
+            "conv_kernel_ms": {f"{k}/{_dt(d)}": v for (k, d), v in conv_timings.items()},
+            "ring_fp32_ms_by_layer": ring_layers_ms,
+            "conv_bound_ms": {f"{k}/{_dt(d)}": v for (k, d), v in conv_b.items()},
         }
 
     sources = "style_transfer_based_holographic_imaging_tpu_torch/kernels/csrc/asm_propagate.cu"
@@ -439,6 +874,35 @@ def main() -> int:
             "ms_by_precision": {p: by_precision[p][k] for p in PRODUCTS},
             "bound_ms_by_precision": {p: bounds[k, p][0] for p in PRODUCTS},
             "library_ms": timings[k][2],
+        })
+    csrc = "style_transfer_based_holographic_imaging_tpu_torch/kernels/csrc/"
+    jk = "style_transfer_based_holographic_imaging_tpu/kernels/"
+    conv_meta = {
+        # name: (source, replaces, the dtype of its path)
+        "fused_encoder_head": (csrc + "conv_stack.cu", jk + "conv_stack.py:195", torch.bfloat16),
+        "fused_conv_tail": (csrc + "conv_stack.cu", jk + "conv_stack.py:122", torch.bfloat16),
+        "border_lines": (csrc + "reflect_border.cu", jk + "reflect_border.py:97", torch.float32),
+    }
+    for k, (source, where, dt) in conv_meta.items():
+        mine = [r for r in conv_rows if r["kernel"] == k]
+        at = [r for r in mine if r["B"] == b and r["dtype"] == _dt(dt)
+              and r["layer"] in (None, RING_LAYERS[0])][0]
+        kernels.append({
+            "name": k, "route": "cuda", "source": source, "replaces": where,
+            "launches": launches[k], "dtype": _dt(dt),
+            "max_abs_err": at["max_abs_err"],
+            "max_rel_err": max(r["rel_err_vs_plain"] for r in mine if r["dtype"] == _dt(dt)),
+            "tol": CONV_TOLERANCES[dt],
+            "rel_err_by_dtype": {
+                _dt(d): max(r["rel_err_vs_plain"] for r in mine if r["dtype"] == _dt(d))
+                for d in CONV_TOLERANCES
+            },
+            "tol_by_dtype": {_dt(d): t for d, t in CONV_TOLERANCES.items()},
+            "ms": conv_timings[k, dt][0], "plain_ms": conv_timings[k, dt][1],
+            "bound_ms": conv_b[k, dt][0], "bound_by": conv_b[k, dt][1],
+            "ms_by_dtype": {_dt(d): conv_timings[k, d][0] for d in CONV_TOLERANCES},
+            "bound_ms_by_dtype": {_dt(d): conv_b[k, d][0] for d in CONV_TOLERANCES},
+            "library_ms": conv_timings[k, dt][2],
         })
     emit({"wall_seconds": round(time.monotonic() - _t_start, 3)})
     print(smi, flush=True)

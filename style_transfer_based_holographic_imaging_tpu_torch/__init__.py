@@ -17,7 +17,15 @@ Subpackages mirror the JAX package's layout:
 - ``interop``   — carrying JAX parameter trees (as numpy) across.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
+
+TF32 is switched off when the package is imported
+(``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32``): cuDNN would otherwise run every
+fp32 convolution in TF32 (about three decimal digits), and parity with the
+fp32 JAX package, and of each kernel with its plain version, needs full fp32.
 """
+
+import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.config import (
     EvalConfig,
@@ -25,6 +33,9 @@ from style_transfer_based_holographic_imaging_tpu_torch.config import (
     ModelConfig,
     PhysicsConfig,
 )
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
 
 __version__ = "0.1.0"
 

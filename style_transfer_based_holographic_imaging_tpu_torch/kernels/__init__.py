@@ -1,4 +1,10 @@
-"""Hand-written Hopper kernels (CUDA C++ in ``csrc/``, built at first use)."""
+"""Hand-written Hopper kernels (CUDA C++ in ``csrc/``, built at first use).
+
+Each kernel module keeps a ``LAUNCHES`` count per kernel and a
+``reset_launches``: ``asm_cuda`` (the ASM propagator), ``conv_stack`` (the
+int8 path's fused head and tail) and ``reflect_border`` (the reflect-conv
+border ring).
+"""
 
 from style_transfer_based_holographic_imaging_tpu_torch.kernels.asm_cuda import (
     LAUNCHES,

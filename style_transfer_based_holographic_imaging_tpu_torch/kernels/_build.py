@@ -1,15 +1,16 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each source under ``kernels/csrc`` is compiled, at first use, into a shared
-library with a plain C interface:
+library of its own with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library's name carries a hash of the source and the flags, so an edit
-rebuilds and a stale library is never loaded. ``nvcc`` writes to a temporary
-name that is renamed into place when the build succeeds: a build that was
-cut off leaves no partial library under the final name, and
+rebuilds and a stale library is never loaded. ``build`` starts one ``nvcc``
+per named source, all at once, and waits for them. Each writes to a
+temporary name that is renamed into place when its build succeeds: a build
+that was cut off leaves no partial library under the final name, and
 ``remove_stale`` deletes what such a build left. Nothing here runs at import.
 """
 
@@ -24,7 +25,9 @@ import subprocess
 import threading
 import time
 
-__all__ = ["build", "load", "remove_stale", "kill_build", "BUILD_DIR", "CSRC_DIR"]
+__all__ = [
+    "build", "load", "remove_stale", "kill_build", "check_status", "SOURCES", "BUILD_DIR", "CSRC_DIR",
+]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -34,10 +37,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 _BUILD_TIMEOUT_S = 240.0
+# Every kernel source of the port, by name (csrc/<name>.cu).
+SOURCES = ("asm_propagate", "conv_stack", "reflect_border")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-_running: subprocess.Popen | None = None
+_running: dict[str, subprocess.Popen] = {}
 
 
 def _nvcc() -> str:
@@ -67,39 +72,61 @@ def remove_stale() -> list[str]:
 
 
 def kill_build() -> None:
-    """Kill the ``nvcc`` this process started, if it is still running."""
-    if _running is not None and _running.poll() is None:
-        _running.kill()
+    """Kill every ``nvcc`` this process started that is still running."""
+    for proc in list(_running.values()):
+        if proc.poll() is None:
+            proc.kill()
 
 
-def build(name: str) -> float:
-    """Compile ``csrc/<name>.cu`` unless its library exists; the seconds taken.
+def build(*names: str) -> dict[str, float]:
+    """Compile ``csrc/<name>.cu`` for each name whose library does not exist,
+    one ``nvcc`` per source, all started together, then wait for each in
+    turn. Returns, for each name, the seconds from the start until its
+    ``nvcc`` was seen done (0.0 for a library that was already built).
 
     A failed or timed-out build raises with the compiler's output.
     """
-    global _running
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = _lib_path(name)
     t0 = time.perf_counter()
-    if os.path.isfile(out):
-        return 0.0
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-    _running = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = {name: 0.0 for name in names}
+    started = {}
     try:
-        log, _ = _running.communicate(timeout=_BUILD_TIMEOUT_S)
-        if _running.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu (exit {_running.returncode}):\n{log}")
-        os.replace(tmp, out)
-    except subprocess.TimeoutExpired:
-        raise RuntimeError(f"nvcc timed out after {_BUILD_TIMEOUT_S:.0f} s on {name}.cu") from None
+        for name in names:
+            out = _lib_path(name)
+            if os.path.isfile(out):
+                continue
+            tmp = f"{out}.tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+            # The compiler's output goes to a file: a pipe nobody reads
+            # while waiting could fill and stall nvcc.
+            with open(f"{tmp}.log", "w") as log:
+                _running[name] = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+            started[name] = (out, tmp)
+        for name, (out, tmp) in started.items():
+            proc = _running[name]
+            try:
+                proc.wait(timeout=max(_BUILD_TIMEOUT_S - (time.perf_counter() - t0), 0.0))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"nvcc timed out after {_BUILD_TIMEOUT_S:.0f} s on {name}.cu") from None
+            if proc.returncode != 0:
+                with open(f"{tmp}.log") as log:
+                    raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log.read()}")
+            os.replace(tmp, out)
+            seconds[name] = time.perf_counter() - t0
     finally:
         kill_build()
-        _running.wait()
-        _running = None
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return time.perf_counter() - t0
+        for name, (_, tmp) in started.items():
+            _running.pop(name).wait()
+            for path in (tmp, f"{tmp}.log"):
+                if os.path.exists(path):
+                    os.remove(path)
+    return seconds
+
+
+def check_status(status: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {status}")
 
 
 def load(name: str) -> ctypes.CDLL:

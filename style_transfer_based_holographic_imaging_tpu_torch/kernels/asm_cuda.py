@@ -35,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
 from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import kz_rel_grid
 from style_transfer_based_holographic_imaging_tpu_torch.utils.misc import static_scalar
 
@@ -222,8 +223,6 @@ _SCRATCH_OUT = [_P] * 8 + [_P]                         # s1, t, u1, y planes, st
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
-
     lib = _build.load(_SOURCE)
     lib.asm_const.argtypes = _COMMON + [_P, _P] + _SCRATCH_OUT
     lib.asm_const.restype = ctypes.c_int
@@ -253,11 +252,6 @@ def _launch_buffers(xre: torch.Tensor):
     e = functools.partial(torch.empty, dtype=torch.float32, device=xre.device)
     scratch = (e(b, fh, w), e(b, fh, w), e(b, fh, fw), e(b, fh, fw), e(b, h, fw), e(b, h, fw))
     return scratch, e(b, h, w), e(b, h, w)
-
-
-def _check_status(status: int, name: str) -> None:
-    if status != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {status}")
 
 
 def _device_of(xre: torch.Tensor) -> str:
@@ -296,7 +290,7 @@ def asm_const(xre, xim, distance: float, *, wavelength, pixel_size, precision=No
             yre.data_ptr(), yim.data_ptr(),
             stream,
         )
-    _check_status(status, "asm_const")
+    _build.check_status(status, "asm_const")
     LAUNCHES["asm_const"] += 1
     return yre, yim
 
@@ -332,7 +326,7 @@ def asm_dynamic(xre, xim, dist, *, wavelength, pixel_size, precision=None):
             yre.data_ptr(), yim.data_ptr(),
             stream,
         )
-    _check_status(status, "asm_dynamic")
+    _build.check_status(status, "asm_dynamic")
     LAUNCHES["asm_dynamic"] += 1
     return yre, yim
 

@@ -1,0 +1,104 @@
+"""The reflect-conv border ring: Hopper kernel, wrapper, plain version.
+
+``border_lines`` launches ``border_lines`` of ``csrc/reflect_border.cu``
+(built by ``_build`` with ``nvcc``, called through ``ctypes``), which
+replaces ``_make_kernel`` of the JAX package's kernels/reflect_border.py.
+``ReflectConv``'s ``cuda`` and ``einsum`` backends run a SAME convolution and
+overwrite its one-pixel border ring with these lines; the ring comes from
+the four edge lines of each side alone, the taps folded to ``k0 + k2``
+against the reflected neighbour line and ``k1`` against the edge line, in
+fp32 before the multiply, with fp32 sums.
+
+Layouts are the port's: ``x`` ``(B, C, H, W)``, ``k`` ``(O, C, 3, 3)``,
+both fp32 or both bf16. Returns ``rows`` ``(B, O, 2, W)`` (output rows 0
+and H-1) and ``cols`` ``(B, O, H, 2)`` (output columns 0 and W-1 over all
+rows; the corners equal the rows' values), in the input type.
+
+``border_lines_plain`` is the counterpart of the JAX package's
+``border_lines_einsum``; the wrapper takes it only for a tensor on the CPU.
+On a CUDA tensor it launches the kernel or raises, for any H (the JAX
+kernel's even-H restriction is a TPU block-layout limit).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
+
+__all__ = ["border_lines", "border_lines_plain", "LAUNCHES", "reset_launches"]
+
+# Launches of the kernel by its wrapper.
+LAUNCHES = {"border_lines": 0}
+
+_SOURCE = "reflect_border"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _contract(line: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """``line`` ``(B, C, 2, L)`` reflect-padded along L by one and windowed
+    against ``taps`` ``(O, C, 3)``: ``(B, O, 2, L)`` fp32."""
+    n = line.shape[-1]
+    idx = torch.cat([torch.tensor([1]), torch.arange(n), torch.tensor([n - 2])]).to(line.device)
+    padded = line.float().index_select(-1, idx)
+    win = torch.stack([padded[..., j : j + n] for j in range(3)], dim=3)  # (B, C, 2, 3, L)
+    return torch.einsum("bcsjl,ocj->bosl", win, taps)
+
+
+def border_lines_plain(x: torch.Tensor, k: torch.Tensor):
+    """The border ring as plain tensor ops (the kernel's plain version)."""
+    h, w = x.shape[-2], x.shape[-1]
+    kf = k.float()
+    near_r = torch.stack([x[:, :, 1], x[:, :, h - 2]], dim=2)          # (B, C, 2, W)
+    edge_r = torch.stack([x[:, :, 0], x[:, :, h - 1]], dim=2)
+    rows = _contract(near_r, kf[:, :, 0] + kf[:, :, 2]) + _contract(edge_r, kf[:, :, 1])
+    near_c = torch.stack([x[..., 1], x[..., w - 2]], dim=2)            # (B, C, 2, H)
+    edge_c = torch.stack([x[..., 0], x[..., w - 1]], dim=2)
+    cols = _contract(near_c, kf[..., 0] + kf[..., 2]) + _contract(edge_c, kf[..., 1])
+    return rows.to(x.dtype), cols.transpose(2, 3).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(_SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.border_lines.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
+    lib.border_lines.restype = ctypes.c_int
+    return lib
+
+
+def border_lines(x: torch.Tensor, k: torch.Tensor):
+    """``(rows, cols)`` of the reflect-padded 3x3 conv of ``x`` by ``k``."""
+    if x.ndim != 4 or k.ndim != 4 or tuple(k.shape[1:]) != (x.shape[1], 3, 3):
+        raise ValueError(f"want x (B, C, H, W) and k (O, C, 3, 3), got {tuple(x.shape)}, {tuple(k.shape)}")
+    if x.dtype not in _DTYPES or k.dtype != x.dtype:
+        raise TypeError(f"x and k must both be float32 or bfloat16, got {x.dtype}, {k.dtype}")
+    if x.device != k.device or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x and k must lie on one CPU or CUDA device, got {x.device}, {k.device}")
+    b, c, h, w = x.shape
+    if h < 2 or w < 2:
+        raise ValueError(f"the ring needs H, W >= 2, got {h}x{w}")
+    if x.device.type == "cpu":
+        return border_lines_plain(x, k)
+    if not (x.is_contiguous() and k.is_contiguous()):
+        raise ValueError("x and k must be contiguous")
+    o = k.shape[0]
+    rows = torch.empty(b, o, 2, w, dtype=x.dtype, device=x.device)
+    cols = torch.empty(b, o, h, 2, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        status = _lib().border_lines(
+            _DTYPES[x.dtype], x.data_ptr(), k.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+            b, c, h, w, o, stream,
+        )
+    _build.check_status(status, "border_lines")
+    LAUNCHES["border_lines"] += 1
+    return rows, cols

@@ -7,6 +7,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.models.layers import (
     ReflectConv,
     instance_norm_rows,
     max_pool_ceil,
+    set_reflect_backend,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
     StyleTransferNet,
@@ -22,6 +23,7 @@ __all__ = [
     "ReflectConv",
     "instance_norm_rows",
     "max_pool_ceil",
+    "set_reflect_backend",
     "StyleTransferNet",
     "has_phase_decoder",
     "split_style_vector",

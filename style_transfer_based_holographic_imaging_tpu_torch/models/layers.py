@@ -1,9 +1,8 @@
 """Layer primitives with the reference's torch semantics, NCHW.
 
 Port of the JAX package's ``models/layers.py``: the reflect-padded 3x3 conv
-(the JAX default ``matpad`` backend: materialized reflection pad + VALID
-conv), ceil-mode max pooling, the 2x2 stride-2 transposed conv and the
-row-wise instance norm of the distance head.
+with its border backends, ceil-mode max pooling, the 2x2 stride-2 transposed
+conv and the row-wise instance norm of the distance head.
 """
 
 from __future__ import annotations
@@ -12,7 +11,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ReflectConv", "max_pool_ceil", "ConvTranspose2x2", "instance_norm_rows"]
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import reflect_border
+
+__all__ = [
+    "ReflectConv",
+    "max_pool_ceil",
+    "ConvTranspose2x2",
+    "instance_norm_rows",
+    "set_reflect_backend",
+]
+
+# Border handling of ReflectConv, the JAX package's backends: "matpad"
+# (materialize the reflection pad, VALID conv), "einsum" (SAME conv, then
+# the one-pixel border ring recomputed from the edge lines with tensor ops),
+# "cuda" (the same ring from the Hopper kernel of kernels/reflect_border.py;
+# the JAX package's "pallas") or "auto", which is "matpad" as in the JAX
+# package.
+_REFLECT_BACKENDS = ("auto", "matpad", "einsum", "cuda")
+_REFLECT_BACKEND = "auto"
+
+
+def set_reflect_backend(backend: str) -> None:
+    """Border backend of every ReflectConv: auto, matpad, einsum or cuda."""
+    global _REFLECT_BACKEND
+    if backend not in _REFLECT_BACKENDS:
+        raise ValueError(f"unknown reflect backend {backend!r}")
+    _REFLECT_BACKEND = backend
 
 
 class ReflectConv(nn.Conv2d):
@@ -22,7 +46,19 @@ class ReflectConv(nn.Conv2d):
         super().__init__(in_channels, out_channels, 3, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), self.weight, self.bias)
+        backend = "matpad" if _REFLECT_BACKEND == "auto" else _REFLECT_BACKEND
+        h, w = x.shape[-2], x.shape[-1]
+        if backend == "matpad" or h < 4 or w < 4:
+            return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), self.weight, self.bias)
+        ring = reflect_border.border_lines if backend == "cuda" else reflect_border.border_lines_plain
+        bias = self.bias.view(1, -1, 1)
+        y = F.conv2d(x, self.weight, padding=1) + bias[..., None]
+        rows, cols = ring(x.contiguous(), self.weight)
+        y[:, :, 0] = rows[:, :, 0] + bias
+        y[:, :, h - 1] = rows[:, :, 1] + bias
+        y[:, :, 1 : h - 1, 0] = cols[:, :, 1 : h - 1, 0] + bias
+        y[:, :, 1 : h - 1, w - 1] = cols[:, :, 1 : h - 1, 1] + bias
+        return y
 
 
 def max_pool_ceil(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
@@ -48,7 +84,9 @@ class ConvTranspose2x2(nn.Module):
 
 def instance_norm_rows(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """torch ``InstanceNorm1d`` on a ``(B, F)`` tensor as the reference runs it:
-    each row normalized over its features with the biased variance, no affine."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+    each row normalized over its features with the biased variance, no affine.
+    The means are summed in fp32 and rounded to ``x``'s dtype (``jnp.mean``)."""
+    dt = x.dtype
+    mean = x.float().mean(dim=-1, keepdim=True).to(dt)
+    var = ((x - mean) ** 2).float().mean(dim=-1, keepdim=True).to(dt)
     return (x - mean) * torch.rsqrt(var + eps)

@@ -3,6 +3,11 @@
 The port's conv stack is NCHW, so ``channel_axis`` defaults to 1. Statistics
 reduce over the spatial axes per (sample, channel), with the unbiased (N-1)
 variance plus eps of the reference.
+
+On bf16 features (the int8 serving path) the dtypes sit where ``jnp.mean``
+and ``jnp.sum`` put them: the sums are taken in fp32 and rounded to bf16,
+the products and the rest run in bf16. Style statistics in fp32 promote the
+AdaIN output to fp32, as in JAX.
 """
 
 from __future__ import annotations
@@ -32,9 +37,10 @@ def calc_mean_std(
     n = 1
     for a in axes:
         n *= feat.shape[a]
-    mean = feat.mean(dim=axes, keepdim=True)
+    dt = feat.dtype
+    mean = feat.float().mean(dim=axes, keepdim=True).to(dt)
     centered = feat - mean
-    var = (centered * centered).sum(dim=axes, keepdim=True) / max(n - 1, 1)
+    var = (centered * centered).float().sum(dim=axes, keepdim=True).to(dt) / max(n - 1, 1)
     std = torch.sqrt(var + eps)
     return mean, std
 

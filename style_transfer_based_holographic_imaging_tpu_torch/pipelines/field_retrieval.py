@@ -13,10 +13,9 @@ equal, is hoisted to a Python float: the refocus then takes the
 constant-transfer-function kernel (``asm_const``). A genuinely per-sample
 distance takes the per-image kernel (``asm_dynamic``).
 
-TF32 is switched off at import (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32``): cuDNN would otherwise run every
-fp32 convolution in TF32 (about three decimal digits), and parity with the
-fp32 JAX package needs full fp32.
+``quant_scales`` (from ``models.quant.calibrate_scales``) switches the net
+to the int8 serving path (``models/quant.py``) in ``quant_dtype`` (bf16 by
+default); the physics stays fp32 and every output is fp32 either way.
 """
 
 from __future__ import annotations
@@ -38,13 +37,11 @@ from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
     StyleTransferNet,
     style_stats_nchw,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.models.quant import quant_retrieval_forward
 from style_transfer_based_holographic_imaging_tpu_torch.ops.holo import holo_forward
 from style_transfer_based_holographic_imaging_tpu_torch.utils.misc import static_scalar
 
 __all__ = ["retrieval_step", "make_retrieval_fn", "evaluate_golden_suite"]
-
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _check_device(net: StyleTransferNet, device: torch.device) -> None:
@@ -67,6 +64,8 @@ def retrieval_step(
     alpha: float = 1.0,
     unknown_distance: bool = True,
     unwrap: bool = True,
+    quant_scales: Optional[Dict[str, float]] = None,
+    quant_dtype: torch.dtype = torch.bfloat16,
     asm_backend: Optional[str] = None,
     device: str | torch.device = "cuda",
 ) -> Dict[str, torch.Tensor]:
@@ -75,7 +74,8 @@ def retrieval_step(
     Returns the style-plane field (``amp_field``, ``ph_field``), the field
     refocused to the object plane (``amp_foc``, ``ph_foc``) and, with
     ``unknown_distance``, the predicted content distance (``distance_pred``,
-    ``(B, 1, 1, 1)``), all fp32 on ``device``.
+    ``(B, 1, 1, 1)``), all fp32 on ``device``. ``quant_scales`` runs the net
+    on the int8 path in ``quant_dtype``.
     """
     device = torch.device(device)
     _check_device(net, device)
@@ -84,7 +84,13 @@ def retrieval_step(
     sm = style_stats_nchw(torch.as_tensor(style_mean, **f32))
     ss = style_stats_nchw(torch.as_tensor(style_std, **f32))
 
-    out = net.field_retrieval(content, sm, ss, alpha, unknown_distance=unknown_distance)
+    if quant_scales is not None:
+        out = quant_retrieval_forward(
+            net, content, sm, ss, alpha, scales=quant_scales, compute_dtype=quant_dtype,
+            unknown_distance=unknown_distance,
+        )
+    else:
+        out = net.field_retrieval(content, sm, ss, alpha, unknown_distance=unknown_distance)
     if unknown_distance:
         amp, ph, d_pred = out
     else:
@@ -111,9 +117,9 @@ def retrieval_step(
         unwrap=unwrap,
         asm_backend=asm_backend,
     )
-    result = {"amp_field": amp, "ph_field": ph, "amp_foc": amp_foc, "ph_foc": ph_foc}
+    result = {"amp_field": amp.float(), "ph_field": ph.float(), "amp_foc": amp_foc, "ph_foc": ph_foc}
     if d_pred is not None:
-        result["distance_pred"] = d_pred.reshape(-1, 1, 1, 1)
+        result["distance_pred"] = d_pred.reshape(-1, 1, 1, 1).float()
     return result
 
 
@@ -139,6 +145,8 @@ def make_retrieval_fn(
     alpha: float = 1.0,
     unknown_distance: bool = True,
     unwrap: bool = True,
+    quant_scales: Optional[Dict[str, float]] = None,
+    quant_dtype: torch.dtype = torch.bfloat16,
     asm_backend: Optional[str] = None,
     device: str | torch.device = "cuda",
 ) -> Callable[..., Dict[str, torch.Tensor]]:
@@ -158,6 +166,8 @@ def make_retrieval_fn(
             alpha=alpha,
             unknown_distance=unknown_distance,
             unwrap=unwrap,
+            quant_scales=quant_scales,
+            quant_dtype=quant_dtype,
             asm_backend=asm_backend,
             device=device,
         )
@@ -171,6 +181,8 @@ def evaluate_golden_suite(
     config: Optional[ExperimentConfig] = None,
     *,
     style_override: Optional[Tuple[Any, Any]] = None,
+    dtype: Optional[torch.dtype] = None,
+    quant_scales: Optional[Dict[str, float]] = None,
     device: str | torch.device = "cuda",
 ) -> Dict[str, Any]:
     """Run the 20 x 5 golden suite and return the reference's metrics.
@@ -179,12 +191,22 @@ def evaluate_golden_suite(
     zero-meaned), the (true, predicted) distances in µm, their R², the
     batches whose worst distance misses by more than 25 µm, and the same
     metrics over the held-out batches. Metrics stay on the device until the
-    end of the loop.
+    end of the loop. ``quant_scales`` runs the int8 path in ``dtype`` (bf16
+    when None); without them the net runs fp32, the only dtype of the
+    port's fp net.
     """
     config = config or ExperimentConfig()
     physics = config.physics
     device = torch.device(device)
-    fn = make_retrieval_fn(physics, alpha=config.eval.alpha, device=device)
+    if quant_scales is None and dtype not in (None, torch.float32):
+        raise ValueError(f"the fp net runs float32 only, got dtype {dtype}")
+    fn = make_retrieval_fn(
+        physics,
+        alpha=config.eval.alpha,
+        quant_scales=quant_scales,
+        quant_dtype=dtype or torch.bfloat16,
+        device=device,
+    )
     if style_override is not None:
         sm, ss = style_override
     else:

@@ -1,0 +1,116 @@
+"""The fused conv stacks' plain versions (``kernels/conv_stack.py`` of the
+port) against the JAX package's Pallas kernels in interpret mode and their
+XLA references, on the shapes of tests/test_conv_stack.py.
+
+Tolerances: fp32 ``atol 2e-5``, the JAX package's own budget for the fused
+kernels against their references (fp32 sums in another order). bf16 against
+the Pallas kernel: one bf16 ulp of max|ref| (2^-8 of it): each layer rounds
+to bf16, and a value that its fp32 sum puts on a rounding boundary may round
+the other way in the other package and carry into the next layer. bf16
+against the XLA references: four ulps of max|ref|, because the references
+round each layer twice (the conv sum to bf16, then the bf16 bias add) where
+the fused kernels add the fp32 bias before their one rounding, over up to
+three layers.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from style_transfer_based_holographic_imaging_tpu.kernels import conv_stack as jcs
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import conv_stack
+
+BF16_ULP = 2.0**-8
+
+
+def _k(rng, i, o):
+    return (rng.standard_normal((o, i, 3, 3)) * 0.1).astype(np.float32)  # OIHW
+
+
+def _b(rng, o):
+    return (rng.standard_normal(o) * 0.1).astype(np.float32)
+
+
+def _jax(x_nchw, *layers, fn, dtype):
+    args = [jnp.asarray(np.transpose(x_nchw, (0, 2, 3, 1)), dtype)]
+    for k, b in layers:
+        args += [jnp.asarray(np.transpose(k, (2, 3, 1, 0)), dtype), jnp.asarray(b)]
+    return np.transpose(np.asarray(fn(*args), np.float32), (0, 3, 1, 2))
+
+
+def _port(x, *layers, fn, dtype):
+    args = [torch.as_tensor(x).to(dtype)]
+    for k, b in layers:
+        args += [torch.as_tensor(k).to(dtype), torch.as_tensor(b)]
+    out = fn(*args)
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+def _tail_case(rng):
+    b, c, h, w = 3, 8, 12, 16
+    x = rng.standard_normal((b, c, h, w)).astype(np.float32)
+    return x, (_k(rng, c, c), _b(rng, c)), (_k(rng, c, c), _b(rng, c)), (_k(rng, c, 2), _b(rng, 2))
+
+
+def _head_case(rng, c):
+    b, h, w = 2, 16, 12
+    x = rng.random((b, c, h, w)).astype(np.float32)
+    return x, (_k(rng, c, 8), _b(rng, 8)), (_k(rng, 8, 8), _b(rng, 8))
+
+
+def _check(got, ref, dtype, against):
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, ref, atol=2e-5)
+    else:
+        ulps = 1 if against == "pallas" else 4
+        assert np.abs(got - ref).max() <= ulps * BF16_ULP * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("against", ["pallas", "reference"])
+def test_tail_plain_matches_jax(dtype, against):
+    x, *layers = _tail_case(np.random.default_rng(7))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jfn = jcs.fused_conv_tail if against == "pallas" else jcs.conv_tail_reference
+    ref = _jax(x, *layers, fn=jfn, dtype=jdt)
+    got = _port(x, *layers, fn=conv_stack.fused_conv_tail, dtype=dtype)
+    assert got.shape == (3, 2, 12, 16)
+    _check(got, ref, dtype, against)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("against", ["pallas", "reference"])
+def test_head_plain_matches_jax(dtype, channels, against):
+    x, *layers = _head_case(np.random.default_rng(7), channels)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jfn = jcs.fused_encoder_head if against == "pallas" else jcs.encoder_head_reference
+    ref = _jax(x, *layers, fn=jfn, dtype=jdt)
+    got = _port(x, *layers, fn=conv_stack.fused_encoder_head, dtype=dtype)
+    assert got.shape == (2, 8, 8, 6)
+    _check(got, ref, dtype, against)
+
+
+def test_wrapper_takes_the_plain_version_on_the_cpu():
+    x, *layers = _tail_case(np.random.default_rng(1))
+    args = [torch.as_tensor(x)] + [torch.as_tensor(a) for kb in layers for a in kb]
+    conv_stack.reset_launches()
+    got = conv_stack.fused_conv_tail(*args)
+    assert torch.equal(got, conv_stack.conv_tail_plain(*args))
+    assert conv_stack.LAUNCHES == {"fused_encoder_head": 0, "fused_conv_tail": 0}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    rng = np.random.default_rng(2)
+    x, (k1, b1), (k2, b2) = (torch.as_tensor(a) if not isinstance(a, tuple) else tuple(
+        torch.as_tensor(t) for t in a) for a in _head_case(rng, 1))
+    with pytest.raises(ValueError):  # odd H
+        conv_stack.fused_encoder_head(x[:, :, :15], k1, b1, k2, b2)
+    with pytest.raises(TypeError):  # kernel dtype differs from the input's
+        conv_stack.fused_encoder_head(x, k1.bfloat16(), b1, k2, b2)
+    with pytest.raises(ValueError):  # bias not fp32
+        conv_stack.fused_encoder_head(x, k1, b1.double(), k2, b2)
+    with pytest.raises(ValueError):  # channels do not chain
+        conv_stack.fused_encoder_head(x, k1, b1, k2[:, :4].contiguous(), b2)

@@ -5,21 +5,26 @@ with ``nvcc`` at first use); elsewhere they skip. On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerance on max|err| / max|plain|: the JAX package's budgets per precision
-mode (1e-5 highest, 1e-4 high, 2e-2 bf16); kernel and plain version round
-alike and differ only in the order of their fp32 sums.
+Tolerance on max|err| / max|plain|: for the ASM kernels the JAX package's
+budgets per precision mode (1e-5 highest, 1e-4 high, 2e-2 bf16); kernel and
+plain version round alike and differ only in the order of their fp32 sums.
+For the conv stacks and the border ring: 1e-5 in fp32 (summation order);
+1e-2 in bf16, where a value that the other summation order puts on a bf16
+rounding boundary rounds the other way (2^-8 relative) and carries into the
+next layer.
 """
 
 import pytest
 import torch
 
-from style_transfer_based_holographic_imaging_tpu_torch.kernels import asm_cuda
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import asm_cuda, conv_stack, reflect_border
 from style_transfer_based_holographic_imaging_tpu_torch.ops import asm as torch_asm
 
 pytestmark = pytest.mark.cuda
 
 KW = dict(wavelength=532e-9, pixel_size=1.5e-6)
 BUDGETS = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
+CONV_BUDGETS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -73,3 +78,57 @@ def test_wrapper_rejects_tensors_on_two_devices(card):
         asm_cuda.asm_const(xre, xim.cpu(), -2e-4, **KW)
     with pytest.raises(ValueError):
         asm_cuda.asm_dynamic(xre, xim, torch.zeros(2), **KW)
+
+
+def _stack_args(card, dtype, c, layers, b=2, h=32, w=24, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    args = [torch.rand(b, c, h, w, generator=g).to(card, dtype)]
+    for o in layers:
+        k = torch.randn(o, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5
+        args += [k.to(card, dtype), (0.01 * torch.randn(o, generator=g)).to(card)]
+        c = o
+    return args
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c_in", [1, 3])
+def test_encoder_head_matches_plain_version(card, dtype, c_in):
+    args = _stack_args(card, dtype, c_in, (64, 64))
+    conv_stack.reset_launches()
+    y = conv_stack.fused_encoder_head(*args)
+    p = conv_stack.encoder_head_plain(*args)
+    torch.cuda.synchronize()
+    assert conv_stack.LAUNCHES["fused_encoder_head"] == 1
+    assert y.dtype == dtype and y.shape == p.shape == (2, 64, 16, 12)
+    assert _rel(y.float(), p.float()) < CONV_BUDGETS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 64, 32, 24), (1, 16, 20, 12)])
+def test_conv_tail_matches_plain_version(card, dtype, shape):
+    b, c, h, w = shape
+    args = _stack_args(card, dtype, c, (c, c, 2), b=b, h=h, w=w)
+    conv_stack.reset_launches()
+    y = conv_stack.fused_conv_tail(*args)
+    p = conv_stack.conv_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert conv_stack.LAUNCHES["fused_conv_tail"] == 1
+    assert y.dtype == dtype and y.shape == p.shape == (b, 2, h, w)
+    assert _rel(y.float(), p.float()) < CONV_BUDGETS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 64, 128, 128, 64), (3, 512, 16, 16, 256), (2, 3, 9, 70, 5)])
+def test_border_lines_match_plain_version(card, dtype, shape):
+    b, c, h, w, o = shape
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(b, c, h, w, generator=g).to(card, dtype)
+    k = (torch.randn(o, c, 3, 3, generator=g) * 0.1).to(card, dtype)
+    reflect_border.reset_launches()
+    rows, cols = reflect_border.border_lines(x, k)
+    prows, pcols = reflect_border.border_lines_plain(x, k)
+    torch.cuda.synchronize()
+    assert reflect_border.LAUNCHES["border_lines"] == 1
+    assert rows.dtype == dtype and rows.shape == (b, o, 2, w) and cols.shape == (b, o, h, 2)
+    assert _rel(rows.float(), prows.float()) < CONV_BUDGETS[dtype]
+    assert _rel(cols.float(), pcols.float()) < CONV_BUDGETS[dtype]

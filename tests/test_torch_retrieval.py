@@ -8,7 +8,9 @@
 * the refocus routes: an all-equal style distance takes ``asm_const``, a
   per-sample one ``asm_dynamic``.
 * the flagship release (``checkpoints/release``) restored with orbax,
-  converted, and run by the port on the CPU on held-out golden batch 10.
+  converted, and run by the port on the CPU on held-out golden batch 10;
+  also on the int8 serving path with ``checkpoints/quant_scales.json`` in
+  bf16, fused stacks off and on, against the JAX package on the same batch.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ import torch
 from style_transfer_based_holographic_imaging_tpu.config import ExperimentConfig as JConfig
 from style_transfer_based_holographic_imaging_tpu.config import ModelConfig as JModelConfig
 from style_transfer_based_holographic_imaging_tpu.data import load_golden_suite as j_load_goldens
+from style_transfer_based_holographic_imaging_tpu.models import quant as jquant
 from style_transfer_based_holographic_imaging_tpu.models.net import init_net_params
 from style_transfer_based_holographic_imaging_tpu.pipelines import field_retrieval as jfr
 from style_transfer_based_holographic_imaging_tpu_torch import ExperimentConfig, ModelConfig
@@ -38,6 +41,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.kernels import asm_cuda
 from style_transfer_based_holographic_imaging_tpu_torch.models import (
     StyleTransferNet,
     has_phase_decoder,
+    quant,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (
     evaluate_golden_suite,
@@ -219,3 +223,74 @@ def test_flagship_release_reproduces_golden_batch_10(flagship):
     with open(os.path.join(REPO, "checkpoints", "golden_metrics.json")) as f:
         want = json.load(f)["psnr_per_batch"][batch]
     assert abs(got_psnr - want) < 0.3
+
+
+# The int8 path in bf16, port against JAX. bf16 keeps about three significant
+# digits and the two frameworks round in different places (XLA keeps fp32
+# inside fused elementwise chains, eager torch rounds after each op), and a
+# bf16 value one ulp apart may requantize to the neighbouring int8 step. So:
+# amp_foc within 2e-2 of max|ref|; distance_pred within 1e-2 (one bf16 ulp of
+# a distance near 1 is 3.9e-3); the zero-meaned ph_foc within 3e-2 rad modulo
+# 2 pi in at least 99.9 % of the pixels; the batch PSNR within 0.3 dB of the
+# JAX package's, the fast gate's rule. Measured on a CPU: amp_foc 1.3e-2
+# (stacks off) and 8.6e-3 (on), distance 3.9e-3 and 2.0e-3, every pixel
+# within 3e-2 rad, PSNR 0.005 and 0.012 dB apart.
+INT8_AMP_TOL = 2e-2
+INT8_DIST_TOL = 1e-2
+INT8_PHASE_TOL = 3e-2
+INT8_PHASE_FRACTION = 0.999
+
+
+@pytest.fixture(scope="module")
+def flagship_int8(flagship):
+    """The JAX package's int8 outputs on golden batch 10, stacks off and on
+    (one jitted run each)."""
+    params, _, _ = flagship
+    scales = quant.load_scales(os.path.join(REPO, "checkpoints", "quant_scales.json"))
+    sm, ss = load_style_vector(os.path.join(REPO, "checkpoints", "style_vector.npz"))
+    goldens = load_golden_suite()
+    with open(os.path.join(REPO, "checkpoints", "config.json")) as f:
+        jcfg = JConfig.from_json(f.read())
+    refs = {}
+    try:
+        for mode in ("off", "on"):
+            jquant.set_fused_stacks(mode)
+            fn = jfr.make_retrieval_fn(jcfg.physics, width=jcfg.model.width, quant_scales=scales)
+            out = fn(params, jnp.asarray(goldens.content_holo[10]), jnp.asarray(sm),
+                     jnp.asarray(ss), goldens.distance_style[10])
+            refs[mode] = {k: np.asarray(v) for k, v in out.items()}
+    finally:
+        jquant.set_fused_stacks("off")
+    return scales, (sm, ss), goldens, refs
+
+
+@pytest.mark.parametrize("mode", ["off", "on"])
+def test_flagship_int8_path_matches_jax_on_golden_batch_10(flagship, flagship_int8, mode):
+    _, net, cfg = flagship
+    scales, (sm, ss), goldens, refs = flagship_int8
+    ref = refs[mode]
+    quant.set_fused_stacks(mode)
+    try:
+        got = make_retrieval_fn(cfg.physics, quant_scales=scales, device="cpu")(
+            net, goldens.content_holo[10], sm, ss, goldens.distance_style[10]
+        )
+    finally:
+        quant.set_fused_stacks("off")
+    for key in ref:
+        assert got[key].dtype == torch.float32 and tuple(got[key].shape) == ref[key].shape, key
+
+    amp_err = _rel(got["amp_foc"].numpy(), ref["amp_foc"])
+    dist_err = np.abs(got["distance_pred"].numpy() - ref["distance_pred"]).max()
+    zm = lambda x: x - x.mean(axis=(-2, -1), keepdims=True)  # noqa: E731
+    dph = zm(got["ph_foc"].numpy()) - zm(ref["ph_foc"])
+    wrapped = np.abs(np.mod(dph + math.pi, 2 * math.pi) - math.pi)
+    within = (wrapped < INT8_PHASE_TOL).mean()
+    gt = tmetrics.zero_mean(torch.as_tensor(goldens.gt_phase[10]))
+    psnr_port = float(tmetrics.psnr(tmetrics.zero_mean(got["ph_foc"]), gt))
+    psnr_jax = float(tmetrics.psnr(tmetrics.zero_mean(torch.tensor(ref["ph_foc"])), gt))
+    print(f"stacks {mode}: amp_foc {amp_err:.3g}, distance {dist_err:.3g}, "
+          f"phase within {INT8_PHASE_TOL} rad {within:.6f}, PSNR {psnr_port:.5f} vs {psnr_jax:.5f}")
+    assert amp_err < INT8_AMP_TOL
+    assert dist_err < INT8_DIST_TOL
+    assert within >= INT8_PHASE_FRACTION
+    assert abs(psnr_port - psnr_jax) < 0.3
