@@ -8,7 +8,7 @@ line naming it and ends the run with exit code 3; nothing hangs):
 
 1. ``device``  — a CUDA card must be present (else exit 2); prints the card's
    name and power limit (``nvidia-smi``) and the TF32 flags.
-2. ``build``   — removes stale build files, compiles the three kernel sources
+2. ``build``   — removes stale build files, compiles the four kernel sources
    with one ``nvcc`` each, all started together, loads the libraries with
    ``ctypes``.
 3. ``kernels`` — each kernel against its plain PyTorch version. The ASM
@@ -40,23 +40,36 @@ line naming it and ends the run with exit code 3; nothing hangs):
 6. ``reflect`` — ``retrieval_step`` on one golden batch with the reflect
    backend ``cuda`` (the border ring must launch once for each of the net's
    20 reflect convs), against the ``matpad`` backend on the card.
-7. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
+7. ``halo``    — the halo row-block decoder tail, the path of
+   ``scripts/port_exp_halo_conv.py``: ``halo_conv_tail`` and
+   ``halo_conv_tail_static`` at B = 256, 128^2 x 64 -> 2, bf16, bh 30 and
+   60, with the halo counts reset just before and read just after (both
+   kernels must have launched). Then both kernels against
+   ``halo_conv_tail_plain`` at B = 5 and 256, fp32 and bf16, bh 30 and 60,
+   C = 64 (flagship) and 16 (``ultra``'s width), and their interior rows
+   against ``fused_conv_tail`` on the same input (the same function there),
+   to the conv tolerances. Then both kernels and ``conv_tail_reference`` on
+   the card against the port's CPU versions on the same inputs (the edge
+   rows' strips take cuDNN's convs on the card), bf16 edge rows within four
+   ulps of max|ref|. Times at B = 256 of the script's rows.
+8. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
    version and its library call, and of the whole ``retrieval_step``
    (holograms/s): fp32, int8 with the stacks on, fp32 with the ring.
 
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero before that line. The script imports the port, torch, numpy and the
-standard library only.
+non-zero before that line. The script imports the port (and the port's
+``scripts/port_exp_halo_conv.py``), torch, numpy and the standard library
+only.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import threading
@@ -78,6 +91,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.kernels import (  # noqa
     _build,
     asm_cuda,
     conv_stack,
+    halo_conv,
     reflect_border,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models import (  # noqa: E402
@@ -97,11 +111,27 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # no
     evaluate_golden_suite,
     retrieval_step,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.utils.bench import (  # noqa: E402
+    median_ms,
+    seeded_stack,
+)
+
+
+def _load_script(name: str):
+    path = os.path.join(REPO, "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# The halo tail's experiment: its rows are the halo phase's timed rows.
+halo_exp = _load_script("port_exp_halo_conv")
 
 TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0,
-    "quant": 90.0, "reflect": 60.0, "timing": 120.0,
+    "quant": 90.0, "reflect": 60.0, "halo": 60.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
 # Card tolerances for the same golden batch on the card (cuDNN fp32 convs,
@@ -207,20 +237,9 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
-    """Median over ``reps`` calls of CUDA-event time, in ms."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def bf16_ulp(ref) -> float:
+    """bf16's spacing at max|ref|, 2^(floor(log2 max|ref|) - 7)."""
+    return 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
 
 
 def random_planes(b: int, seed: int, device):
@@ -339,21 +358,18 @@ def compare_card_cpu(net, goldens, cfg, batch: int):
         "card and CPU on the slice")}
 
 
-def stack_args(b: int, dtype, c_in: int, widths, seed: int, device):
-    """Input and (kernel, bias) pairs of a conv stack at flagship shapes:
-    He-normal kernels in ``dtype``, fp32 biases, activations in [0, 1)."""
-    g = torch.Generator().manual_seed(seed)
-    args = [torch.rand(b, c_in, IMAGE, IMAGE, generator=g).to(device, dtype)]
-    c = c_in
-    for o in widths:
-        k = torch.randn(o, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5
-        args += [k.to(device, dtype), (0.01 * torch.randn(o, generator=g)).to(device)]
-        c = o
-    return args
-
-
 HEAD_WIDTHS = (64, 64)      # conv1_1 on the folded one-channel stem, conv1_2
-TAIL_WIDTHS = (64, 64, 2)   # conv8, conv9, conv10
+TAIL_WIDTHS = halo_exp.TAIL_WIDTHS  # conv8, conv9, conv10
+# The halo tail: block heights of scripts/exp_halo_conv.py, and the tail's
+# input widths of the flagship (64) and the `ultra` release (16).
+HALO_BH = (30, 60)
+HALO_WIDTHS = (64, 16)
+HALO_KERNELS = {"halo_conv_tail": halo_conv.halo_conv_tail,
+                "halo_conv_tail_static": halo_conv.halo_conv_tail_static}
+# Each kernel's row in scripts/port_exp_halo_conv.py.
+HALO_ROWS = {"halo_conv_tail": "halo", "halo_conv_tail_static": "halo_static"}
+# bf16 ulps of max|ref| allowed where the strips' conv differs by device.
+HALO_EDGE_ULPS = 4
 
 
 def ring_args(b: int, dtype, layer, seed: int, device):
@@ -371,10 +387,10 @@ def check_conv_kernels(device, batches=(5, 256)):
     for b in batches:
         for dtype in CONV_TOLERANCES:
             cases.append(("fused_encoder_head", b, dtype, None,
-                          lambda b=b, dt=dtype: stack_args(b, dt, 1, HEAD_WIDTHS, b, device),
+                          lambda b=b, dt=dtype: seeded_stack(b, dt, 1, HEAD_WIDTHS, b, device),
                           conv_stack.fused_encoder_head, conv_stack.encoder_head_plain))
             cases.append(("fused_conv_tail", b, dtype, None,
-                          lambda b=b, dt=dtype: stack_args(b, dt, 64, TAIL_WIDTHS, b, device),
+                          lambda b=b, dt=dtype: seeded_stack(b, dt, 64, TAIL_WIDTHS, b, device),
                           conv_stack.fused_conv_tail, conv_stack.conv_tail_plain))
             for layer in RING_LAYERS:
                 cases.append(("border_lines", b, dtype, layer,
@@ -396,6 +412,138 @@ def check_conv_kernels(device, batches=(5, 256)):
             _die(f"kernel check failed: {json.dumps(row)}", 1)
         del args, got, ref
     return rows
+
+
+def drive_halo(device):
+    """The halo slice's path, as ``scripts/port_exp_halo_conv.py`` drives it:
+    both entry points on one seeded flagship-width input at B = 256 in bf16,
+    at each block height. Returns (args, outputs by kernel and bh)."""
+    args = seeded_stack(B_TIMING, torch.bfloat16, 64, TAIL_WIDTHS, 3, device)
+    outs = {(name, bh): fn(*args, bh=bh) for bh in HALO_BH for name, fn in HALO_KERNELS.items()}
+    return args, outs
+
+
+def check_halo_outputs(args, outs):
+    """Finite outputs of the tail's shape that agree with the plain version
+    on the first images."""
+    b = args[0].shape[0]
+    head = [a[:2] if i == 0 else a for i, a in enumerate(args)]
+    for (name, bh), y in outs.items():
+        if tuple(y.shape) != (b, 2, IMAGE, IMAGE) or not bool(torch.isfinite(y).all()):
+            _die(f"halo output of {name} at bh {bh}: shape {tuple(y.shape)} or non-finite", 1)
+        ref = halo_conv.halo_conv_tail_plain(*head, bh=bh).float()
+        if not rel_err(y[:2].float(), ref) < CONV_TOLERANCES[torch.bfloat16]:
+            _die(f"halo output of {name} at bh {bh} disagrees with the plain version", 1)
+
+
+def check_halo_kernels(device, batches=(5, 256)):
+    """Both halo kernels against ``halo_conv_tail_plain``, and their interior
+    rows against ``fused_conv_tail`` on the same input."""
+    edge = halo_conv.EDGE
+    rows = []
+    for b in batches:
+        for dtype, tol in CONV_TOLERANCES.items():
+            for c in HALO_WIDTHS:
+                args = seeded_stack(b, dtype, c, (c, c, 2), b + c, device)
+                fused = conv_stack.fused_conv_tail(*args)[:, :, edge:-edge].float()
+                for bh in HALO_BH:
+                    plain = halo_conv.halo_conv_tail_plain(*args, bh=bh).float()
+                    for name, fn in HALO_KERNELS.items():
+                        got = fn(*args, bh=bh).float()
+                        torch.cuda.synchronize()
+                        row = {"kernel": name, "B": b, "dtype": _dt(dtype), "C": c, "bh": bh,
+                               "tol": tol, "max_abs_err": float((got - plain).abs().max()),
+                               "rel_err_vs_plain": rel_err(got, plain),
+                               "interior_rel_err_vs_fused_tail": rel_err(got[:, :, edge:-edge], fused)}
+                        rows.append(row)
+                        if not (row["rel_err_vs_plain"] < tol
+                                and row["interior_rel_err_vs_fused_tail"] < tol):
+                            _die(f"halo kernel check failed: {json.dumps(row)}", 1)
+                        del got
+                    del plain
+                del args, fused
+    return rows
+
+
+def check_halo_card_vs_cpu(device, b: int = 2, bh: int = HALO_BH[0]):
+    """Both halo kernels and ``conv_tail_reference`` on the card against the
+    port's CPU versions on the same inputs, which tests/test_torch_halo_conv.py
+    holds to the JAX package. On the card the strips are cuDNN's convs in
+    x's dtype, on the CPU fp32 convs rounded once; each then rounds the bias
+    add. fp32: CONV_TOLERANCES throughout. bf16: the interior rows within
+    CONV_TOLERANCES, the 4 + 4 edge rows and the whole reference within
+    HALO_EDGE_ULPS bf16 ulps of max|ref| (the CPU tests' edge budget)."""
+    edge = halo_conv.EDGE
+    rows = []
+    for dtype, tol in CONV_TOLERANCES.items():
+        for c in HALO_WIDTHS:
+            args = seeded_stack(b, dtype, c, (c, c, 2), 7 + c, device)
+            cpu_args = [t.cpu() for t in args]
+            plain = halo_conv.halo_conv_tail_plain(*cpu_args, bh=bh).float()
+            ref = conv_stack.conv_tail_reference(*cpu_args).float()
+            card_ref = conv_stack.conv_tail_reference(*args).float().cpu()
+            row = {"B": b, "dtype": _dt(dtype), "C": c, "bh": bh, "tol": tol,
+                   "edge_ulps_budget": HALO_EDGE_ULPS,
+                   "reference_ulps": float((card_ref - ref).abs().max()) / bf16_ulp(ref),
+                   "reference_rel_err": rel_err(card_ref, ref)}
+            ok = (row["reference_ulps"] <= HALO_EDGE_ULPS if dtype == torch.bfloat16
+                  else row["reference_rel_err"] < tol)
+            for name, fn in HALO_KERNELS.items():
+                got = fn(*args, bh=bh).float().cpu()
+                inner, outer = got[:, :, edge:-edge], torch.cat([got[:, :, :edge], got[:, :, -edge:]], 2)
+                p_inner = plain[:, :, edge:-edge]
+                p_outer = torch.cat([plain[:, :, :edge], plain[:, :, -edge:]], 2)
+                row[name] = {"interior_rel_err": rel_err(inner, p_inner),
+                             "edge_rel_err": float((outer - p_outer).abs().max() / plain.abs().max()),
+                             "edge_ulps": float((outer - p_outer).abs().max()) / bf16_ulp(plain)}
+                ok = ok and row[name]["interior_rel_err"] < tol and (
+                    row[name]["edge_ulps"] <= HALO_EDGE_ULPS if dtype == torch.bfloat16
+                    else row[name]["edge_rel_err"] < tol)
+            rows.append(row)
+            if not ok:
+                _die(f"halo tail on the card and the CPU disagree: {json.dumps(row)}", 1)
+    return rows
+
+
+def halo_bounds(peak_flops, peak_bytes, b: int):
+    """Least time (ms) and what bounds it, by dtype, for the halo tail at
+    flagship width: ``function`` is the entry point's function, the tail on
+    all H rows (x read once, the output written once; the same as the fused
+    tail's bound), ``interior`` the kernel's work alone (rows 4..H-5,
+    reading input rows 1..H-2)."""
+    macs_px = 9 * (64 * 64 + 64 * 64 + 64 * 2)
+    h = w = IMAGE
+    edge = halo_conv.EDGE
+    out = {}
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        size = 2 if dtype == torch.bfloat16 else 4
+        weights = macs_px * size + 130 * 4
+        for part, rows, in_rows in (("interior", h - 2 * edge, h - 2), ("function", h, h)):
+            t_ops = 2 * macs_px * rows * w * b / peak_flops[kind] * 1e3
+            t_bytes = ((64 * in_rows + 2 * rows) * w * size * b + weights) / peak_bytes * 1e3
+            out[part, dtype] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def time_halo(device):
+    """CUDA-event medians at B = 256, by dtype: the rows of
+    ``scripts/port_exp_halo_conv.py`` (its ``xla_tail``, the port's
+    ``conv_tail_reference``, is the cuDNN composition of the tail), each
+    kernel's launch alone, and the plain versions."""
+    out = {}
+    for dtype in CONV_TOLERANCES:
+        a = seeded_stack(B_TIMING, dtype, 64, TAIL_WIDTHS, 2, device)
+        t = {name: median_ms(fn, reps=7) for name, fn in halo_exp.rows(a, HALO_BH).items()}
+        for bh in HALO_BH:
+            for row, static in (("halo", False), ("halo_static", True)):
+                t[f"{row}_interior_bh{bh}"] = median_ms(lambda: halo_conv.halo_interior(
+                    *a, bh=bh, static=static), reps=7)
+            t[f"plain_bh{bh}"] = median_ms(lambda: halo_conv.halo_conv_tail_plain(*a, bh=bh), reps=5)
+            t[f"plain_interior_bh{bh}"] = median_ms(
+                lambda: halo_conv.halo_interior_plain(*a, bh=bh), reps=5)
+        out[_dt(dtype)] = t
+        del a
+    return out
 
 
 def compare_outputs(got, ref, amp_tol, dist_tol, phase_tol, phase_fraction, label):
@@ -553,14 +701,6 @@ def head_library(x, k1, b1, k2, b2):
     return F.max_pool2d(x, 2, 2)
 
 
-def tail_library(x, k8, b8, k9, b9, k10, b10):
-    """The cuDNN composition of the tail in x's dtype (timing yardstick)."""
-    for k, b, relu in ((k8, b8, True), (k9, b9, True), (k10, b10, False)):
-        x = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), k, b.to(x.dtype))
-        x = F.relu(x) if relu else x
-    return x
-
-
 def conv_bounds(peak_flops, peak_bytes, b: int):
     """Least time (ms) and what bounds it, for each conv kernel at batch b
     and dtype: the larger of its operations over the card's peak rate for
@@ -611,6 +751,7 @@ def main() -> int:
         asm_cuda._lib()
         conv_stack._lib()
         reflect_border._lib()
+        halo_conv._lib()
         phase.info = {"nvcc_seconds": seconds, "removed_stale": removed, "build_dir": _build.BUILD_DIR}
 
     with open(os.path.join(REPO, "checkpoints", "config.json")) as f:
@@ -699,6 +840,25 @@ def main() -> int:
                 SLICE_PHASE_FRACTION, "reflect backends cuda and matpad"),
         }
 
+    with Phase("halo") as phase:
+        halo_conv.reset_launches()
+        halo_args, halo_outs = drive_halo(dev)
+        torch.cuda.synchronize()
+        launches.update(halo_conv.LAUNCHES)
+        if not all(launches[k] > 0 for k in halo_conv.LAUNCHES):
+            _die(f"the halo path did not launch both kernels: {halo_conv.LAUNCHES}", 1)
+        check_halo_outputs(halo_args, halo_outs)
+        del halo_args, halo_outs
+        halo_rows = check_halo_kernels(dev)
+        halo_card_vs_cpu = check_halo_card_vs_cpu(dev)
+        halo_ms = time_halo(dev)
+        halo_b = halo_bounds(peak_flops, peak_bytes, B_TIMING)
+        phase.info = {
+            "launches": {k: launches[k] for k in halo_conv.LAUNCHES},
+            "checks": halo_rows, "card_vs_cpu": halo_card_vs_cpu, "B": B_TIMING, "ms": halo_ms,
+            "bound_ms": {f"{p}/{_dt(d)}": v for (p, d), v in halo_b.items()},
+        }
+
     with Phase("timing") as phase:
         kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
         b = B_TIMING
@@ -707,14 +867,14 @@ def main() -> int:
         dist = spread_distances(b, dev)
         timings = {
             "asm_const": (
-                cuda_ms(lambda: asm_cuda.asm_const(xre, xim, SERVING_REFOCUS_M, **kw)),
-                cuda_ms(lambda: asm_cuda.asm_const_plain(xre, xim, SERVING_REFOCUS_M, **kw)),
-                cuda_ms(lambda: propagate_torch(field, SERVING_REFOCUS_M, **kw)),
+                median_ms(lambda: asm_cuda.asm_const(xre, xim, SERVING_REFOCUS_M, **kw)),
+                median_ms(lambda: asm_cuda.asm_const_plain(xre, xim, SERVING_REFOCUS_M, **kw)),
+                median_ms(lambda: propagate_torch(field, SERVING_REFOCUS_M, **kw)),
             ),
             "asm_dynamic": (
-                cuda_ms(lambda: asm_cuda.asm_dynamic(xre, xim, dist, **kw)),
-                cuda_ms(lambda: asm_cuda.asm_dynamic_plain(xre, xim, dist, **kw)),
-                cuda_ms(lambda: propagate_torch(field, dist.reshape(b, 1, 1), **kw)),
+                median_ms(lambda: asm_cuda.asm_dynamic(xre, xim, dist, **kw)),
+                median_ms(lambda: asm_cuda.asm_dynamic_plain(xre, xim, dist, **kw)),
+                median_ms(lambda: propagate_torch(field, dist.reshape(b, 1, 1), **kw)),
             ),
         }
         holo = torch.as_tensor(
@@ -722,12 +882,12 @@ def main() -> int:
         )
         step = lambda: retrieval_step(  # noqa: E731
             net, holo, goldens.style_mean, goldens.style_std, 0.2, physics, device=dev)
-        step_ms = cuda_ms(step, reps=5, warmup=2)
+        step_ms = median_ms(step, reps=5, warmup=2)
         by_precision = {
             prec: {
-                "asm_const": cuda_ms(lambda: asm_cuda.asm_const(
+                "asm_const": median_ms(lambda: asm_cuda.asm_const(
                     xre, xim, SERVING_REFOCUS_M, precision=prec, **kw), reps=7),
-                "asm_dynamic": cuda_ms(lambda: asm_cuda.asm_dynamic(
+                "asm_dynamic": median_ms(lambda: asm_cuda.asm_dynamic(
                     xre, xim, dist, precision=prec, **kw), reps=7),
             }
             for prec in TOLERANCES
@@ -743,14 +903,15 @@ def main() -> int:
             amp_t, ph_t, _ = net.field_retrieval(content, sm, ss, unknown_distance=True)
             _, ph_foc = holo_forward(amp_t, ph_t, -0.2, physics, return_field=True)
             stages_ms = {
-                "net": cuda_ms(lambda: net.field_retrieval(
+                "net": median_ms(lambda: net.field_retrieval(
                     content, sm, ss, unknown_distance=True), reps=5, warmup=1),
-                "refocus": cuda_ms(lambda: holo_forward(
+                "refocus": median_ms(lambda: holo_forward(
                     amp_t, ph_t, -0.2, physics, return_field=True), reps=5, warmup=1),
-                "unwrap": cuda_ms(lambda: unwrap_phase(ph_foc), reps=5, warmup=1),
+                "unwrap": median_ms(lambda: unwrap_phase(ph_foc), reps=5, warmup=1),
             }
         # The conv kernels: kernel, plain version and library call (the cuDNN
-        # composition of the same stack in the same dtype; the ring has no
+        # composition of the same stack in the same dtype, for the tail the
+        # port's conv_tail_reference; the ring has no
         # single PyTorch call), bf16 (the int8 path's dtype) and fp32; the
         # ring at the decoder's 128^2 64->64 layer, and in fp32 at each
         # checked layer.
@@ -760,21 +921,21 @@ def main() -> int:
                 ("fused_encoder_head", 1, HEAD_WIDTHS, conv_stack.fused_encoder_head,
                  conv_stack.encoder_head_plain, head_library),
                 ("fused_conv_tail", 64, TAIL_WIDTHS, conv_stack.fused_conv_tail,
-                 conv_stack.conv_tail_plain, tail_library),
+                 conv_stack.conv_tail_plain, conv_stack.conv_tail_reference),
             ):
-                a = stack_args(b, dtype, c_in, widths, 2, dev)
+                a = seeded_stack(b, dtype, c_in, widths, 2, dev)
                 conv_timings[kname, dtype] = (
-                    cuda_ms(lambda: run(*a), reps=7), cuda_ms(lambda: plain(*a), reps=5),
-                    cuda_ms(lambda: lib(*a), reps=7))
+                    median_ms(lambda: run(*a), reps=7), median_ms(lambda: plain(*a), reps=5),
+                    median_ms(lambda: lib(*a), reps=7))
                 del a
             x, k = ring_args(b, dtype, RING_LAYERS[0], 2, dev)
             conv_timings["border_lines", dtype] = (
-                cuda_ms(lambda: reflect_border.border_lines(x, k)),
-                cuda_ms(lambda: reflect_border.border_lines_plain(x, k), reps=7), None)
+                median_ms(lambda: reflect_border.border_lines(x, k)),
+                median_ms(lambda: reflect_border.border_lines_plain(x, k), reps=7), None)
         ring_layers_ms = {}
         for layer in RING_LAYERS:
             x, k = ring_args(b, torch.float32, layer, 2, dev)
-            ring_layers_ms["x".join(map(str, layer))] = cuda_ms(lambda: reflect_border.border_lines(x, k))
+            ring_layers_ms["x".join(map(str, layer))] = median_ms(lambda: reflect_border.border_lines(x, k))
         del x, k
         conv_b = conv_bounds(peak_flops, peak_bytes, b)
 
@@ -785,7 +946,7 @@ def main() -> int:
         q_step = lambda: retrieval_step(  # noqa: E731
             net, holo, goldens.style_mean, goldens.style_std, 0.2, physics,
             quant_scales=scales, device=dev)
-        q_step_ms = cuda_ms(q_step, reps=5, warmup=2)
+        q_step_ms = median_ms(q_step, reps=5, warmup=2)
         qkw = dict(scales=scales, compute_dtype=bf16)
         with torch.inference_mode():
             feat = quant.quant_encode(net.encoder, content, **qkw)
@@ -794,20 +955,20 @@ def main() -> int:
             q_amp, q_ph = g_out[:, 0:1], g_out[:, 1:2]
             _, q_ph_foc = holo_forward(q_amp, q_ph, -0.2, physics, return_field=True)
             q_stages_ms = {
-                "encoder": cuda_ms(lambda: quant.quant_encode(net.encoder, content, **qkw),
+                "encoder": median_ms(lambda: quant.quant_encode(net.encoder, content, **qkw),
                                    reps=5, warmup=1),
-                "adain": cuda_ms(lambda: adain_with_stats(feat, sm, ss), reps=5, warmup=1),
-                "decoder": cuda_ms(lambda: quant.quant_decode(net.decoder, t_feat, **qkw),
+                "adain": median_ms(lambda: adain_with_stats(feat, sm, ss), reps=5, warmup=1),
+                "decoder": median_ms(lambda: quant.quant_decode(net.decoder, t_feat, **qkw),
                                    reps=5, warmup=1),
-                "distance_head": cuda_ms(lambda: net.distance_g(calc_mean_std(feat), dtype=bf16),
+                "distance_head": median_ms(lambda: net.distance_g(calc_mean_std(feat), dtype=bf16),
                                          reps=5, warmup=1),
-                "refocus": cuda_ms(lambda: holo_forward(
+                "refocus": median_ms(lambda: holo_forward(
                     q_amp, q_ph, -0.2, physics, return_field=True), reps=5, warmup=1),
-                "unwrap": cuda_ms(lambda: unwrap_phase(q_ph_foc), reps=5, warmup=1),
+                "unwrap": median_ms(lambda: unwrap_phase(q_ph_foc), reps=5, warmup=1),
             }
         quant.set_fused_stacks("auto")
         set_reflect_backend("cuda")
-        r_step_ms = cuda_ms(step, reps=5, warmup=2)
+        r_step_ms = median_ms(step, reps=5, warmup=2)
         set_reflect_backend("auto")
 
         # The least time for one propagate of b images, in each precision
@@ -903,6 +1064,35 @@ def main() -> int:
             "ms_by_dtype": {_dt(d): conv_timings[k, d][0] for d in CONV_TOLERANCES},
             "bound_ms_by_dtype": {_dt(d): conv_b[k, d][0] for d in CONV_TOLERANCES},
             "library_ms": conv_timings[k, dt][2],
+        })
+    halo_where = {"halo_conv_tail": jk + "halo_conv.py:105",
+                  "halo_conv_tail_static": jk + "halo_conv.py:175"}
+    bf16, bh = torch.bfloat16, HALO_BH[0]
+    for k, where in halo_where.items():
+        mine = [r for r in halo_rows if r["kernel"] == k]
+        at = [r for r in mine if r["B"] == b and r["dtype"] == _dt(bf16) and r["C"] == 64
+              and r["bh"] == bh][0]
+        kernels.append({
+            "name": k, "route": "cuda", "source": csrc + "halo_conv.cu", "replaces": where,
+            "launches": launches[k], "dtype": _dt(bf16), "bh": bh, "C": 64,
+            "max_abs_err": at["max_abs_err"],
+            "max_rel_err": max(r["rel_err_vs_plain"] for r in mine if r["dtype"] == _dt(bf16)),
+            "tol": CONV_TOLERANCES[bf16],
+            "rel_err_by_dtype": {
+                _dt(d): max(r["rel_err_vs_plain"] for r in mine if r["dtype"] == _dt(d))
+                for d in CONV_TOLERANCES
+            },
+            "tol_by_dtype": {_dt(d): t for d, t in CONV_TOLERANCES.items()},
+            "ms": halo_ms[_dt(bf16)][f"{HALO_ROWS[k]}_bh{bh}"],
+            "plain_ms": halo_ms[_dt(bf16)][f"plain_bh{bh}"],
+            "bound_ms": halo_b["function", bf16][0], "bound_by": halo_b["function", bf16][1],
+            "library_ms": halo_ms[_dt(bf16)]["xla_tail"],
+            "interior_ms": halo_ms[_dt(bf16)][f"{HALO_ROWS[k]}_interior_bh{bh}"],
+            "interior_plain_ms": halo_ms[_dt(bf16)][f"plain_interior_bh{bh}"],
+            "interior_bound_ms": halo_b["interior", bf16][0],
+            "ms_by_dtype_bh": {f"{d}/bh{h}": halo_ms[d][f"{HALO_ROWS[k]}_bh{h}"]
+                               for d in halo_ms for h in HALO_BH},
+            "bound_ms_by_dtype": {_dt(d): halo_b["function", d][0] for d in CONV_TOLERANCES},
         })
     emit({"wall_seconds": round(time.monotonic() - _t_start, 3)})
     print(smi, flush=True)

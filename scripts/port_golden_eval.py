@@ -10,7 +10,7 @@ JSON line: the port's metrics beside the release's recorded values.
         [--config checkpoints/config.json] [--recorded checkpoints/golden_metrics.json]
 
 ``--quant`` evaluates the int8 serving path in bf16 with the scales of
-``checkpoints/quant_scales.json``, against
+``--scales`` (default ``checkpoints/quant_scales.json``), against
 ``checkpoints/quant_golden_metrics.json`` unless ``--recorded`` is given;
 ``--fused-stacks on|off`` sets the fused head and tail (default off, the
 mode the recorded int8 metrics were taken in). ``--jax`` also runs the JAX
@@ -38,6 +38,7 @@ def main() -> int:
     ap.add_argument("--config", default="checkpoints/config.json")
     ap.add_argument("--recorded", default=None)
     ap.add_argument("--quant", action="store_true", help="the int8 serving path, bf16")
+    ap.add_argument("--scales", default="checkpoints/quant_scales.json")
     ap.add_argument("--fused-stacks", choices=("on", "off"), default="off")
     ap.add_argument("--jax", action="store_true", help="also run the JAX package's evaluation")
     args = ap.parse_args()
@@ -76,7 +77,7 @@ def main() -> int:
     net.load_state_dict(convert_params(params), strict=True)
     net.eval()
     style = load_style_vector(path(args.style))
-    scales = quant.load_scales(path("checkpoints/quant_scales.json")) if args.quant else None
+    scales = quant.load_scales(path(args.scales)) if args.quant else None
     quant.set_fused_stacks(args.fused_stacks)
 
     t0 = time.perf_counter()

@@ -2,8 +2,8 @@
 
 Each kernel module keeps a ``LAUNCHES`` count per kernel and a
 ``reset_launches``: ``asm_cuda`` (the ASM propagator), ``conv_stack`` (the
-int8 path's fused head and tail) and ``reflect_border`` (the reflect-conv
-border ring).
+int8 path's fused head and tail), ``halo_conv`` (the decoder tail in row
+blocks with a halo) and ``reflect_border`` (the reflect-conv border ring).
 """
 
 from style_transfer_based_holographic_imaging_tpu_torch.kernels.asm_cuda import (

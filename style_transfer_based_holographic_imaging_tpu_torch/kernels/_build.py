@@ -6,9 +6,11 @@ library of its own with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library's name carries a hash of the source and the flags, so an edit
-rebuilds and a stale library is never loaded. ``build`` starts one ``nvcc``
-per named source, all at once, and waits for them. Each writes to a
+The library's name carries a hash of the source, of the headers it
+includes with ``#include "..."`` (found beside it, followed recursively), and
+of the flags, so an edit of any of them rebuilds and a stale library is
+never loaded. ``build`` starts one ``nvcc`` per named source, all at once,
+and waits for them. Each writes to a
 temporary name that is renamed into place when its build succeeds: a build
 that was cut off leaves no partial library under the final name, and
 ``remove_stale`` deletes what such a build left. Nothing here runs at import.
@@ -20,6 +22,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,7 +41,7 @@ NVCC_FLAGS = (
 )
 _BUILD_TIMEOUT_S = 240.0
 # Every kernel source of the port, by name (csrc/<name>.cu).
-SOURCES = ("asm_propagate", "conv_stack", "reflect_border")
+SOURCES = ("asm_propagate", "conv_stack", "halo_conv", "reflect_border")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -55,9 +58,26 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found on PATH or under $CUDA_HOME/bin")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _source_text(path: str, seen: set) -> bytes:
+    """The file's bytes followed by those of each local header it includes,
+    each file once."""
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    parts = [text]
+    for inc in _LOCAL_INCLUDE.findall(text):
+        header = os.path.normpath(os.path.join(os.path.dirname(path), inc.decode()))
+        if header not in seen and os.path.isfile(header):
+            parts.append(_source_text(header, seen))
+    return b"".join(parts)
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = _source_text(os.path.join(CSRC_DIR, f"{name}.cu"), set())
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 

@@ -20,6 +20,10 @@ fp32; H and W even and >= 4, as the JAX package's ``_use_fused`` admits.
 Beside each kernel: its plain PyTorch version, which the wrapper takes only
 for a tensor on the CPU, and a launch count. For a CUDA tensor the wrapper
 launches the kernel or raises; it never falls back.
+
+``conv_tail_reference`` is the JAX package's function of that name: the
+tail as three separate library convs, each rounding twice (see there). The
+halo tail (``halo_conv``) takes its edge rows from it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ __all__ = [
     "fused_conv_tail",
     "encoder_head_plain",
     "conv_tail_plain",
+    "conv_tail_reference",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -87,6 +92,27 @@ def conv_tail_plain(x, k8, b8, k9, b9, k10, b10):
     return _conv3x3_plain(x, k10, b10, relu=False)
 
 
+def conv_tail_reference(x, k8, b8, k9, b9, k10, b10):
+    """conv8 -> relu -> conv9 -> relu -> conv10 as three library convs, in the
+    dtype placement of the JAX package's ``conv_tail_reference`` (the XLA
+    chain): per layer a ReflectionPad2d(1), the conv with fp32 sums rounded
+    to x's dtype, then ``+ bias`` cast to x's dtype and added in that dtype
+    (in bf16 a second rounding), then the relu. On the CPU the conv runs on
+    fp32 copies and rounds once; on the card it is cuDNN's conv in x's dtype
+    (fp32 sums, TF32 off)."""
+    dt = x.dtype
+    for k, bias, relu in ((k8, b8, True), (k9, b9, True), (k10, b10, False)):
+        xp = F.pad(x, (1, 1, 1, 1), mode="reflect")
+        if x.device.type == "cpu":
+            y = F.conv2d(xp.float(), k.float()).to(dt)
+        else:
+            y = F.conv2d(xp, k.to(dt))
+        x = y + bias.to(dt).view(1, -1, 1, 1)
+        if relu:
+            x = torch.relu(x)
+    return x
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
@@ -99,15 +125,24 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(x: torch.Tensor, layers) -> None:
+    check_stack(x, layers)
+    h, w = x.shape[-2:]
+    if h < 4 or w < 4 or h % 2 or w % 2:
+        raise ValueError(f"the fused stacks need H, W even and >= 4, got {h}x{w}")
+
+
+def check_stack(x: torch.Tensor, layers) -> None:
+    """Raise on what a conv-stack kernel does not take: ``x`` NCHW fp32 or
+    bf16 on the CPU or a card (contiguous there); each ``(kernel, bias)``
+    OIHW 3x3 in x's dtype chaining the channels, with an fp32 bias, on x's
+    device."""
     if x.ndim != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the conv stacks take CPU or CUDA tensors, got {x.device}")
-    b, c, h, w = x.shape
-    if h < 4 or w < 4 or h % 2 or w % 2:
-        raise ValueError(f"the fused stacks need H, W even and >= 4, got {h}x{w}")
+    c = x.shape[1]
     for k, bias in layers:
         if k.ndim != 4 or tuple(k.shape[1:]) != (c, 3, 3):
             raise ValueError(f"kernel {tuple(k.shape)} does not take {c} input channels as 3x3")
@@ -127,15 +162,19 @@ def _tap_major(k: torch.Tensor) -> torch.Tensor:
     return k.float().permute(1, 2, 3, 0).contiguous()
 
 
-def _launch(name: str, fn, x: torch.Tensor, layers, out: torch.Tensor) -> torch.Tensor:
+def launch(counts: dict, name: str, fn, x: torch.Tensor, layers, out: torch.Tensor,
+           *extra: int) -> torch.Tensor:
+    """Launch a conv-stack entry point ``fn(dtype, x, B, C, H, W, *extra,
+    (kernel, bias, O) per layer, out, stream)`` on x's card and count it in
+    ``counts[name]``; raise if the launch failed."""
     weights = [(_tap_major(k), bias.contiguous()) for k, bias in layers]
     ptrs = [v for kt, bt in weights for v in (kt.data_ptr(), bt.data_ptr(), kt.shape[-1])]
     b, c, h, w = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        status = fn(_DTYPES[x.dtype], x.data_ptr(), b, c, h, w, *ptrs, out.data_ptr(), stream)
+        status = fn(_DTYPES[x.dtype], x.data_ptr(), b, c, h, w, *extra, *ptrs, out.data_ptr(), stream)
     _build.check_status(status, name)
-    LAUNCHES[name] += 1
+    counts[name] += 1
     return out
 
 
@@ -148,7 +187,7 @@ def fused_encoder_head(x, k1, b1, k2, b2):
         return encoder_head_plain(x, k1, b1, k2, b2)
     b, _, h, w = x.shape
     out = torch.empty(b, k2.shape[0], h // 2, w // 2, dtype=x.dtype, device=x.device)
-    return _launch("fused_encoder_head", _lib().conv_head, x, layers, out)
+    return launch(LAUNCHES, "fused_encoder_head", _lib().conv_head, x, layers, out)
 
 
 def fused_conv_tail(x, k8, b8, k9, b9, k10, b10):
@@ -160,4 +199,4 @@ def fused_conv_tail(x, k8, b8, k9, b9, k10, b10):
         return conv_tail_plain(x, k8, b8, k9, b9, k10, b10)
     b, _, h, w = x.shape
     out = torch.empty(b, k10.shape[0], h, w, dtype=x.dtype, device=x.device)
-    return _launch("fused_conv_tail", _lib().conv_tail, x, layers, out)
+    return launch(LAUNCHES, "fused_conv_tail", _lib().conv_tail, x, layers, out)

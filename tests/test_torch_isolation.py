@@ -14,6 +14,8 @@ import style_transfer_based_holographic_imaging_tpu_torch as port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(port.__file__)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "style_transfer_based_holographic_imaging_tpu")
+# Scripts of the port that run where JAX is absent.
+SCRIPTS = ("chip_smoke.py", os.path.join("scripts", "port_exp_halo_conv.py"))
 
 
 def _port_modules():
@@ -30,7 +32,7 @@ def _sources():
         for name in files
         if name.endswith(".py")
     ]
-    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+    return sorted(paths) + [os.path.join(REPO, p) for p in SCRIPTS]
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -44,8 +46,9 @@ def test_every_module_imports_with_jax_blocked():
         "import importlib, runpy\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        f"spec = importlib.util.spec_from_file_location('chip_smoke', {os.path.join(REPO, 'chip_smoke.py')!r})\n"
-        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        f"for i, path in enumerate({[os.path.join(REPO, p) for p in SCRIPTS]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', path)\n"
+        "    mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
         "print('imported', len(sys.modules))\n"
     )
