@@ -10,11 +10,13 @@ line naming it and ends the run with exit code 3; nothing hangs):
    name and power limit (``nvidia-smi``) and the TF32 flags.
 2. ``build``   — removes stale build files, compiles the four kernel sources
    with one ``nvcc`` each, all started together, loads the libraries with
-   ``ctypes``.
+   ``ctypes``; prints the ``nvcc`` seconds and ``asm_propagate.cu``'s
+   ``-Xptxas -v`` lines (registers, shared memory, spills).
 3. ``kernels`` — each kernel against its plain PyTorch version. The ASM
    kernels also against the ``torch.fft`` composition, at B = 5 and 256, in
    every precision mode, with per-sample distances spread over the suite's
-   range for ``asm_dynamic``; tolerance on max|err| / max|ref|: 1e-5
+   range for ``asm_dynamic``, and against the plain version alone at the
+   ragged shapes ``ODD_SHAPES``; tolerance on max|err| / max|ref|: 1e-5
    (highest), 1e-4 (high), 2e-2 (bf16), the JAX package's budgets. The conv
    stacks at flagship shapes and the border ring at three of the net's
    layers and one odd H, at B = 5 and 256, in fp32 and bf16; tolerance
@@ -134,6 +136,11 @@ BUDGETS_S = {
     "quant": 90.0, "reflect": 60.0, "halo": 60.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
+# (B, H, W) where the ASM kernels' tensor-core tiles are ragged: the card
+# tests' (1, 16, 16) and (2, 48, 64); (2, 48, 80); (2, 40, 56), whose M, N
+# and K are off a multiple of 64 in all four stages; (2, 18, 30), whose
+# operand rows are padded to 8 elements.
+ODD_SHAPES = ((1, 16, 16), (2, 48, 64), (2, 48, 80), (2, 40, 56), (2, 18, 30))
 # Card tolerances for the same golden batch on the card (cuDNN fp32 convs,
 # the "high" DFT kernel) against the CPU (fp32 convs, the torch.fft path):
 # max|err| / max|ref| of amp_foc, |err| of distance_pred (in (0, 1)), and the
@@ -283,10 +290,36 @@ def phase_device():
     return smi
 
 
-def check_kernels(physics, device, batches=(5, 256)):
-    """Each kernel against its plain version and the torch.fft composition."""
-    kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
+def check_odd_shapes(kw, device):
+    """Both ASM kernels against their plain versions at ODD_SHAPES, in every
+    precision mode (the tensor-core tiles' ragged edges)."""
     rows = []
+    for b, h, w in ODD_SHAPES:
+        g = torch.Generator().manual_seed(h + w)
+        xre = torch.rand(b, h, w, generator=g).to(device)
+        xim = torch.rand(b, h, w, generator=g).to(device)
+        dist = spread_distances(b, device)
+        for prec, tol in TOLERANCES.items():
+            for name, run, plain, d in (
+                ("asm_const", asm_cuda.asm_const, asm_cuda.asm_const_plain, SERVING_REFOCUS_M),
+                ("asm_dynamic", asm_cuda.asm_dynamic, asm_cuda.asm_dynamic_plain, dist),
+            ):
+                y = torch.complex(*run(xre, xim, d, precision=prec, **kw))
+                p = torch.complex(*plain(xre, xim, d, precision=prec, **kw))
+                torch.cuda.synchronize()
+                row = {"kernel": name, "shape": [b, h, w], "precision": prec, "tol": tol,
+                       "max_abs_err": float((y - p).abs().max()), "rel_err_vs_plain": rel_err(y, p)}
+                rows.append(row)
+                if not row["rel_err_vs_plain"] < tol:
+                    _die(f"kernel check failed: {json.dumps(row)}", 1)
+    return rows
+
+
+def check_kernels(physics, device, batches=(5, 256)):
+    """Each kernel against its plain version and the torch.fft composition,
+    at B = 5 and 256 on 128^2, then at ODD_SHAPES against the plain version."""
+    kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
+    rows = check_odd_shapes(kw, device)
     for b in batches:
         xre, xim = random_planes(b, seed=b, device=device)
         field = torch.complex(xre, xim)
@@ -308,7 +341,7 @@ def check_kernels(physics, device, batches=(5, 256)):
                 p = torch.complex(*run_plain())
                 torch.cuda.synchronize()
                 row = {
-                    "kernel": name, "B": b, "precision": prec, "tol": tol,
+                    "kernel": name, "B": b, "shape": [b, IMAGE, IMAGE], "precision": prec, "tol": tol,
                     "max_abs_err": float((y - p).abs().max()),
                     "rel_err_vs_plain": rel_err(y, p),
                     "rel_err_vs_fft": rel_err(y, fft),
@@ -752,7 +785,8 @@ def main() -> int:
         conv_stack._lib()
         reflect_border._lib()
         halo_conv._lib()
-        phase.info = {"nvcc_seconds": seconds, "removed_stale": removed, "build_dir": _build.BUILD_DIR}
+        phase.info = {"nvcc_seconds": seconds, "removed_stale": removed, "build_dir": _build.BUILD_DIR,
+                      "asm_propagate_ptxas": _build.ptxas_lines("asm_propagate")}
 
     with open(os.path.join(REPO, "checkpoints", "config.json")) as f:
         cfg = ExperimentConfig.from_json(f.read())
@@ -1018,7 +1052,7 @@ def main() -> int:
     kernels = []
     for k in ("asm_const", "asm_dynamic"):
         mine = [r for r in rows if r["kernel"] == k]
-        at_default = [r for r in mine if r["B"] == b and r["precision"] == "high"][0]
+        at_default = [r for r in mine if r["shape"] == [b, IMAGE, IMAGE] and r["precision"] == "high"][0]
         kernels.append({
             "name": k, "route": "cuda", "source": sources, "replaces": replaces[k],
             "launches": launches[k],

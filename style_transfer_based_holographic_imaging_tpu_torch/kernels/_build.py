@@ -4,13 +4,15 @@ Each source under ``kernels/csrc`` is compiled, at first use, into a shared
 library of its own with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library's name carries a hash of the source, of the headers it
 includes with ``#include "..."`` (found beside it, followed recursively), and
 of the flags, so an edit of any of them rebuilds and a stale library is
 never loaded. ``build`` starts one ``nvcc`` per named source, all at once,
-and waits for them. Each writes to a
+and waits for them; the compiler's output (with ``-Xptxas -v``: each
+kernel's registers, shared memory and spills) is kept in ``LOGS``. Each
+writes to a
 temporary name that is renamed into place when its build succeeds: a build
 that was cut off leaves no partial library under the final name, and
 ``remove_stale`` deletes what such a build left. Nothing here runs at import.
@@ -30,6 +32,7 @@ import time
 
 __all__ = [
     "build", "load", "remove_stale", "kill_build", "check_status", "SOURCES", "BUILD_DIR", "CSRC_DIR",
+    "LOGS", "ptxas_lines",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -37,7 +40,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _BUILD_TIMEOUT_S = 240.0
 # Every kernel source of the port, by name (csrc/<name>.cu).
@@ -46,6 +49,8 @@ SOURCES = ("asm_propagate", "conv_stack", "halo_conv", "reflect_border")
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _running: dict[str, subprocess.Popen] = {}
+# The compiler's output of each build this process ran, by source name.
+LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -128,9 +133,10 @@ def build(*names: str) -> dict[str, float]:
                 proc.wait(timeout=max(_BUILD_TIMEOUT_S - (time.perf_counter() - t0), 0.0))
             except subprocess.TimeoutExpired:
                 raise RuntimeError(f"nvcc timed out after {_BUILD_TIMEOUT_S:.0f} s on {name}.cu") from None
+            with open(f"{tmp}.log") as log:
+                LOGS[name] = log.read()
             if proc.returncode != 0:
-                with open(f"{tmp}.log") as log:
-                    raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log.read()}")
+                raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{LOGS[name]}")
             os.replace(tmp, out)
             seconds[name] = time.perf_counter() - t0
     finally:
@@ -141,6 +147,13 @@ def build(*names: str) -> dict[str, float]:
                 if os.path.exists(path):
                     os.remove(path)
     return seconds
+
+
+def ptxas_lines(name: str) -> list[str]:
+    """The ``-Xptxas -v`` lines of this process's build of ``name``: each
+    kernel's entry, registers, shared memory, stack and spills."""
+    keep = ("Compiling entry", "Used", "spill", "bytes stack frame")
+    return [line.strip() for line in LOGS.get(name, "").splitlines() if any(k in line for k in keep)]
 
 
 def check_status(status: int, name: str) -> None:

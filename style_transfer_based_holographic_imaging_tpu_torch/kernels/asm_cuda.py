@@ -16,6 +16,12 @@ centre crop are folded into thin DFT factors (``folded_factors``, a copy of
 the JAX package's ``_folded_factors``, bit-identical). What bounds them on
 the card and what the design does about it is noted in the CUDA source.
 
+In ``high`` and ``bf16`` the kernels run each stage as one real product on
+the tensor cores, the complex factor as a real block with re and im stacked
+along K (``block_factors``). The host builds those blocks and their bf16
+hi/lo planes (``split_hi_lo``) once per (h, w) and passes them in place of
+the fp32 factor planes that ``highest`` takes.
+
 Beside each kernel: its plain PyTorch version (the same four complex products
 with the same bf16 roundings), which the wrapper takes only for a tensor on
 the CPU, and a launch count. For a CUDA tensor the wrapper launches the
@@ -46,6 +52,8 @@ __all__ = [
     "asm_dynamic_plain",
     "propagate_cuda",
     "folded_factors",
+    "block_factors",
+    "split_hi_lo",
     "set_dft_precision",
     "LAUNCHES",
     "reset_launches",
@@ -118,6 +126,68 @@ def _factor_tensors(h: int, w: int, device: torch.device):
     awre, awim, cwre, cwim = folded_factors(w, fw)
     mats = (are, aim, awre.T, awim.T, cre, cim, cwre.T, cwim.T)
     return tuple(torch.tensor(np.ascontiguousarray(m), device=device) for m in mats)
+
+
+def _pad8(n: int) -> int:
+    """Row pitch of a bf16 operand: a multiple of 8 elements (16 bytes), as
+    the tensor maps' strides must be."""
+    return (n + 7) // 8 * 8
+
+
+@functools.lru_cache(maxsize=None)
+def block_factors(h: int, w: int):
+    """The four stages' factors as real blocks, complex re/im stacked along K,
+    each stored K-major (one row per output row of its stage), fp32.
+
+    * ``F1`` (2fh, 2h) = [[Ar, -Ai], [Ai, Ar]]: stage 1, on the left of
+      [xr; xi], gives [S1r; S1i].
+    * ``G2`` (2fw, 2w): stage 2, on the right of [S1r | S1i]; row 2n is
+      [Br[:, n], -Bi[:, n]], row 2n+1 [Bi[:, n], Br[:, n]], so the output's
+      columns 2n and 2n+1 are T's re and im at column n.
+    * ``F3`` (2h, 2fh) = [[Cr, -Ci], [Ci, Cr]]: stage 3 on [Tr; Ti].
+    * ``G4`` (2w, 2fw): stage 4 on [U1r | U1i], rows as ``G2``'s with D.
+
+    Built from ``folded_factors``; returns read-only numpy arrays."""
+    fh, fw = 2 * h, 2 * w
+    are, aim, cre, cim = folded_factors(h, fh)
+    # B = Aw^T and D = Cw^T: row n of the right-hand block reads column n of
+    # B (D), which is row n of Aw (Cw).
+    awre, awim, cwre, cwim = folded_factors(w, fw)
+
+    def left(re, im):
+        return np.block([[re, -im], [im, re]])
+
+    def right(re, im):
+        out = np.empty((2 * re.shape[0], 2 * re.shape[1]), np.float32)
+        out[0::2] = np.concatenate([re, -im], axis=1)
+        out[1::2] = np.concatenate([im, re], axis=1)
+        return out
+
+    mats = (left(are, aim), right(awre, awim), left(cre, cim), right(cwre, cwim))
+    for m in mats:
+        m.setflags(write=False)
+    return mats
+
+
+def split_hi_lo(m: torch.Tensor):
+    """(hi, lo) bf16 of an fp32 tensor: hi = bf16(m), lo = bf16(m - hi), the
+    split of the plain version's ``high`` products."""
+    hi = m.to(torch.bfloat16)
+    return hi, (m - hi.float()).to(torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=8)
+def _block_factor_tensors(h: int, w: int, device: torch.device):
+    """(F1 hi, lo, G2 hi, lo, F3 hi, lo, G4 hi, lo) on ``device``: bf16,
+    rows padded to ``_pad8`` with zeros, contiguous."""
+    out = []
+    for m in block_factors(h, w):
+        hi, lo = split_hi_lo(torch.from_numpy(np.array(m)))
+        for t in (hi, lo):
+            padded = torch.zeros(t.shape[0], _pad8(t.shape[1]), dtype=torch.bfloat16)
+            padded[:, : t.shape[1]] = t
+            out.append(padded.to(device))
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=8)
@@ -247,11 +317,27 @@ def _check_planes(xre: torch.Tensor, xim: torch.Tensor) -> None:
 
 
 def _launch_buffers(xre: torch.Tensor):
+    """Scratch for S1, T and U1 (re and im, or bf16 hi and lo) and the output
+    planes. Each scratch buffer holds, per image, the larger of the fp32
+    plane of ``highest`` and the bf16 operand plane of the other modes (K
+    padded to 8); U1's also holds x^T, which the tensor-core path keeps there
+    until stage 3."""
     b, h, w = xre.shape
     fh, fw = 2 * h, 2 * w
     e = functools.partial(torch.empty, dtype=torch.float32, device=xre.device)
-    scratch = (e(b, fh, w), e(b, fh, w), e(b, fh, fw), e(b, fh, fw), e(b, h, fw), e(b, h, fw))
+    half = lambda n: (n + 1) // 2  # noqa: E731  (bf16 elements in fp32 slots)
+    s1 = max(fh * w, half(fh * _pad8(2 * w)))
+    t = max(fh * fw, half(fw * _pad8(2 * fh)))
+    u1 = max(h * fw, half(h * _pad8(2 * fw)), half(w * _pad8(2 * h)))
+    scratch = (e(b, s1), e(b, s1), e(b, t), e(b, t), e(b, u1), e(b, u1))
     return scratch, e(b, h, w), e(b, h, w)
+
+
+def _factors_for(precision: str, h: int, w: int, device: torch.device):
+    """The eight factor planes the C entry point takes in ``precision``."""
+    if precision == "highest":
+        return _factor_tensors(h, w, device)
+    return _block_factor_tensors(h, w, device)
 
 
 def _device_of(xre: torch.Tensor) -> str:
@@ -274,7 +360,7 @@ def asm_const(xre, xim, distance: float, *, wavelength, pixel_size, precision=No
         )
     b, h, w = xre.shape
     dev = xre.device
-    factors = _factor_tensors(h, w, dev)
+    factors = _factors_for(precision, h, w, dev)
     hre, him = _const_transfer(
         2 * h, 2 * w, float(np.float32(distance)), wavelength, pixel_size, dev
     )
@@ -312,7 +398,7 @@ def asm_dynamic(xre, xim, dist, *, wavelength, pixel_size, precision=None):
             xre, xim, dist, wavelength=wavelength, pixel_size=pixel_size, precision=precision
         )
     dev = xre.device
-    factors = _factor_tensors(h, w, dev)
+    factors = _factors_for(precision, h, w, dev)
     kz = _kz_tensor(2 * h, 2 * w, pixel_size, wavelength, dev)
     scratch, yre, yim = _launch_buffers(xre)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -6,10 +6,21 @@ eval-mode network: the reference's Dropout(0.5) is off at inference, so the
 forward has none.
 
 The forward takes a compute ``dtype``, as the flax module does. In bf16 the
-input, weights and biases are cast to bf16, each product of a layer is taken
-with fp32 accumulation and rounded once to bf16 (flax ``Dense(dtype=bf16)``
-on XLA), the bias is added in bf16, and the instance norm, relu and sigmoid
-run in bf16. The fp32 default is the fp32 network as it was.
+input, weights and biases are cast to bf16 and every value rounds where XLA
+rounds it on the JAX package's jitted path (its fusions, read from the
+compiled HLO):
+
+* each product of a layer is summed in fp32 and rounded once to bf16
+  (flax ``Dense(dtype=bf16)``), then the bias is added and rounded;
+* the instance norm's mean sums the bias add *before* its rounding (XLA
+  fuses the add into the reduction), and its variance sums the squares of
+  the rounded ``y - mean`` unrounded; each sum is scaled by fp32 ``1/F``
+  and rounded, eps is a bf16 constant, and the rsqrt, the product and the
+  relu each round;
+* the sigmoid is ``1 / (1 + exp(-z))`` with a rounding after the exp, the
+  add and the division (``jax.nn.sigmoid`` as XLA expands it).
+
+The fp32 default is the fp32 network as it was.
 """
 
 from __future__ import annotations
@@ -44,15 +55,35 @@ class DistanceMLP(nn.Module):
         mean, std = mean_std
         b = mean.shape[0]
         x = torch.cat([mean.reshape(b, -1), std.reshape(b, -1)], dim=-1).to(dtype)
+        if dtype == torch.float32:
+            for layer in (self.l1, self.l2, self.l3):
+                x = F.relu(instance_norm_rows(layer(x)))
+            return torch.sigmoid(self.out(x))
         for layer in (self.l1, self.l2, self.l3):
-            x = F.relu(instance_norm_rows(_dense(layer, x)))
-        return torch.sigmoid(_dense(self.out, x))
+            x = _norm_relu(_dense(layer, x), dtype)
+        z = _dense(self.out, x).to(dtype).float()
+        d = (torch.exp(-z).to(dtype).float() + 1.0).to(dtype).float()
+        return (1.0 / d).to(dtype)
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``layer(x)`` in ``x``'s dtype: below fp32, the weights cast to it, the
-    product summed in fp32 and rounded once, then the bias added."""
-    if x.dtype == torch.float32:
-        return layer(x)
-    y = F.linear(x.float(), layer.weight.to(x.dtype).float()).to(x.dtype)
-    return y + layer.bias.to(x.dtype)
+    """``layer(x)`` below fp32, as fp32 values: the weights cast to ``x``'s
+    dtype, the product summed in fp32 and rounded once to it, plus the bias
+    in that dtype, the sum not yet rounded."""
+    dt = x.dtype
+    y = F.linear(x.float(), layer.weight.to(dt).float()).to(dt)
+    return y.float() + layer.bias.to(dt).float()
+
+
+def _norm_relu(y32: torch.Tensor, dt: torch.dtype, eps: float = 1e-5) -> torch.Tensor:
+    """relu(instance_norm_rows(y)) in ``dt`` from the unrounded bias add
+    ``y32``, rounded where XLA rounds (see the module docstring). Each op
+    runs in fp32 and rounds once: torch's own bf16 ``rsqrt`` does not give
+    the rounded fp32 rsqrt."""
+    inv_n = float(torch.tensor(1.0 / y32.shape[-1], dtype=torch.float32))
+    mean = (y32.sum(dim=-1, keepdim=True) * inv_n).to(dt)
+    c = (y32.to(dt) - mean).float()
+    var = ((c * c).sum(dim=-1, keepdim=True) * inv_n).to(dt)
+    var_eps = (var.float() + float(torch.tensor(eps, dtype=dt))).to(dt)
+    inv = torch.rsqrt(var_eps.float()).to(dt)
+    return F.relu(c.to(dt) * inv)

@@ -4,9 +4,10 @@ The port's conv stack is NCHW, so ``channel_axis`` defaults to 1. Statistics
 reduce over the spatial axes per (sample, channel), with the unbiased (N-1)
 variance plus eps of the reference.
 
-On bf16 features (the int8 serving path) the dtypes sit where ``jnp.mean``
-and ``jnp.sum`` put them: the sums are taken in fp32 and rounded to bf16,
-the products and the rest run in bf16. Style statistics in fp32 promote the
+On bf16 features (the int8 serving path) the roundings sit where XLA puts
+them on the JAX package's jitted path: the sums are taken in fp32 and
+rounded to bf16, the square that feeds a sum is not rounded, and every other
+op rounds to bf16. Style statistics in fp32 promote the
 AdaIN output to fp32, as in JAX.
 """
 
@@ -40,9 +41,16 @@ def calc_mean_std(
     dt = feat.dtype
     mean = feat.float().mean(dim=axes, keepdim=True).to(dt)
     centered = feat - mean
-    var = (centered * centered).float().sum(dim=axes, keepdim=True).to(dt) / max(n - 1, 1)
-    std = torch.sqrt(var + eps)
-    return mean, std
+    if dt == torch.float32:
+        var = (centered * centered).sum(dim=axes, keepdim=True) / max(n - 1, 1)
+        return mean, torch.sqrt(var + eps)
+    # Below fp32, XLA's fusion: the square feeds the fp32 sum unrounded, the
+    # sum is rounded, then scaled by fp32(1 / (n - 1)); eps is a bf16 constant.
+    c = centered.float()
+    var = (c * c).sum(dim=axes, keepdim=True).to(dt)
+    var = (var.float() * float(torch.tensor(1.0 / max(n - 1, 1), dtype=torch.float32))).to(dt)
+    var_eps = (var.float() + float(torch.tensor(eps, dtype=dt))).to(dt)
+    return mean, torch.sqrt(var_eps.float()).to(dt)
 
 
 def adain(

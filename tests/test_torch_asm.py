@@ -163,3 +163,136 @@ def test_wrappers_check_their_inputs():
         asm_cuda.asm_const(x, x, 3e-4, precision="fp8", **KW)
     with pytest.raises(ValueError):
         asm_cuda.set_dft_precision("fp8")
+
+
+# --------------------------------------------------------------------------
+# The tensor-core kernels' host-side operands (the `high` and `bf16` modes)
+# --------------------------------------------------------------------------
+
+TC_SHAPES = [(3, 128, 128), (2, 48, 64), (1, 16, 16)]
+
+
+@pytest.mark.parametrize("h,w", [(128, 128), (48, 64), (16, 16), (18, 30)])
+def test_block_factors_stack_the_folded_factors(h, w):
+    """Each block holds the complex factor's planes with re and im stacked
+    along K, the right-hand blocks with re and im output columns interleaved."""
+    fh, fw = 2 * h, 2 * w
+    f1, g2, f3, g4 = asm_cuda.block_factors(h, w)
+    are, aim, cre, cim = asm_cuda.folded_factors(h, fh)
+    awre, awim, cwre, cwim = asm_cuda.folded_factors(w, fw)
+    for block, re, im in ((f1, are, aim), (f3, cre, cim)):
+        m, k = re.shape
+        assert block.shape == (2 * m, 2 * k) and block.dtype == np.float32
+        np.testing.assert_array_equal(block[:m, :k], re)
+        np.testing.assert_array_equal(block[:m, k:], -im)
+        np.testing.assert_array_equal(block[m:, :k], im)
+        np.testing.assert_array_equal(block[m:, k:], re)
+    for block, re, im in ((g2, awre, awim), (g4, cwre, cwim)):
+        n, k = re.shape
+        assert block.shape == (2 * n, 2 * k)
+        np.testing.assert_array_equal(block[0::2], np.concatenate([re, -im], 1))
+        np.testing.assert_array_equal(block[1::2], np.concatenate([im, re], 1))
+
+
+@pytest.mark.parametrize("h,w", [(128, 128), (48, 64), (16, 16), (18, 30)])
+def test_block_factor_splits_reconstruct_the_factors(h, w):
+    """hi + lo gives each factor back to the two-term bf16 split's bound
+    (2^-16 of each element); the device planes are the splits, zero-padded
+    to a row pitch of 8 elements (16 bytes, the tensor maps' stride unit)."""
+    planes = asm_cuda._block_factor_tensors(h, w, torch.device("cpu"))
+    for i, m in enumerate(asm_cuda.block_factors(h, w)):
+        m = torch.from_numpy(np.array(m))
+        hi, lo = asm_cuda.split_hi_lo(m)
+        assert hi.dtype == lo.dtype == torch.bfloat16
+        assert torch.equal(hi.float(), m.to(torch.bfloat16).float())
+        err = (hi.float() + lo.float() - m).abs()
+        assert bool((err <= 2.0**-16 * m.abs()).all())
+        for plane, want in zip(planes[2 * i : 2 * i + 2], (hi, lo)):
+            k = m.shape[1]
+            assert plane.shape == (m.shape[0], (k + 7) // 8 * 8) and plane.is_contiguous()
+            assert torch.equal(plane[:, :k], want)
+            assert not bool(plane[:, k:].float().any())
+
+
+def _three_pass(a, bt, precision):
+    """a (..., M, K) times bt (..., N, K) transposed, on the split operands:
+    hi.hi + hi.lo + lo.hi in `high`, hi.hi in `bf16`, summed in fp32."""
+    ah, al = (t.float() for t in asm_cuda.split_hi_lo(a))
+    bh, bl = (t.float() for t in asm_cuda.split_hi_lo(bt))
+    out = torch.matmul(ah, bh.transpose(-1, -2))
+    if precision == "high":
+        out = out + torch.matmul(ah, bl.transpose(-1, -2)) + torch.matmul(al, bh.transpose(-1, -2))
+    return out
+
+
+def _block_propagate(xre, xim, transfer, phasor, precision):
+    """The tensor-core kernels' data flow with torch.matmul: each stage one
+    real product of the stacked operands, the epilogues' layouts between."""
+    b, h, w = xre.shape
+    fh = 2 * h
+    f1, g2, f3, g4 = (torch.from_numpy(np.array(m)) for m in asm_cuda.block_factors(h, w))
+    xt = torch.cat([xre, xim], 1).transpose(1, 2)          # (b, w, 2h) = x^T, [xr | xi]
+    s = _three_pass(f1, xt, precision)                     # (b, 2fh, w) = [S1r; S1i]
+    s1 = torch.cat([s[:, :fh], s[:, fh:]], 2)              # (b, fh, 2w) = [S1r | S1i]
+    t = _three_pass(s1, g2, precision)                     # (b, fh, 2fw), re/im interleaved
+    tr, ti = t[..., 0::2], t[..., 1::2]
+    hre, him = transfer
+    tr, ti = tr * hre - ti * him, tr * him + ti * hre
+    tt = torch.cat([tr, ti], 1).transpose(1, 2)            # (b, fw, 2fh) = T^T, [Tr | Ti]
+    u = _three_pass(f3, tt, precision)                     # (b, 2h, fw) = [U1r; U1i]
+    u1 = torch.cat([u[:, :h], u[:, h:]], 2)                # (b, h, 2fw)
+    y = _three_pass(u1, g4, precision)                     # (b, h, 2w), re/im interleaved
+    yr, yi = y[..., 0::2], y[..., 1::2]
+    if phasor is None:
+        return yr, yi
+    gc, gs = phasor
+    return yr * gc - yi * gs, yr * gs + yi * gc
+
+
+@pytest.mark.parametrize("precision", ["high", "bf16"])
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_block_real_products_give_the_plain_versions(shape, precision):
+    """The three-pass block-real products on the exact operands the kernels
+    load give asm_const_plain / asm_dynamic_plain again within the mode's
+    budget: only the order of the fp32 sums differs."""
+    b, h, w = shape
+    rng = np.random.default_rng(b * h + w)
+    xre = torch.from_numpy(rng.random((b, h, w), dtype=np.float32))
+    xim = torch.from_numpy(rng.random((b, h, w), dtype=np.float32))
+    dist = torch.linspace(-8e-4, 8e-4, b, dtype=torch.float32)
+    cpu = torch.device("cpu")
+    fh, fw = 2 * h, 2 * w
+
+    d = -2e-4
+    transfer = asm_cuda._const_transfer(fh, fw, float(np.float32(d)), KW["wavelength"],
+                                        KW["pixel_size"], cpu)
+    got = torch.complex(*_block_propagate(xre, xim, transfer, None, precision))
+    ref = torch.complex(*asm_cuda.asm_const_plain(xre, xim, d, precision=precision, **KW))
+    assert _rel(got, ref) < BUDGETS[precision]
+
+    kz = asm_cuda._kz_tensor(fh, fw, KW["pixel_size"], KW["wavelength"], cpu)
+    phase = dist.reshape(b, 1, 1) * kz
+    g = dist.reshape(b, 1, 1) * float(np.float32(2.0 * np.pi / KW["wavelength"]))
+    got = torch.complex(*_block_propagate(
+        xre, xim, (torch.cos(phase), torch.sin(phase)), (torch.cos(g), torch.sin(g)), precision))
+    ref = torch.complex(*asm_cuda.asm_dynamic_plain(xre, xim, dist, precision=precision, **KW))
+    assert _rel(got, ref) < BUDGETS[precision]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES + [(2, 18, 30), (2, 48, 80)])
+def test_scratch_holds_both_layouts(shape):
+    """Each scratch buffer holds an image's fp32 planes (`highest`) and its
+    bf16 operand planes with K padded to 8 (`high`, `bf16`); U1's also x^T."""
+    b, h, w = shape
+    fh, fw = 2 * h, 2 * w
+    p8 = lambda n: (n + 7) // 8 * 8  # noqa: E731
+    scratch, yre, yim = asm_cuda._launch_buffers(torch.zeros(b, h, w))
+    need_bytes = [
+        max(4 * fh * w, 2 * fh * p8(2 * w)),
+        max(4 * fh * fw, 2 * fw * p8(2 * fh)),
+        max(4 * h * fw, 2 * h * p8(2 * fw), 2 * w * p8(2 * h)),
+    ]
+    for i, t in enumerate(scratch):
+        assert t.dtype == torch.float32 and t.shape[0] == b
+        assert t[0].numel() * 4 >= need_bytes[i // 2]
+    assert yre.shape == yim.shape == (b, h, w)

@@ -68,6 +68,28 @@ def test_kernels_match_plain_versions(card, precision, shape):
         assert _rel(y, p) < BUDGETS[precision]
 
 
+# Shapes whose tensor-core tiles are ragged: (2, 48, 80) as asked of the
+# kernels' M; (2, 40, 56) has M, N and K off a multiple of 64 in all four
+# stages (M = 160, 80, 80, 40); (2, 18, 30) pads every operand row to 8.
+RAGGED_SHAPES = [(2, 48, 80), (2, 40, 56), (2, 18, 30)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "bf16"])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_kernels_match_plain_versions_on_ragged_tiles(card, precision, shape):
+    b, h, w = shape
+    xre, xim = _planes(b, h, w, card, seed=h + w)
+    dist = torch.linspace(-8e-4, 8e-4, b, device=card)
+    for run, plain, d in (
+        (asm_cuda.asm_const, asm_cuda.asm_const_plain, -2e-4),
+        (asm_cuda.asm_dynamic, asm_cuda.asm_dynamic_plain, dist),
+    ):
+        y = torch.complex(*run(xre, xim, d, precision=precision, **KW))
+        p = torch.complex(*plain(xre, xim, d, precision=precision, **KW))
+        torch.cuda.synchronize()
+        assert _rel(y, p) < BUDGETS[precision]
+
+
 def test_propagate_auto_takes_the_kernels_on_the_card(card):
     xre, xim = _planes(4, 128, 128, card)
     field = torch.complex(xre, xim)[:, None]
