@@ -10,8 +10,10 @@ line naming it and ends the run with exit code 3; nothing hangs):
    name and power limit (``nvidia-smi``) and the TF32 flags.
 2. ``build``   — removes stale build files, compiles the four kernel sources
    with one ``nvcc`` each, all started together, loads the libraries with
-   ``ctypes``; prints the ``nvcc`` seconds and ``asm_propagate.cu``'s
-   ``-Xptxas -v`` lines (registers, shared memory, spills).
+   ``ctypes``; prints each source's ``nvcc`` seconds and the ``-Xptxas -v``
+   lines (registers, shared memory, spills) of ``asm_propagate.cu``,
+   ``conv_stack.cu`` and ``halo_conv.cu``, whose bf16 tail kernels run on
+   the tensor cores.
 3. ``kernels`` — each kernel against its plain PyTorch version. The ASM
    kernels also against the ``torch.fft`` composition, at B = 5 and 256, in
    every precision mode, with per-sample distances spread over the suite's
@@ -19,10 +21,11 @@ line naming it and ends the run with exit code 3; nothing hangs):
    ragged shapes ``ODD_SHAPES``; tolerance on max|err| / max|ref|: 1e-5
    (highest), 1e-4 (high), 2e-2 (bf16), the JAX package's budgets. The conv
    stacks at flagship shapes and the border ring at three of the net's
-   layers and one odd H, at B = 5 and 256, in fp32 and bf16; tolerance
-   1e-5 in fp32 (summation order) and 1e-2 in bf16 (a value that the other
-   summation order puts on a bf16 rounding boundary rounds the other way,
-   2^-8 relative, and carries into the next layer).
+   layers and one odd H, at B = 5 and 256, in fp32 and bf16, and the tail
+   at the ragged shapes ``TAIL_ODD_SHAPES``; tolerance 1e-5 in fp32
+   (summation order) and 1e-2 in bf16 (a value that the other summation
+   order puts on a bf16 rounding boundary rounds the other way, 2^-8
+   relative, and carries into the next layer).
 4. ``slice``   — the flagship-width net (width 1.0) on weights drawn from
    ``torch.Generator`` seed 0: the whole 20 x 5 golden suite through
    ``evaluate_golden_suite`` and one ``retrieval_step`` with per-sample style
@@ -48,15 +51,18 @@ line naming it and ends the run with exit code 3; nothing hangs):
    60, with the halo counts reset just before and read just after (both
    kernels must have launched). Then both kernels against
    ``halo_conv_tail_plain`` at B = 5 and 256, fp32 and bf16, bh 30 and 60,
-   C = 64 (flagship) and 16 (``ultra``'s width), and their interior rows
-   against ``fused_conv_tail`` on the same input (the same function there),
-   to the conv tolerances. Then both kernels and ``conv_tail_reference`` on
-   the card against the port's CPU versions on the same inputs (the edge
-   rows' strips take cuDNN's convs on the card), bf16 edge rows within four
-   ulps of max|ref|. Times at B = 256 of the script's rows.
+   C = 64 (flagship) and 16 (``ultra``'s width), and at the ragged shapes
+   ``HALO_ODD_SHAPES``, and their interior rows against ``fused_conv_tail``
+   on the same input (the same function there, the same tile body): equal
+   bit for bit in bf16, within the conv tolerance in fp32. Then both
+   kernels and ``conv_tail_reference`` on the card against the port's CPU
+   versions on the same inputs (the edge rows' strips take cuDNN's convs on
+   the card), bf16 edge rows within four ulps of max|ref|. Times at B = 256
+   of the script's rows.
 8. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
    version and its library call, and of the whole ``retrieval_step``
-   (holograms/s): fp32, int8 with the stacks on, fp32 with the ring.
+   (holograms/s): fp32, int8 with the stacks on and with them off (with
+   the stages of each), fp32 with the ring.
 
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -403,6 +409,13 @@ HALO_KERNELS = {"halo_conv_tail": halo_conv.halo_conv_tail,
 HALO_ROWS = {"halo_conv_tail": "halo", "halo_conv_tail_static": "halo_static"}
 # bf16 ulps of max|ref| allowed where the strips' conv differs by device.
 HALO_EDGE_ULPS = 4
+# Ragged shapes (B, C, H, W) of the tail's tensor-core tiles: the widths of
+# `turbo` (24), `balanced` (48) and `ultra` (16), H and W off the 16 x 16
+# tile (the tail takes H and W even).
+TAIL_ODD_SHAPES = ((2, 24, 32, 24), (2, 48, 20, 34), (1, 16, 20, 12))
+# The halo tail's: ((B, C, H, W), bh), W off the 16-column tile, the row
+# tiles 12 and 16 rows high.
+HALO_ODD_SHAPES = (((2, 24, 56, 34), 24), ((2, 48, 40, 20), 16))
 
 
 def ring_args(b: int, dtype, layer, seed: int, device):
@@ -417,6 +430,13 @@ def check_conv_kernels(device, batches=(5, 256)):
     """The stack kernels and the border ring against their plain versions."""
     rows = []
     cases = []
+    for shape in TAIL_ODD_SHAPES:
+        for dtype in CONV_TOLERANCES:
+            cases.append(("fused_conv_tail", shape[0], dtype, shape,
+                          lambda shape=shape, dt=dtype: seeded_stack(
+                              shape[0], dt, shape[1], (shape[1], shape[1], 2), sum(shape), device,
+                              size=shape[2:]),
+                          conv_stack.fused_conv_tail, conv_stack.conv_tail_plain))
     for b in batches:
         for dtype in CONV_TOLERANCES:
             cases.append(("fused_encoder_head", b, dtype, None,
@@ -471,30 +491,40 @@ def check_halo_outputs(args, outs):
 
 def check_halo_kernels(device, batches=(5, 256)):
     """Both halo kernels against ``halo_conv_tail_plain``, and their interior
-    rows against ``fused_conv_tail`` on the same input."""
+    rows against ``fused_conv_tail`` on the same input: bit for bit in bf16
+    (one tile body, one summation order a pixel), within the tolerance in
+    fp32. At B = 5 and 256 on the flagship's square images, then at
+    ``HALO_ODD_SHAPES``."""
     edge = halo_conv.EDGE
     rows = []
-    for b in batches:
-        for dtype, tol in CONV_TOLERANCES.items():
-            for c in HALO_WIDTHS:
-                args = seeded_stack(b, dtype, c, (c, c, 2), b + c, device)
-                fused = conv_stack.fused_conv_tail(*args)[:, :, edge:-edge].float()
-                for bh in HALO_BH:
-                    plain = halo_conv.halo_conv_tail_plain(*args, bh=bh).float()
-                    for name, fn in HALO_KERNELS.items():
-                        got = fn(*args, bh=bh).float()
-                        torch.cuda.synchronize()
-                        row = {"kernel": name, "B": b, "dtype": _dt(dtype), "C": c, "bh": bh,
-                               "tol": tol, "max_abs_err": float((got - plain).abs().max()),
-                               "rel_err_vs_plain": rel_err(got, plain),
-                               "interior_rel_err_vs_fused_tail": rel_err(got[:, :, edge:-edge], fused)}
-                        rows.append(row)
-                        if not (row["rel_err_vs_plain"] < tol
-                                and row["interior_rel_err_vs_fused_tail"] < tol):
-                            _die(f"halo kernel check failed: {json.dumps(row)}", 1)
-                        del got
-                    del plain
-                del args, fused
+    cases = [((b, c, IMAGE, IMAGE), dtype, HALO_BH)
+             for b in batches for dtype in CONV_TOLERANCES for c in HALO_WIDTHS]
+    cases += [(shape, dtype, (bh,)) for shape, bh in HALO_ODD_SHAPES for dtype in CONV_TOLERANCES]
+    for (b, c, h, w), dtype, bhs in cases:
+        seed = b + c if (h, w) == (IMAGE, IMAGE) else b + c + h + w
+        args = seeded_stack(b, dtype, c, (c, c, 2), seed, device, size=(h, w))
+        tol = CONV_TOLERANCES[dtype]
+        fused = conv_stack.fused_conv_tail(*args)[:, :, edge:-edge]
+        for bh in bhs:
+            plain = halo_conv.halo_conv_tail_plain(*args, bh=bh).float()
+            for name, fn in HALO_KERNELS.items():
+                got = fn(*args, bh=bh)
+                torch.cuda.synchronize()
+                inner = got[:, :, edge:-edge]
+                row = {"kernel": name, "B": b, "dtype": _dt(dtype), "C": c, "bh": bh,
+                       "shape": list(args[0].shape), "tol": tol,
+                       "max_abs_err": float((got.float() - plain).abs().max()),
+                       "rel_err_vs_plain": rel_err(got.float(), plain),
+                       "interior_rel_err_vs_fused_tail": rel_err(inner.float(), fused.float()),
+                       "interior_equals_fused_tail": bool(torch.equal(inner, fused))}
+                rows.append(row)
+                inner_ok = (row["interior_equals_fused_tail"] if dtype == torch.bfloat16
+                            else row["interior_rel_err_vs_fused_tail"] < tol)
+                if not (row["rel_err_vs_plain"] < tol and inner_ok):
+                    _die(f"halo kernel check failed: {json.dumps(row)}", 1)
+                del got, inner
+            del plain
+        del args, fused
     return rows
 
 
@@ -786,7 +816,8 @@ def main() -> int:
         reflect_border._lib()
         halo_conv._lib()
         phase.info = {"nvcc_seconds": seconds, "removed_stale": removed, "build_dir": _build.BUILD_DIR,
-                      "asm_propagate_ptxas": _build.ptxas_lines("asm_propagate")}
+                      **{f"{src}_ptxas": _build.ptxas_lines(src)
+                         for src in ("asm_propagate", "conv_stack", "halo_conv")}}
 
     with open(os.path.join(REPO, "checkpoints", "config.json")) as f:
         cfg = ExperimentConfig.from_json(f.read())
@@ -1000,6 +1031,19 @@ def main() -> int:
                     q_amp, q_ph, -0.2, physics, return_field=True), reps=5, warmup=1),
                 "unwrap": median_ms(lambda: unwrap_phase(q_ph_foc), reps=5, warmup=1),
             }
+        # The same step and its network stages with the stacks off (the
+        # default, as in the JAX package), on the same batch.
+        quant.set_fused_stacks("off")
+        q_off_step_ms = median_ms(q_step, reps=5, warmup=2)
+        with torch.inference_mode():
+            feat_off = quant.quant_encode(net.encoder, content, **qkw)
+            t_off = adain_with_stats(feat_off, sm, ss)
+            q_off_stages_ms = {
+                "encoder": median_ms(lambda: quant.quant_encode(net.encoder, content, **qkw),
+                                   reps=5, warmup=1),
+                "decoder": median_ms(lambda: quant.quant_decode(net.decoder, t_off, **qkw),
+                                   reps=5, warmup=1),
+            }
         quant.set_fused_stacks("auto")
         set_reflect_backend("cuda")
         r_step_ms = median_ms(step, reps=5, warmup=2)
@@ -1037,6 +1081,9 @@ def main() -> int:
             "int8_stacks_on_step_ms": q_step_ms,
             "int8_stacks_on_holograms_per_s": b / q_step_ms * 1e3,
             "int8_stacks_on_stages_ms": q_stages_ms,
+            "int8_stacks_off_step_ms": q_off_step_ms,
+            "int8_stacks_off_holograms_per_s": b / q_off_step_ms * 1e3,
+            "int8_stacks_off_stages_ms": q_off_stages_ms,
             "fp32_reflect_cuda_step_ms": r_step_ms,
             "fp32_reflect_cuda_holograms_per_s": b / r_step_ms * 1e3,
             "conv_kernel_ms": {f"{k}/{_dt(d)}": v for (k, d), v in conv_timings.items()},

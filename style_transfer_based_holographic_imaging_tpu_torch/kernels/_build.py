@@ -151,8 +151,9 @@ def build(*names: str) -> dict[str, float]:
 
 def ptxas_lines(name: str) -> list[str]:
     """The ``-Xptxas -v`` lines of this process's build of ``name``: each
-    kernel's entry, registers, shared memory, stack and spills."""
-    keep = ("Compiling entry", "Used", "spill", "bytes stack frame")
+    kernel's entry, registers, shared memory, stack and spills, and any
+    advice that its wgmma products were serialized."""
+    keep = ("Compiling entry", "Used", "spill", "bytes stack frame", "Performance")
     return [line.strip() for line in LOGS.get(name, "").splitlines() if any(k in line for k in keep)]
 
 

@@ -10,10 +10,18 @@ called through ``ctypes``, replace the JAX package's kernels/conv_stack.py:
   conv10, ``(B, C, H, W)`` -> ``(B, O10, H, W)``.
 
 Each layer is ``_conv3x3``'s arithmetic: a ReflectionPad2d(1) of the
-layer's own input, fp32 products (exact for bf16 operands) summed in fp32,
-the fp32 bias added before the cast, the relu, and the result rounded to the
-input type. With one input channel the taps are summed one by one in the
-TPU kernel's order. Nothing between the layers goes to device memory.
+layer's own input, exact products (bf16 x bf16 or fp32 x fp32) summed in
+fp32, the fp32 bias added before the cast, the relu, and the result rounded
+to the input type. With one input channel the taps are summed one by one in
+the TPU kernel's order. Nothing between the layers goes to device memory.
+
+The tail in bf16 runs on the tensor cores (wgmma), and so do the halo
+kernels (``halo_conv``), which share its tile body: each layer is an
+implicit GEMM over 9 taps x 16-channel steps whose weights the host packs
+with ``pack_tc_weights``; ``conv_tail_packed`` is that product written as
+plain tensor ops. In fp32, and the head in both types, the kernels take
+``_tap_major`` fp32 copies and run on the CUDA cores. The input type
+decides, and nothing else.
 
 Inputs are NCHW in fp32 or bf16, kernels OIHW in the input type, biases
 fp32; H and W even and >= 4, as the JAX package's ``_use_fused`` admits.
@@ -42,6 +50,9 @@ __all__ = [
     "encoder_head_plain",
     "conv_tail_plain",
     "conv_tail_reference",
+    "conv_tail_packed",
+    "pack_tc_weights",
+    "TC_N_TILES",
     "LAUNCHES",
     "reset_launches",
 ]
@@ -51,6 +62,10 @@ LAUNCHES = {"fused_encoder_head": 0, "fused_conv_tail": 0}
 
 _SOURCE = "conv_stack"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The multiple each tail layer's output channels are padded to in its
+# packed blocks: conv8's and conv9's products take 64 output channels at a
+# time (wgmma's M), conv10's 8 (wgmma's least N).
+TC_N_TILES = (64, 64, 8)
 
 
 def reset_launches() -> None:
@@ -113,6 +128,53 @@ def conv_tail_reference(x, k8, b8, k9, b9, k10, b10):
     return x
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pack_tc_weights(k: torch.Tensor, n_tile: int) -> torch.Tensor:
+    """OIHW kernel -> the blocks the tensor-core tail reads, ``(9, N, C16)``
+    in k's dtype: tap ``3*kh + kw`` major, then the output channel (N = O
+    padded with zeros to a multiple of ``n_tile``), then the input channel
+    (C16 = C padded with zeros to a multiple of 16), so each tap's block is
+    K-major, as wgmma takes its operands (conv8's and conv9's weights are
+    the products' A, conv10's their B)."""
+    o, c = k.shape[:2]
+    packed = k.new_zeros(9, _round_up(o, n_tile), _round_up(c, 16))
+    packed[:, :o, :c] = k.permute(2, 3, 0, 1).reshape(9, o, c)
+    return packed
+
+
+def conv_tail_packed(x, k8, b8, k9, b9, k10, b10):
+    """conv8 -> relu -> conv9 -> relu -> conv10 as the tensor-core tail
+    sums it, in plain tensor ops: per layer an im2col product over the
+    ``pack_tc_weights`` blocks, the activations channels-last and padded
+    with zero channels to a multiple of 16, summed in fp32 tap by tap and
+    16 channels at a time (the kernel's K order; each 16-long dot product's
+    own order is the library's), the fp32 bias, the relu, one rounding to
+    x's dtype."""
+    dt = x.dtype
+    b, c, h, w = x.shape
+    a = F.pad(x, (0, 0, 0, 0, 0, _round_up(c, 16) - c))
+    for (k, bias, relu), n_tile in zip(((k8, b8, True), (k9, b9, True), (k10, b10, False)),
+                                       TC_N_TILES):
+        packed = pack_tc_weights(k, n_tile).float()
+        xp = F.pad(a.float(), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+        acc = torch.zeros(b, h, w, packed.shape[1], device=x.device)
+        for t in range(9):
+            kh, kw = divmod(t, 3)
+            win = xp[:, kh : kh + h, kw : kw + w]
+            for c0 in range(0, packed.shape[2], 16):
+                acc += win[..., c0 : c0 + 16] @ packed[t, :, c0 : c0 + 16].T
+        o = k.shape[0]
+        y = acc[..., :o] + bias.float()
+        if relu:
+            y = torch.relu(y)
+        y = y.to(dt).permute(0, 3, 1, 2)
+        a = F.pad(y, (0, 0, 0, 0, 0, _round_up(o, 16) - o))
+    return a[:, : k10.shape[0]].contiguous()
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
@@ -163,12 +225,19 @@ def _tap_major(k: torch.Tensor) -> torch.Tensor:
 
 
 def launch(counts: dict, name: str, fn, x: torch.Tensor, layers, out: torch.Tensor,
-           *extra: int) -> torch.Tensor:
+           *extra: int, tensor_cores: bool = False) -> torch.Tensor:
     """Launch a conv-stack entry point ``fn(dtype, x, B, C, H, W, *extra,
     (kernel, bias, O) per layer, out, stream)`` on x's card and count it in
-    ``counts[name]``; raise if the launch failed."""
-    weights = [(_tap_major(k), bias.contiguous()) for k, bias in layers]
-    ptrs = [v for kt, bt in weights for v in (kt.data_ptr(), bt.data_ptr(), kt.shape[-1])]
+    ``counts[name]``; raise if the launch failed. With ``tensor_cores`` (the
+    tail's entry points) a bf16 ``x`` takes the ``pack_tc_weights`` blocks,
+    else the kernels take ``_tap_major`` fp32 copies."""
+    if tensor_cores and x.dtype == torch.bfloat16:
+        weights = [(pack_tc_weights(k, n), bias.contiguous())
+                   for (k, bias), n in zip(layers, TC_N_TILES)]
+    else:
+        weights = [(_tap_major(k), bias.contiguous()) for k, bias in layers]
+    ptrs = [v for (kt, bt), (k, _) in zip(weights, layers)
+            for v in (kt.data_ptr(), bt.data_ptr(), k.shape[0])]
     b, c, h, w = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -199,4 +268,5 @@ def fused_conv_tail(x, k8, b8, k9, b9, k10, b10):
         return conv_tail_plain(x, k8, b8, k9, b9, k10, b10)
     b, _, h, w = x.shape
     out = torch.empty(b, k10.shape[0], h, w, dtype=x.dtype, device=x.device)
-    return launch(LAUNCHES, "fused_conv_tail", _lib().conv_tail, x, layers, out)
+    return launch(LAUNCHES, "fused_conv_tail", _lib().conv_tail, x, layers, out,
+                  tensor_cores=True)

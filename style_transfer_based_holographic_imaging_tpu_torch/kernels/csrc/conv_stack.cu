@@ -10,40 +10,45 @@
 //
 // What is computed, per layer, as `_conv3x3` does: ReflectionPad2d(1) of the
 // layer's input (layer 2 reflects layer 1's output, not the stack's input),
-// a 3x3 convolution whose products are taken in fp32 (exact for bf16
-// operands) and summed in fp32, the fp32 bias added before the cast, the
-// relu, and the result rounded to the input type. With one input channel
-// the taps are summed in the TPU kernel's order (broadcast branch,
-// conv_stack.py:69-75), so the sum is the same fp32 sequence.
+// a 3x3 convolution whose products are exact (bf16 x bf16 or fp32 x fp32)
+// and summed in fp32, the fp32 bias added before the cast, the relu, and the
+// result rounded to the input type. With one input channel the head sums
+// the taps in the TPU kernel's order (broadcast branch, conv_stack.py:69-75).
 //
-// Layouts (the port is NCHW): x (B, C, H, W) fp32 or bf16; the weights of
-// each layer as fp32 (C_in, 3, 3, C_out) "tap-major" copies of the OIHW
-// kernels in the input type (the wrapper builds them; the values are exactly
-// the input type's); biases fp32. Out: head (B, O2, H/2, W/2), tail
-// (B, O10, H, W), in the input type.
+// Layouts (the port is NCHW): x (B, C, H, W) fp32 or bf16; biases fp32.
+// Weights: the tail in bf16 takes the packed blocks (9, N, C16) bf16 of
+// kernels/conv_stack.py `pack_tc_weights` (tap-major, N the output
+// channels padded to 64, 64 and 8, C16 the input channels padded to 16);
+// everything else takes fp32 (C_in, 3, 3, C_out) "tap-major" copies of the
+// OIHW kernels (the values are exactly the input type's). Out: head
+// (B, O2, H/2, W/2), tail (B, O10, H, W), in the input type.
 //
 // What bounds it on this card. Per 128^2 image the head does 1,227 MFLOP
-// against 1 x 32 KB in and 512 KB out, the tail 2,454 MFLOP against 2 MB
-// in and 64 KB out: hundreds to thousands of FLOP per byte, so the
-// arithmetic bounds both, at the tensor cores' bf16 rate (989 TFLOP/s) for
-// bf16 operands. This design runs the products on the CUDA cores in fp32
-// (67 TFLOP/s), so it is well above that bound.
+// against 32 KB in and 512 KB out, the tail 2,454 MFLOP against 2 MB in and
+// 64 KB out: hundreds to thousands of FLOP per byte, so the products bound
+// both, at the tensor cores' bf16 rate (989 TFLOP/s) for bf16 operands and
+// the CUDA cores' fp32 rate (67 TFLOP/s) for fp32.
 // What the design does about it: nothing between the layers goes to device
 // memory, as on the TPU, but instead of one whole image per grid step a
-// block owns one output tile of one image (tail: 16x16 in bf16, 8x8 in fp32;
-// head: 8x8 pooled pixels) and many tiles run in parallel. The block loads
-// its input tile with a 3-pixel halo (head: 2) into shared memory and
-// computes each intermediate layer over the halo it still needs, so tiles
-// recompute a ring of their neighbours' pixels (1.4x the tail's work at
-// 16x16). Positions outside the image are the reflect pad: a virtual
-// position -1 or H holds the layer's value at real position 1 or H-2,
-// computed for it, so every window read is a plain 3x3 window of the
-// buffer. Each thread owns 4 pixels and 16 output channels (64 fp32
-// accumulators): per input channel and tap it reads 4 activations and 16
-// weights (four warp-uniform 128-bit shared-memory broadcasts) for 64 FMAs.
-// The weights are staged 16 input channels at a time. Tensor cores (wgmma
-// on bf16 tiles), TMA loads and persistent blocks are later work. The layer
-// body and the tail's tile live in conv_tile.cuh, which halo_conv.cu shares.
+// block owns one output tile of one image (tail: 16x16; head: 8x8 pooled
+// pixels) and many tiles run in parallel. The block loads its input tile
+// with a 3-pixel halo (head: 2) into shared memory and computes each
+// intermediate layer over the halo it still needs (1.41 times the tail's
+// work at 16x16), reflect pad included (conv_tile.cuh).
+//   * The tail in bf16 runs on the tensor cores (`tc_tail_tile`, the
+//     design in conv_tile.cuh): conv8 and conv9 as D = W . X with both
+//     operands in shared memory, one wgmma m64n112k16 per tap and 16 input
+//     channels over runs of 112 pixels of the channels-last input, conv10
+//     (O = 2) as m64n8k16 with the pixels in registers. 4 warpgroups,
+//     213 KB of shared memory at C = 64, one block an SM walking
+//     the tiles; each tile's conv10 overlaps the staging of the next
+//     tile's conv8 weights.
+//   * The tail in fp32 and the head in both types run the SIMT body: each
+//     thread owns 4 pixels x 16 output channels (64 fp32 accumulators). fp32
+//     stays there because the tensor cores have no exact fp32 product; the
+//     head is next by the port's rule (ROADMAP B).
+// This dispatch, bf16 tail -> tensor cores and everything else -> SIMT, is
+// fixed by the input type.
 //
 // Each entry point launches one kernel on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() (0 on success).
@@ -72,6 +77,25 @@ tail_kernel(const T* __restrict__ x, int C, int H, int W, int tile, int tiles_x,
   const int tx0 = (blockIdx.x % n_tiles) % tiles_x * tile;
   tail_tile<T, false>(x + (size_t)b * C * H * W, C, H, W, ty0, tx0, tile, tile, k8, b8, O8, k9,
                       b9, O9, k10, b10, O10, out + (size_t)b * O10 * H * W, 0, H, smem);
+}
+
+// One block an SM walks the tiles (image-major, row-major within an image).
+__global__ void __launch_bounds__(TC_THREADS, 1)
+tail_tc_kernel(const __nv_bfloat16* __restrict__ x, int C, int H, int W, int tile, int tiles_x,
+               int tiles_y, int n_tiles, const __nv_bfloat16* w8, const float* b8, int O8,
+               const __nv_bfloat16* w9, const float* b9, int O9, const __nv_bfloat16* w10,
+               const float* b10, int O10, __nv_bfloat16* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = tc_smem(smem_raw);
+  const int per_image = tiles_x * tiles_y;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int b = t / per_image;
+    const int ty0 = (t % per_image) / tiles_x * tile;
+    const int tx0 = (t % per_image) % tiles_x * tile;
+    tc_tail_tile<false>(x + (size_t)b * C * H * W, C, H, W, ty0, tx0, tile, tile, w8, b8, O8, w9,
+                        b9, O9, w10, b10, O10, out + (size_t)b * O10 * H * W, 0, H, smem,
+                        t == (int)blockIdx.x, t + (int)gridDim.x >= n_tiles);
+  }
 }
 
 template <typename T>
@@ -133,6 +157,36 @@ int launch_tail(const void* x, int B, int C, int H, int W, const float* k8, cons
   return (int)cudaGetLastError();
 }
 
+int launch_tail_tc(const void* x, int B, int C, int H, int W, const void* w8, const float* b8,
+                   int O8, const void* w9, const float* b9, int O9, const void* w10,
+                   const float* b10, int O10, void* out, cudaStream_t stream) {
+  if (B < 1 || C < 1 || O8 < 1 || O9 < 1 || O10 < 1 || H < 2 || W < 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int limit = max_smem();
+  int tile = 0;
+  size_t bytes = 0;
+  const int tiles[] = {16, 8, 4};
+  for (int t : tiles) {
+    bytes = tc_tail_plan(t, t, C, O8, O9, O10).bytes;
+    if (bytes <= (size_t)limit) { tile = t; break; }
+  }
+  if (tile == 0) return (int)cudaErrorInvalidValue;
+  const int tiles_x = (W + tile - 1) / tile, tiles_y = (H + tile - 1) / tile;
+  const long long blocks = (long long)tiles_x * tiles_y * B;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tail_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  using bf = __nv_bfloat16;
+  const int grid = (int)(blocks < sm_count() ? blocks : sm_count());
+  tail_tc_kernel<<<grid, TC_THREADS, bytes, stream>>>(
+      static_cast<const bf*>(x), C, H, W, tile, tiles_x, tiles_y, (int)blocks,
+      static_cast<const bf*>(w8), b8, O8, static_cast<const bf*>(w9), b9, O9,
+      static_cast<const bf*>(w10), b10, O10, static_cast<bf*>(out));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_head(const void* x, int B, int C, int H, int W, const float* k1, const float* b1,
                 int O1, const float* k2, const float* b2, int O2, void* out,
@@ -165,18 +219,20 @@ int launch_head(const void* x, int B, int C, int H, int W, const float* k1, cons
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x and out). Weights are fp32 tap-major
-// (C_in, 3, 3, C_out) copies, biases fp32.
-int conv_tail(int dtype, const void* x, int B, int C, int H, int W, const float* k8,
-              const float* b8, int O8, const float* k9, const float* b9, int O9,
-              const float* k10, const float* b10, int O10, void* out, void* stream) {
+// dtype: 0 = float32 (SIMT; weights fp32 tap-major (C_in, 3, 3, C_out)
+// copies), 1 = bfloat16 (tensor cores; weights the packed bf16 blocks of
+// `pack_tc_weights`). x and out in that type, biases fp32.
+int conv_tail(int dtype, const void* x, int B, int C, int H, int W, const void* k8,
+              const float* b8, int O8, const void* k9, const float* b9, int O9,
+              const void* k10, const float* b10, int O10, void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_tail<float>(x, B, C, H, W, k8, b8, O8, k9, b9, O9, k10, b10, O10, out, s);
+    return launch_tail<float>(x, B, C, H, W, static_cast<const float*>(k8), b8, O8,
+                              static_cast<const float*>(k9), b9, O9,
+                              static_cast<const float*>(k10), b10, O10, out, s);
   }
   if (dtype == 1) {
-    return launch_tail<__nv_bfloat16>(x, B, C, H, W, k8, b8, O8, k9, b9, O9, k10, b10, O10,
-                                      out, s);
+    return launch_tail_tc(x, B, C, H, W, k8, b8, O8, k9, b9, O9, k10, b10, O10, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

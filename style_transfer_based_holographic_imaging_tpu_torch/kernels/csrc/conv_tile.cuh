@@ -1,28 +1,67 @@
-// The tiled 3x3 conv layer body shared by conv_stack.cu and halo_conv.cu.
+// The tiled 3x3 conv layer bodies shared by conv_stack.cu and halo_conv.cu.
 //
 // A block computes one output tile of one image through a chain of 3x3 conv
-// layers held in shared memory. Each layer's products are taken in fp32
-// (exact for bf16 operands) and summed in fp32, the fp32 bias is added
+// layers held in shared memory: each layer reflect-pads its own input, takes
+// bf16 x bf16 (or fp32 x fp32) products summed in fp32, adds the fp32 bias
 // before the one rounding to the input type, then the relu: the arithmetic
-// of `_conv3x3` in the JAX package's kernels/conv_stack.py.
+// of `_conv3x3` in the JAX package's kernels/conv_stack.py. Both bodies
+// sum each output in the same order wherever its tile lies, so the halo
+// kernels' rows equal the fused tail's bit for bit.
 //
-// Thread mapping: each thread owns 4 output pixels and OT (up to 16) output
-// channels, i.e. 64 fp32 accumulators; per input channel and tap it reads 4
-// activations and OT weights (warp-uniform 128-bit shared-memory
-// broadcasts). The weights are staged CK = 16 input channels at a time.
+// Two bodies, chosen by the input type and by nothing else:
+//   * bf16: `tc_tail_tile`, on the tensor cores (wgmma, bf16 in, fp32
+//     accumulators), 4 warpgroups a block, one block an SM walking tiles.
+//     conv8 and conv9 (`tc_conv_ss`): D (output channels x pixels) = W . X,
+//     one wgmma m64n112k16 per tap and 16 input channels, both operands in
+//     shared memory: A the layer's weights (staged once per layer per tile
+//     from blocks the host packs, (9, N, C) bf16), B a run of 112
+//     consecutive pixels of the channels-last input buffer, shifted by the
+//     tap's offset, so the 3x3 window is a start address and no register
+//     holds an operand. Runs cross buffer rows (the two columns past each
+//     output row are computed and dropped). The epilogue adds the bias,
+//     applies the relu, rounds, and writes 8 channels of a pixel as one
+//     16-byte chunk (`stmatrix .trans`). conv10 (`tc_conv_last`, O = 2):
+//     M = 64 output pixels, N = 8 channels (wgmma's least N), m64n8k16 with
+//     A from registers (`ldmatrix`, each lane naming its own pixel row).
+//   * fp32: `tail_tile` / `conv_layer`, on the CUDA cores (tensor cores have
+//     no exact fp32 product): each thread owns 4 output pixels and OT (up to
+//     16) output channels, 64 fp32 accumulators, and reads per input channel
+//     and tap 4 activations and OT weights (warp-uniform 128-bit broadcasts)
+//     from channel planes; the weights are staged CK = 16 input channels at
+//     a time. The encoder head runs this body in both types.
+//
+// What bounds the bf16 tail on this card: the products, 2,454 MFLOP an
+// image at 128^2 against 2 MB in. A 16 x 16 tile recomputes its
+// neighbours' halo (1.41 times the tile's own work; 1.56 with the dropped
+// columns and the runs' tails), and between the products it loads its
+// input (62 KB, NCHW -> channels-last), stages conv9's weights and runs
+// conv10, which the tensor cores wait on (PERF.md).
+//
+// Channels-last buffers (`Act`): in each block of 64 channels, pixel q is a
+// 128-byte row whose 16-byte chunk j lies at chunk j ^ (q & 7), the
+// 128-byte swizzle of wgmma's operands keyed on the row's address, so a
+// run of pixels from any pixel is an operand, and the 8 pixels of one
+// `ldmatrix` matrix meet no bank twice. Channels past a layer's width are
+// zeros to the end of their block. A planar layout cannot feed the tensor
+// cores: a one-pixel shift of the window would move an operand row by two
+// bytes.
 //
 // Reflect padding: a buffer covers virtual positions of the image, and a
 // virtual position -1 or n holds the layer's value at real position 1 or
-// n-2 (ReflectionPad2d(1) of that layer's input), computed for it, so every
-// window read is a plain 3x3 window of the buffer. In the VALID_H mode the
-// rows of every buffer are real rows of the image (the caller keeps the
-// output tile at least 3 rows from the top and bottom edges), so only the
-// columns reflect: the row-block tail of halo_conv.cu.
+// n-2 (ReflectionPad2d(1) of that layer's input), so every window read is
+// a plain 3x3 window of the buffer. The SIMT body computes each pad
+// position from its source's window; the tensor-core body copies the
+// source pixel after the layer (`fix_pads`). In the VALID_H mode the rows
+// of every buffer are real rows of the image (the caller keeps the output
+// tile at least 3 rows from the top and bottom edges), so only the columns
+// reflect: the row-block tail of halo_conv.cu.
 //
 // Each source that includes this header is compiled into a library of its
 // own (one translation unit), hence the unnamed namespace.
 
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -275,6 +314,550 @@ __device__ void tail_tile(const T* __restrict__ xb, int C, int H, int W, int y0,
   conv<T, TO_SMEM, VALID_H>(ta, O8, k9, b9, O9, true, ws, tb, nullptr, H, W);
   __syncthreads();
   conv<T, TO_GLOBAL, VALID_H>(tb, O9, k10, b10, O10, false, ws, to, g, H, W, g_y0, g_h);
+}
+
+// ===========================================================================
+// The bf16 body on the tensor cores.
+// ===========================================================================
+
+constexpr int TC_WARPGROUPS = 4;  // each takes every fourth product tile of a layer
+constexpr int TC_THREADS = 128 * TC_WARPGROUPS;
+constexpr int TC_PIX = 112;     // pixels a product of conv8 / conv9 (wgmma m64n112k16)
+constexpr int TC_M = 64;        // output channels a product of conv8 / conv9
+constexpr int TC_N_LAST = 8;    // conv10's N (m64n8k16, wgmma's least N)
+constexpr int TC_ALIGN = 1024;  // 128-byte-swizzled tiles repeat every 1024 bytes
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+__host__ __device__ inline size_t align_up(size_t v) {
+  return (v + TC_ALIGN - 1) / TC_ALIGN * TC_ALIGN;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A channels-last activation buffer: virtual rows y0 .. y0+nr-1 and columns
+// x0 .. x0+nc-1 of one image, cp channels (a multiple of 16, zero past the
+// layer's width) in blocks of 64 channels `blk` bytes apart. In a block,
+// pixel q is a 128-byte row whose 16-byte chunk j lies at chunk j ^ (q & 7):
+// the 128-byte swizzle of wgmma's operands, keyed on the row as the
+// hardware keys it on the address, so a run of pixels from any start is an
+// operand, and the 8 pixels of an `ldmatrix` matrix meet no bank twice.
+struct Act {
+  uint32_t s;  // shared-memory address
+  int y0, x0, nr, nc, cp, blk;
+};
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Byte offset of chunk j (channels 8j .. 8j+7) of pixel q.
+__device__ __forceinline__ int chunk_off(const Act& a, int q, int j) {
+  return (j >> 3) * a.blk + q * 128 + (((j & 7) ^ (q & 7)) << 4);
+}
+
+// Pixels a buffer of nr x nc must hold when conv8 / conv9 reads it for an
+// output region of (nr - 2) rows: the products run over whole rows of the
+// input buffer in steps of TC_PIX, and each tap reads up to 2 rows + 2
+// pixels past its step's first pixel.
+__host__ __device__ inline int tc_reach(int nr, int nc) {
+  const int n = round_up((nr - 2) * nc, TC_PIX) + 2 * nc + 2;
+  return round_up(n > nr * nc ? n : nr * nc, 8);
+}
+
+// Load the image's bf16 input tile, NCHW -> channels-last: virtual
+// positions -1 .. H (W) take the reflected real value, the rest and the
+// channels past C (to the end of their 64-channel block) are zeros.
+// VALID_H: the tile's rows are real rows. Each thread gathers LOAD_UNROLL
+// chunks (8 channels of one pixel each) before it stores them, so 8 x
+// LOAD_UNROLL of its global loads are in flight; neighbouring threads read
+// neighbouring pixels of a channel row.
+constexpr int LOAD_UNROLL = 2;
+
+template <bool VALID_H>
+__device__ void tc_load_tile(const __nv_bfloat16* __restrict__ xb, int C, int H, int W,
+                             const Act& t) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(xb);
+  const int npix = t.nr * t.nc, total = (t.cp + 63) / 64 * 8 * npix;
+  const size_t plane = (size_t)H * W;
+  for (int i0 = threadIdx.x; i0 < total; i0 += TC_THREADS * LOAD_UNROLL) {
+    uint32_t w[LOAD_UNROLL][4];
+#pragma unroll
+    for (int u = 0; u < LOAD_UNROLL; ++u) {
+      const int i = i0 + u * TC_THREADS;
+      const int j = i / npix, q = i % npix;
+      const int vr = t.y0 + q / t.nc, vc = t.x0 + q % t.nc;
+      const bool ok = i < total && (VALID_H || (vr >= -1 && vr <= H)) && vc >= -1 && vc <= W;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[u][e] = 0u;
+      if (ok && j * 8 < C) {
+        const int sr = VALID_H ? vr : reflect1(vr, H);
+        const unsigned short* src = xs + (size_t)sr * W + reflect1(vc, W) + (size_t)j * 8 * plane;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const uint32_t v = j * 8 + e < C ? (uint32_t)__ldg(src + e * plane) : 0u;
+          w[u][e / 2] |= v << (16 * (e % 2));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < LOAD_UNROLL; ++u) {
+      const int i = i0 + u * TC_THREADS;
+      if (i < total) {
+        st_shared_v4(t.s + chunk_off(t, i % npix, i / npix),
+                     make_uint4(w[u][0], w[u][1], w[u][2], w[u][3]));
+      }
+    }
+  }
+}
+
+// Bytes of a layer's staged weights: 9 taps x K blocks of 64 channels (cp
+// rounded up: the products take 64 channels at a time) x np rows of 128
+// bytes.
+__host__ __device__ constexpr size_t tc_weight_bytes(int cp, int np) {
+  return (size_t)9 * (round_up(cp, 64) / 64) * np * 128;
+}
+
+// Stage a layer's packed weights (9, np, cp) bf16 (K-major per tap, from
+// the host) as a K-major wgmma operand (conv8's and conv9's A, conv10's
+// B): [tap][K block of 64 channels][np rows][128 bytes], the 128-byte
+// swizzle, chunk c of row n at c ^ (n & 7). Chunks past cp are not
+// written: the products read them against zero activations, so they need
+// only be finite (`tc_tail_tile` zeroes the regions once). The copies are
+// cp.async, all in flight at once: `tc_weights_wait` waits for them.
+__device__ void tc_stage_weights(const __nv_bfloat16* __restrict__ wk, int cp, int np,
+                                 uint32_t base) {
+  const uint4* src = reinterpret_cast<const uint4*>(wk);
+  const int c8n = cp / 8, nkb = round_up(cp, 64) / 64;
+  for (int i = threadIdx.x; i < 9 * np * c8n; i += TC_THREADS) {
+    const int c8 = i % c8n, n = (i / c8n) % np, tap = i / (c8n * np);
+    const int off = ((tap * nkb + c8 / 8) * np + n) * 128 + (((c8 % 8) ^ (n & 7)) << 4);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + off), "l"(src + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This thread's weight copies are in shared memory and ordered before the
+// tensor cores' reads, which go through the async proxy. A block barrier
+// must follow before any warp's products.
+__device__ __forceinline__ void tc_weights_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand: rows of 128 bytes
+// with the 128-byte swizzle (layout type 1), 8-row groups 1024 bytes apart.
+// The address field is the low 14 bits in 16-byte units: a step of 32
+// bytes along the rows adds 2 to the descriptor. The card applies the
+// swizzle to the address bits of each row, so a run of pixels from any
+// pixel of a 1024-byte-aligned buffer is an operand with a base offset of
+// 0 (stating the start's row phase there instead gives wrong products,
+// measured on the H100).
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 112 fp32, registers) += A (64 x 16) . B (16 x 112), both bf16
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n112(float (&d)[56], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55}, "
+      "%56, %57, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 8 fp32, registers) += A (64 x 16 bf16, registers) . B (16 x 8
+// bf16, K-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8x8 bf16 matrices from the mma fragment layout (register i: row
+// lane/4, columns 2(lane%4) + {0,1} of matrix i), each stored transposed:
+// lane 8i + k gives the address of column k of matrix i, 16 bytes.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// conv8 or conv9 on the tensor cores: `in` (in.cp channels) -> `out`, the
+// region one pixel inside `in` on every side. D (output channels x pixels)
+// = W (the weights, A) . X (the pixels, B): a product tile is 64 output
+// channels by TC_PIX consecutive pixels q of `in`'s buffer, whose output
+// is at out's (q / in.nc, q % in.nc); for each tap the B operand is the
+// same run shifted by the tap's offset, (tap / 3) * in.nc + tap % 3, so
+// the 3x3 window is a start address. Runs cross buffer rows; the two
+// columns of each row past out's width, and the run's tail past the
+// region, are computed and dropped (their lanes store to `trash`, 16
+// bytes). The fp32 bias, the relu, one rounding, then `stmatrix .trans`
+// writes 8 channels of a pixel as one 16-byte chunk. Every position of the
+// region gets its plain 3x3 window's value: `fix_pads` then gives the
+// reflect pad its value. The channels from O to out.cp are zeros (zero
+// weights and bias). `ws`: the staged weights, np rows; `bias`
+// in shared memory, np values.
+__device__ void tc_conv_ss(const Act& in, uint32_t ws, int np, const float* bias, bool relu,
+                           const Act& out, uint32_t trash) {
+  const int t = threadIdx.x % 128, wg = threadIdx.x / 128;
+  const int warp = t / 32, lane = t % 32;
+  const int runs = (out.nr * in.nc + TC_PIX - 1) / TC_PIX, mtiles = np / TC_M;
+  const int nkb = (in.cp + 63) / 64;
+  const uint32_t in_base = in.s, w_base = ws, out_base = out.s;
+
+  // The same trip count in every warpgroup (ptxas serializes wgmma in a
+  // loop whose count differs between threads): a warpgroup past the last
+  // job repeats it and stores nothing.
+  const int jobs = runs * mtiles;
+#pragma unroll 1
+  for (int it = 0; it < (jobs + TC_WARPGROUPS - 1) / TC_WARPGROUPS; ++it) {
+    const int job = min(it * TC_WARPGROUPS + wg, jobs - 1);
+    const bool active = it * TC_WARPGROUPS + wg < jobs;
+    const int q0 = job % runs * TC_PIX, m0 = job / runs * TC_M;
+    float acc[TC_PIX / 2];
+#pragma unroll
+    for (int i = 0; i < TC_PIX / 2; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint32_t b0 = in_base + (q0 + (tap / 3) * in.nc + tap % 3) * 128;
+      const uint32_t a0 = w_base + (tap * nkb * np + m0) * 128;
+      int kb = 0;
+      do {  // 64 channels a block (one block up to 64 channels)
+        const uint64_t da = desc128(a0 + kb * np * 128), db = desc128(b0 + kb * in.blk);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // 16 channels a step: 32 bytes, 2 in the address field
+          wgmma_ss_n112(acc, da + 2 * k, db + 2 * k);
+        }
+      } while (++kb < nkb);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // Accumulator layout of m64nNk16: warp w holds rows (output channels)
+    // 16w + lane/4 (+8); register 4j + {0,1} columns (pixels) 8j +
+    // 2(lane%4) + {0,1}, 4j + {2,3} the same columns 8 rows down. Pixel
+    // group j and j+1 (8 pixels each) by channel halves: four matrices a
+    // stmatrix, chunk m0/8 + 2w (+1) of each pixel.
+    const int o = m0 + warp * 16 + lane / 4;
+    const float bias0 = bias[o], bias1 = bias[o + 8];
+    const int mi = lane / 8, chunk = (m0 + warp * 16) / 8 + (mi & 1);
+#pragma unroll
+    for (int j = 0; j < TC_PIX / 8; j += 2) {
+      uint32_t r[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int jj = j + (u >> 1), hh = u & 1;
+        float y0 = acc[4 * jj + 2 * hh] + (hh ? bias1 : bias0);
+        float y1 = acc[4 * jj + 2 * hh + 1] + (hh ? bias1 : bias0);
+        if (relu) {
+          y0 = fmaxf(y0, 0.f);
+          y1 = fmaxf(y1, 0.f);
+        }
+        r[u] = pack_bf16x2(y0, y1);
+      }
+      const int q = q0 + 8 * (j + (mi >> 1)) + lane % 8;
+      const int rr = q / in.nc, cc = q % in.nc;
+      const uint32_t addr = active && rr < out.nr && cc < out.nc
+                                ? out_base + chunk_off(out, rr * out.nc + cc, chunk)
+                                : trash;
+      stmatrix_x4_trans(addr, r[0], r[1], r[2], r[3]);
+    }
+  }
+}
+
+// The reflect pad of a layer's output buffer: each position -1 or n of a
+// reflected axis (rows unless VALID_H, and columns) inside `out`'s region
+// takes the pixel at its source, 1 or n-2 (both axes reflected at a
+// corner). The block's barrier must separate it from the layer's stores
+// and from the next layer's reads; tiles away from the image's border have
+// no pad and skip it.
+template <bool VALID_H>
+__device__ void fix_pads(const Act& out, int H, int W) {
+  const bool rows = !VALID_H && (out.y0 <= -1 || out.y0 + out.nr > H);
+  const bool cols = out.x0 <= -1 || out.x0 + out.nc > W;
+  if (!rows && !cols) return;
+  const int npix = out.nr * out.nc, c8 = out.cp / 8;
+  for (int i = threadIdx.x; i < npix * c8; i += TC_THREADS) {
+    const int q = i % npix, j = i / npix;
+    const int vr = out.y0 + q / out.nc, vc = out.x0 + q % out.nc;
+    const bool pad_r = !VALID_H && (vr == -1 || vr == H);
+    const bool pad_c = vc == -1 || vc == W;
+    if (!(pad_r || pad_c)) continue;
+    if ((!VALID_H && (vr < -1 || vr > H)) || vc < -1 || vc > W) continue;
+    const int sr = pad_r ? reflect1(vr, H) : vr, sc = pad_c ? reflect1(vc, W) : vc;
+    const int src = (sr - out.y0) * out.nc + (sc - out.x0);
+    st_shared_v4(out.s + chunk_off(out, q, j), ld_shared_v4(out.s + chunk_off(out, src, j)));
+  }
+  __syncthreads();
+}
+
+// conv10 on the tensor cores: `in` -> the image's output `g` (O channels,
+// (O, g_h, W) whose first row is image row g_y0), out's region one pixel
+// inside `in`. O is small (2), so here M is 64 output pixels (row-major
+// over out's region) and N = TC_N_LAST output channels: A comes from
+// registers, loaded by ldmatrix, each lane naming its own pixel row (the
+// window's shift is per-lane address arithmetic), B is the weights (np
+// rows, N at a time). Positions outside the image are not
+// written.
+template <bool VALID_H>
+__device__ void tc_conv_last(const Act& in, uint32_t ws, int np, const float* bias, int O,
+                             const Act& out, __nv_bfloat16* __restrict__ g, int H, int W,
+                             int g_y0, int g_h) {
+  constexpr int N = TC_N_LAST;
+  const int t = threadIdx.x % 128, wg = threadIdx.x / 128;
+  const int warp = t / 32, lane = t % 32;
+  const int npix = out.nr * out.nc, mtiles = (npix + 63) / 64;
+  const int nkb = (in.cp + 63) / 64;
+  const uint32_t in_base = in.s, w_base = ws;
+  auto inside = [&](int m, int& vr, int& vc) {
+    vr = out.y0 + m / out.nc;
+    vc = out.x0 + m % out.nc;
+    return (VALID_H || (vr >= 0 && vr < H)) && vc >= 0 && vc < W;
+  };
+
+  const int jobs = mtiles * (np / N);
+#pragma unroll 1
+  for (int it = 0; it < (jobs + TC_WARPGROUPS - 1) / TC_WARPGROUPS; ++it) {  // as tc_conv_ss
+    const int job = min(it * TC_WARPGROUPS + wg, jobs - 1);
+    const bool active = it * TC_WARPGROUPS + wg < jobs;
+    const int mt = job % mtiles, n0 = job / mtiles * N;
+    // This lane's row of A: ldmatrix matrix lane/8 takes rows 0-7, 8-15,
+    // 0-7, 8-15 of the warp's 16 and K halves 0, 0, 1, 1.
+    const int m = mt * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int half = lane >> 4;
+    int pb = 0, vr, vc;
+    if (m < npix && inside(m, vr, vc)) pb = (m / out.nc) * in.nc + m % out.nc;
+    __syncwarp();  // ldmatrix and wgmma are .aligned: the warp goes on together
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    // K in commit groups of one tap and one 64-channel block (4 steps of
+    // 16), each retired before the next group's ldmatrix reuses its
+    // registers: a second register set of A would overlap them, but
+    // costs the registers that four warpgroups do not have.
+    const int groups = 9 * nkb;
+    auto load_group = [&](uint32_t(&a)[4][4], int gi) {
+      const int tap = gi / nkb, kb = gi % nkb;
+      const int q = pb + (tap / 3) * in.nc + tap % 3;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        ldmatrix_x4(a[u], in_base + chunk_off(in, q, 8 * kb + 2 * u + half));
+      }
+    };
+    auto mma_group = [&](const uint32_t(&a)[4][4], int gi) {
+      const int tap = gi / nkb, kb = gi % nkb;
+      const uint64_t db = desc128(w_base + ((tap * nkb + kb) * np + n0) * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 4; ++u) wgmma_rs_n8(acc, a[u], db + 2 * u);
+      wgmma_commit();
+    };
+    uint32_t a[4][4];
+#pragma unroll 1
+    for (int gi = 0; gi < groups; ++gi) {
+      load_group(a, gi);
+      mma_group(a, gi);
+      wgmma_wait<0>();
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // Accumulator rows 16w + lane/4 (+8) are pixels, columns 2(lane%4) +
+    // {0,1} output channels.
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int mo = mt * 64 + warp * 16 + lane / 4 + 8 * hh;
+      if (!active || mo >= npix || !inside(mo, vr, vc)) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 2 * (lane % 4) + e;
+        if (n < O) {
+          const float y = acc[2 * hh + e] + bias[n];
+          g[((size_t)n * g_h + vr - g_y0) * W + vc] = __float2bfloat16_rn(y);
+        }
+      }
+    }
+  }
+}
+
+// The tensor-core tail's shared memory on an output tile of rows x cols:
+// [conv8's, then conv9's weights][conv10's weights][the biases, zero-padded
+// to np][16 bytes of trash][A: conv8's output][X: the input, later B:
+// conv9's output], the
+// weight and activation regions at multiples of TC_ALIGN, plus TC_ALIGN
+// bytes of slack to align the base.
+struct TcTail {
+  int cp0, cp8, cp9, np8, np9, np10;
+  int blk_x, blk_a, blk_b;  // bytes of a 64-channel block of X, A, B
+  int w10_off, bias_off, trash_off, a_off, x_off;  // bytes from the aligned base
+  size_t bytes;
+};
+
+__host__ __device__ inline TcTail tc_tail_plan(int rows, int cols, int C, int O8, int O9,
+                                               int O10) {
+  TcTail p;
+  p.cp0 = round_up(C, 16);
+  p.cp8 = round_up(O8, 16);
+  p.cp9 = round_up(O9, 16);
+  p.np8 = round_up(O8, TC_M);
+  p.np9 = round_up(O9, TC_M);
+  p.np10 = round_up(O10, TC_N_LAST);
+  p.blk_x = tc_reach(rows + 6, cols + 6) * 128;
+  p.blk_a = tc_reach(rows + 4, cols + 4) * 128;
+  p.blk_b = round_up((rows + 2) * (cols + 2), 8) * 128;
+  const size_t w8 = tc_weight_bytes(p.cp0, p.np8), w9 = tc_weight_bytes(p.cp8, p.np9);
+  const size_t x = (size_t)p.blk_x * ((p.cp0 + 63) / 64);
+  const size_t b = (size_t)p.blk_b * ((p.cp9 + 63) / 64);
+  p.w10_off = (int)align_up(w8 > w9 ? w8 : w9);
+  p.bias_off = p.w10_off + (int)tc_weight_bytes(p.cp9, p.np10);
+  p.trash_off = p.bias_off + (p.np8 + p.np9 + p.np10) * 4;
+  p.a_off = (int)align_up(p.trash_off + 16);
+  p.x_off = p.a_off + (int)align_up((size_t)p.blk_a * ((p.cp8 + 63) / 64));
+  p.bytes = p.x_off + (x > b ? x : b) + TC_ALIGN;
+  return p;
+}
+
+// The dynamic shared memory's first TC_ALIGN-aligned byte.
+__device__ __forceinline__ unsigned char* tc_smem(unsigned char* raw) {
+  return raw + ((TC_ALIGN - (smem_u32(raw) & (TC_ALIGN - 1))) & (TC_ALIGN - 1));
+}
+
+// tail_tile on the tensor cores, bf16: w8, w9, w10 are the packed weight
+// blocks (9, np, cp) of the host (kernels/conv_stack.py `pack_tc_weights`),
+// `smem` TC_ALIGN-aligned with tc_tail_plan's bytes. A block runs its tiles
+// through this one after another, all with the same weights: the `first`
+// stages conv10's weights and the biases for all of them, and each tile but
+// the `last` stages the next one's conv8 weights while its conv10 runs.
+// Ends with the block's last write to shared memory done, not synchronised.
+template <bool VALID_H>
+__device__ void tc_tail_tile(const __nv_bfloat16* __restrict__ xb, int C, int H, int W, int y0,
+                             int x0, int rows, int cols, const __nv_bfloat16* w8,
+                             const float* b8, int O8, const __nv_bfloat16* w9, const float* b9,
+                             int O9, const __nv_bfloat16* w10, const float* b10, int O10,
+                             __nv_bfloat16* __restrict__ g, int g_y0, int g_h,
+                             unsigned char* smem, bool first, bool last) {
+  // The plan is the same for every tile of a block; hidden from the
+  // compiler's hoisting, it is recomputed here instead of held in
+  // registers across the products, where it would spill.
+  asm volatile("" : "+r"(rows), "+r"(cols), "+r"(C));
+  const TcTail p = tc_tail_plan(rows, cols, C, O8, O9, O10);
+  const uint32_t ws = smem_u32(smem), ws10 = ws + p.w10_off;
+  float* bs = reinterpret_cast<float*>(smem + p.bias_off);
+  const Act tx{ws + p.x_off, y0 - 3, x0 - 3, rows + 6, cols + 6, p.cp0, p.blk_x};
+  const Act ta{ws + p.a_off, y0 - 2, x0 - 2, rows + 4, cols + 4, p.cp8, p.blk_a};
+  const Act tb{ws + p.x_off, y0 - 1, x0 - 1, rows + 2, cols + 2, p.cp9, p.blk_b};
+  const Act to{0u, y0, x0, rows, cols, 0, 0};
+
+  if (first) {  // in flight while the input tile loads
+    for (int i = threadIdx.x; i < p.bias_off / 16; i += TC_THREADS) {
+      st_shared_v4(ws + 16 * i, make_uint4(0u, 0u, 0u, 0u));
+    }
+    __syncthreads();
+    tc_stage_weights(w8, p.cp0, p.np8, ws);
+    tc_stage_weights(w10, p.cp9, p.np10, ws10);
+    for (int i = threadIdx.x; i < p.np8 + p.np9 + p.np10; i += TC_THREADS) {
+      const int j9 = i - p.np8, j10 = j9 - p.np9;
+      bs[i] = i < p.np8 ? (i < O8 ? b8[i] : 0.f)
+                        : (j9 < p.np9 ? (j9 < O9 ? b9[j9] : 0.f) : (j10 < O10 ? b10[j10] : 0.f));
+    }
+  } else {
+    __syncthreads();  // the previous tile's conv10 is done reading B (X's bytes)
+  }
+  tc_load_tile<VALID_H>(xb, C, H, W, tx);
+  tc_weights_wait();
+  __syncthreads();
+  const uint32_t trash = ws + p.trash_off;
+  tc_conv_ss(tx, ws, p.np8, bs, true, ta, trash);
+  __syncthreads();
+  fix_pads<VALID_H>(ta, H, W);
+  tc_stage_weights(w9, p.cp8, p.np9, ws);
+  tc_weights_wait();
+  __syncthreads();
+  tc_conv_ss(ta, ws, p.np9, bs + p.np8, true, tb, trash);
+  __syncthreads();
+  fix_pads<VALID_H>(tb, H, W);
+  if (!last) tc_stage_weights(w8, p.cp0, p.np8, ws);  // the next tile's; waited on there
+  tc_conv_last<VALID_H>(tb, ws10, p.np10, bs + p.np8 + p.np9, O10, to, g, H, W, g_y0, g_h);
+}
+
+// Streaming multiprocessors of the current device: the persistent grids'
+// size (one block an SM).
+int sm_count() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 132;
+  return v;
 }
 
 int max_smem() {

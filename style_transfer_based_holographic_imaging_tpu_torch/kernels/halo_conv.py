@@ -25,10 +25,12 @@ Both compute the decoder tail conv8 -> relu -> conv9 -> relu -> conv10 of
   rows, in the fused tail's numerics.
 
 Inputs are NCHW in fp32 or bf16, kernels OIHW in x's dtype, biases fp32, as
-``conv_stack.fused_conv_tail`` takes them. Arguments are checked before any
-launch. For a tensor on the CPU the wrappers take the plain version; for a
-CUDA tensor they launch the kernel for the interior or raise, never falling
-back. The strips run the same on both devices.
+``conv_stack.fused_conv_tail`` takes them. The kernels run the fused tail's
+tile body: on the tensor cores in bf16 (weights packed by
+``conv_stack.pack_tc_weights``), on the CUDA cores in fp32. Arguments are
+checked before any launch. For a tensor on the CPU the wrappers take the
+plain version; for a CUDA tensor they launch the kernel for the interior or
+raise, never falling back. The strips run the same on both devices.
 """
 
 from __future__ import annotations
@@ -145,8 +147,9 @@ def halo_interior(x, k8, b8, k9, b9, k10, b10, *, bh: int = 30, static: bool = F
     out = torch.empty(b, k10.shape[0], h - 2 * EDGE, w, dtype=x.dtype, device=x.device)
     if static:
         return conv_stack.launch(LAUNCHES, "halo_conv_tail_static", _lib().halo_tail_static,
-                                 x, layers, out, bh)
-    return conv_stack.launch(LAUNCHES, "halo_conv_tail", _lib().halo_tail, x, layers, out, bh)
+                                 x, layers, out, bh, tensor_cores=True)
+    return conv_stack.launch(LAUNCHES, "halo_conv_tail", _lib().halo_tail, x, layers, out, bh,
+                             tensor_cores=True)
 
 
 def halo_conv_tail(x, k8, b8, k9, b9, k10, b10, *, bh: int = 30):

@@ -34,13 +34,14 @@ def median_ms(fn, reps: int = 15, warmup: int = 3, cuda: bool = True) -> float:
     return statistics.median(times)
 
 
-def seeded_stack(b: int, dtype, c_in: int, widths, seed: int, device, size: int = 128):
+def seeded_stack(b: int, dtype, c_in: int, widths, seed: int, device, size=128):
     """Input and (kernel, bias) pairs of a 3x3 conv stack from
-    ``torch.Generator`` seed ``seed``: x ``(b, c_in, size, size)`` in [0, 1),
-    He-normal OIHW kernels (std sqrt(2 / fan_in)) in ``dtype``, N(0, 0.01^2)
-    fp32 biases."""
+    ``torch.Generator`` seed ``seed``: x ``(b, c_in, H, W)`` in [0, 1) with
+    ``size`` H = W or an ``(H, W)`` pair, He-normal OIHW kernels (std
+    sqrt(2 / fan_in)) in ``dtype``, N(0, 0.01^2) fp32 biases."""
+    h, w = (size, size) if isinstance(size, int) else size
     g = torch.Generator().manual_seed(seed)
-    args = [torch.rand(b, c_in, size, size, generator=g).to(device, dtype)]
+    args = [torch.rand(b, c_in, h, w, generator=g).to(device, dtype)]
     c = c_in
     for o in widths:
         k = torch.randn(o, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5

@@ -13,13 +13,19 @@ the fused kernels add the fp32 bias before their one rounding, over up to
 three layers.
 """
 
+import functools
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from style_transfer_based_holographic_imaging_tpu.kernels import conv_stack as jcs
+from style_transfer_based_holographic_imaging_tpu_torch.interop import convert_params
 from style_transfer_based_holographic_imaging_tpu_torch.kernels import conv_stack
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BF16_ULP = 2.0**-8
 
@@ -114,3 +120,54 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         conv_stack.fused_encoder_head(x, k1, b1.double(), k2, b2)
     with pytest.raises(ValueError):  # channels do not chain
         conv_stack.fused_encoder_head(x, k1, b1, k2[:, :4].contiguous(), b2)
+
+
+@pytest.mark.parametrize("n_tile", [64, 8])
+def test_pack_tc_weights_is_the_kernels_block_layout(n_tile):
+    """(9, N, C16): tap 3*kh + kw, output channel, input channel; the
+    padding to N and to a multiple of 16 channels is zeros."""
+    k = torch.as_tensor(_k(np.random.default_rng(3), 24, 10))  # O 10, C 24
+    packed = conv_stack.pack_tc_weights(k, n_tile)
+    assert packed.shape == (9, n_tile * -(-10 // n_tile), 32) and packed.dtype == k.dtype
+    for kh in range(3):
+        for kw in range(3):
+            assert torch.equal(packed[3 * kh + kw, :10, :24], k[:, :, kh, kw])
+    assert not packed[:, 10:].any() and not packed[:, :, 24:].any()
+
+
+@functools.lru_cache(maxsize=None)
+def _flagship_tail():
+    """The flagship release's own conv8/9/10 (OIHW, numpy), through
+    ``convert_params``."""
+    ocp = pytest.importorskip("orbax.checkpoint")
+    path = os.path.join(REPO, "checkpoints", "release")
+    if not os.path.isdir(path):
+        pytest.skip("no flagship release")
+    state = convert_params(ocp.StandardCheckpointer().restore(path)["params"])
+    return tuple((state[f"decoder.conv{i}.weight"].numpy(), state[f"decoder.conv{i}.bias"].numpy())
+                 for i in (8, 9, 10))
+
+
+def _packed_case(c):
+    """x (2, c, 12, 16) and the tail's layers: the flagship's own at c = 64,
+    seeded ones at the narrower widths (``turbo``'s 24, ``ultra``'s 16)."""
+    rng = np.random.default_rng(c)
+    x = rng.random((2, c, 12, 16)).astype(np.float32)
+    if c == 64:
+        return x, _flagship_tail()
+    return x, ((_k(rng, c, c), _b(rng, c)), (_k(rng, c, c), _b(rng, c)), (_k(rng, c, 2), _b(rng, 2)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [16, 24, 64])
+def test_packed_tail_matches_plain_version_and_jax(dtype, c):
+    """``conv_tail_packed``, the tensor-core tail's product over the packed
+    blocks (tap by tap, 16 channels a step, C padded to 16, conv10's N to
+    8), against ``conv_tail_plain`` and the JAX package's Pallas tail."""
+    x, layers = _packed_case(c)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    got = _port(x, *layers, fn=conv_stack.conv_tail_packed, dtype=dtype)
+    assert got.shape == (2, 2, 12, 16)
+    plain = _port(x, *layers, fn=conv_stack.conv_tail_plain, dtype=dtype)
+    _check(got, plain, dtype, "pallas")
+    _check(got, _jax(x, *layers, fn=jcs.fused_conv_tail, dtype=jdt), dtype, "pallas")

@@ -133,8 +133,13 @@ def test_encoder_head_matches_plain_version(card, dtype, c_in):
     assert _rel(y.float(), p.float()) < CONV_BUDGETS[dtype]
 
 
+# The tail's shapes: the widths of the releases' tails (64 flagship, 48
+# `balanced`, 24 `turbo`, 16 `ultra`), H and W off the 16 x 16 tile (20,
+# 12, 34: the tail takes H and W even, as the JAX package's does) and the
+# flagship's 128^2.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 64, 32, 24), (1, 16, 20, 12)])
+@pytest.mark.parametrize("shape", [(2, 64, 32, 24), (1, 16, 20, 12), (2, 24, 32, 24),
+                                   (2, 48, 32, 24), (2, 16, 20, 34), (2, 64, 128, 128)])
 def test_conv_tail_matches_plain_version(card, dtype, shape):
     b, c, h, w = shape
     args = _stack_args(card, dtype, c, (c, c, 2), b=b, h=h, w=w)
@@ -172,7 +177,7 @@ HALO_KERNELS = {"halo_conv_tail": halo_conv.halo_conv_tail,
 @pytest.mark.parametrize("name", sorted(HALO_KERNELS))
 @pytest.mark.parametrize("shape,bh", [
     ((2, 64, 128, 128), 30), ((2, 64, 128, 128), 60), ((1, 16, 40, 20), 16),
-    ((3, 8, 56, 33), 24), ((2, 8, 24, 16), 8),
+    ((3, 8, 56, 33), 24), ((2, 8, 24, 16), 8), ((2, 24, 56, 33), 24),
 ])
 def test_halo_tail_matches_plain_version(card, dtype, name, shape, bh):
     b, c, h, w = shape
@@ -187,7 +192,10 @@ def test_halo_tail_matches_plain_version(card, dtype, name, shape, bh):
     if h % 2 == 0 and w % 2 == 0:  # what the fused tail takes: the same rows
         e = halo_conv.EDGE
         fused = conv_stack.fused_conv_tail(*args)[:, :, e:-e]
-        assert _rel(y[:, :, e:-e].float(), fused.float()) < CONV_BUDGETS[dtype]
+        if dtype == torch.bfloat16:  # one tile body, one summation order a pixel
+            assert torch.equal(y[:, :, e:-e], fused)
+        else:
+            assert _rel(y[:, :, e:-e].float(), fused.float()) < CONV_BUDGETS[dtype]
 
 
 def test_static_halo_kernel_takes_its_instantiated_block_heights(card):
