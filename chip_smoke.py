@@ -11,18 +11,20 @@ line naming it and ends the run with exit code 3; nothing hangs):
 2. ``build``   — removes stale build files, compiles the four kernel sources
    with one ``nvcc`` each, all started together, loads the libraries with
    ``ctypes``; prints each source's ``nvcc`` seconds and the ``-Xptxas -v``
-   lines (registers, shared memory, spills) of ``asm_propagate.cu``,
-   ``conv_stack.cu`` and ``halo_conv.cu``, whose bf16 tail kernels run on
-   the tensor cores.
+   lines (registers, shared memory, spills) of every source.
 3. ``kernels`` — each kernel against its plain PyTorch version. The ASM
    kernels also against the ``torch.fft`` composition, at B = 5 and 256, in
    every precision mode, with per-sample distances spread over the suite's
    range for ``asm_dynamic``, and against the plain version alone at the
    ragged shapes ``ODD_SHAPES``; tolerance on max|err| / max|ref|: 1e-5
    (highest), 1e-4 (high), 2e-2 (bf16), the JAX package's budgets. The conv
-   stacks at flagship shapes and the border ring at three of the net's
-   layers and one odd H, at B = 5 and 256, in fp32 and bf16, and the tail
-   at the ragged shapes ``TAIL_ODD_SHAPES``; tolerance 1e-5 in fp32
+   stacks at flagship shapes and the border ring at ``RING_LAYERS`` (three
+   of the net's layers, one odd H, short lines that share a block, output
+   channels off 64), at B = 5 and 256, in fp32 and bf16, the tail at the
+   ragged shapes ``TAIL_ODD_SHAPES``, the head at ``HEAD_ODD_SHAPES`` (the
+   releases' widths, H and W off its tile), both also at 80 channels, past
+   the tensor-core bodies' 64 (bf16 there runs the SIMT body); tolerance
+   1e-5 in fp32
    (summation order) and 1e-2 in bf16 (a value that the other summation
    order puts on a bf16 rounding boundary rounds the other way, 2^-8
    relative, and carries into the next layer).
@@ -36,7 +38,8 @@ line naming it and ends the run with exit code 3; nothing hangs):
    calibrated on the golden suite, then the suite through
    ``evaluate_golden_suite(quant_scales=..., dtype=bf16)`` with the fused
    stacks on, the counts reset just before and read just after (both stack
-   kernels must have launched). Then one golden batch against the same
+   kernels must have launched, every launch on the tensor cores). Then one
+   golden batch against the same
    port on the CPU: every int8 conv, stack and transposed conv of the
    card's run again on the CPU from the same inputs, where the two runs
    part (differing int8 steps, call by call), what one int8 step moves, the
@@ -44,7 +47,8 @@ line naming it and ends the run with exit code 3; nothing hangs):
    with the stacks off.
 6. ``reflect`` — ``retrieval_step`` on one golden batch with the reflect
    backend ``cuda`` (the border ring must launch once for each of the net's
-   20 reflect convs), against the ``matpad`` backend on the card.
+   20 reflect convs, whose shapes the phase records), against the
+   ``matpad`` backend on the card.
 7. ``halo``    — the halo row-block decoder tail, the path of
    ``scripts/port_exp_halo_conv.py``: ``halo_conv_tail`` and
    ``halo_conv_tail_static`` at B = 256, 128^2 x 64 -> 2, bf16, bh 30 and
@@ -60,9 +64,11 @@ line naming it and ends the run with exit code 3; nothing hangs):
    the card), bf16 edge rows within four ulps of max|ref|. Times at B = 256
    of the script's rows.
 8. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
-   version and its library call, and of the whole ``retrieval_step``
-   (holograms/s): fp32, int8 with the stacks on and with them off (with
-   the stages of each), fp32 with the ring.
+   version and its library call in fp32 and bf16, the ring at each of the
+   20 reflect convs of the step (and their sum beside its bound), and of
+   the whole
+   ``retrieval_step`` (holograms/s): fp32, int8 with the stacks on and with
+   them off (with the stages of each), fp32 with the ring.
 
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -93,7 +99,6 @@ import torch  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch import ExperimentConfig  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.eval import zero_mean  # noqa: E402
-import torch.nn.functional as F  # noqa: E402
 
 from style_transfer_based_holographic_imaging_tpu_torch.kernels import (  # noqa: E402
     _build,
@@ -120,8 +125,11 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # no
     retrieval_step,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.utils.bench import (  # noqa: E402
+    head_library,
     median_ms,
+    recording_ring_layers,
     seeded_stack,
+    time_ring_layers,
 )
 
 
@@ -182,9 +190,10 @@ QUANT_PATH_TOL = {
 # The net's reflect convs: 9 in the encoder, 11 in the decoder.
 REFLECT_CONVS = 20
 # Layers of the border ring's checks: (C, H, W, O) of three of the net's
-# reflect convs and one odd H; the first is timed.
+# reflect convs, one odd H, and short lines that share a block of 128 ring
+# positions with output channels off a multiple of 64; the first is timed.
 RING_LAYERS = ((64, 128, 128, 64), (3, 128, 128, 64), (64, 64, 64, 128), (512, 16, 16, 256),
-               (64, 127, 128, 64))
+               (64, 127, 128, 64), (64, 16, 16, 40), (256, 32, 32, 96))
 B_TIMING = 256
 IMAGE = 128
 SERVING_REFOCUS_M = -2e-4  # -d_style = -0.2 mm, the golden suite's style plane
@@ -411,8 +420,15 @@ HALO_ROWS = {"halo_conv_tail": "halo", "halo_conv_tail_static": "halo_static"}
 HALO_EDGE_ULPS = 4
 # Ragged shapes (B, C, H, W) of the tail's tensor-core tiles: the widths of
 # `turbo` (24), `balanced` (48) and `ultra` (16), H and W off the 16 x 16
-# tile (the tail takes H and W even).
-TAIL_ODD_SHAPES = ((2, 24, 32, 24), (2, 48, 20, 34), (1, 16, 20, 12))
+# tile (the tail takes H and W even); and 80 channels (a width-1.25 net),
+# where the bf16 tail runs the SIMT body.
+TAIL_ODD_SHAPES = ((2, 24, 32, 24), (2, 48, 20, 34), (1, 16, 20, 12), (1, 80, 20, 34))
+# The head's: (B, C, width, H, W), one or three input channels, the
+# releases' widths 16 (`ultra`), 24 (`turbo`), 32 (`fast`), 48
+# (`balanced`), H and W off its 16 x 32 pre-pool tile; and width 80 (the
+# SIMT body in bf16).
+HEAD_ODD_SHAPES = ((2, 1, 16, 20, 34), (2, 3, 24, 34, 20), (2, 1, 32, 36, 40), (2, 1, 48, 128, 128),
+                   (1, 3, 64, 20, 34), (1, 1, 80, 20, 34))
 # The halo tail's: ((B, C, H, W), bh), W off the 16-column tile, the row
 # tiles 12 and 16 rows high.
 HALO_ODD_SHAPES = (((2, 24, 56, 34), 24), ((2, 48, 40, 20), 16))
@@ -430,6 +446,12 @@ def check_conv_kernels(device, batches=(5, 256)):
     """The stack kernels and the border ring against their plain versions."""
     rows = []
     cases = []
+    for b, c, width, h, w in HEAD_ODD_SHAPES:
+        for dtype in CONV_TOLERANCES:
+            cases.append(("fused_encoder_head", b, dtype, (b, c, width, h, w),
+                          lambda b=b, c=c, width=width, h=h, w=w, dt=dtype: seeded_stack(
+                              b, dt, c, (width, width), b + c + width + h + w, device, size=(h, w)),
+                          conv_stack.fused_encoder_head, conv_stack.encoder_head_plain))
     for shape in TAIL_ODD_SHAPES:
         for dtype in CONV_TOLERANCES:
             cases.append(("fused_conv_tail", shape[0], dtype, shape,
@@ -757,11 +779,32 @@ def suite_summary(metrics):
     return {k: metrics[k] for k in ("mean_psnr", "heldout_mean_psnr", "mean_mae", "r2")}
 
 
-def head_library(x, k1, b1, k2, b2):
-    """The cuDNN composition of the head in x's dtype (timing yardstick)."""
-    for k, b in ((k1, b1), (k2, b2)):
-        x = F.relu(F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), k, b.to(x.dtype)))
-    return F.max_pool2d(x, 2, 2)
+def ring_bound(peak_flops, peak_bytes, b: int, layer, dtype):
+    """Least time (ms) of the ring at one layer (C, H, W, O) and what bounds
+    it: 24 C O (H + W) fp32 FLOP an image (its taps are folded in fp32, so
+    its products are fp32 in either type) against the eight edge lines it
+    reads, its outputs and the kernel, each once."""
+    c, h, w, o = layer
+    size = 2 if dtype == torch.bfloat16 else 4
+    t_ops = 24 * c * o * (h + w) * b / peak_flops["fp32"] * 1e3
+    t_bytes = ((4 * (h + w) * c + 2 * o * (h + w)) * size * b + o * c * 9 * size) / peak_bytes * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_ring_step(step_layers, peak_flops, peak_bytes, b: int, device):
+    """The ring at each reflect conv of one fp32 step, at batch b: by
+    layer (C, H, W, O) its CUDA-event median, its bound and how many of the
+    step's convs have that shape; and the step's sums."""
+    by_layer = time_ring_layers(step_layers, b, device)
+    for v in by_layer.values():
+        v["bound_ms"], v["bound_by"] = ring_bound(peak_flops, peak_bytes, b, v.pop("layer"),
+                                                  torch.float32)
+    return {
+        "by_layer": by_layer,
+        "step_ms": sum(v["ms"] * v["convs"] for v in by_layer.values()),
+        "step_bound_ms": sum(v["bound_ms"] * v["convs"] for v in by_layer.values()),
+        "convs": sum(v["convs"] for v in by_layer.values()),
+    }
 
 
 def conv_bounds(peak_flops, peak_bytes, b: int):
@@ -769,8 +812,7 @@ def conv_bounds(peak_flops, peak_bytes, b: int):
     and dtype: the larger of its operations over the card's peak rate for
     their type (bf16 products with fp32 sums at the tensor cores' bf16 rate,
     fp32 at the fp32 rate) and its bytes (each input once, each output
-    once) over the memory rate. The ring counts the eight edge lines it
-    reads, at the timed layer."""
+    once) over the memory rate. The ring at the timed layer."""
     hw = IMAGE * IMAGE
     out = {}
     for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
@@ -779,16 +821,12 @@ def conv_bounds(peak_flops, peak_bytes, b: int):
         head_bytes = (hw * 1 + 64 * hw // 4) * size * b + (64 * 9 + 64 * 64 * 9) * size + 128 * 4
         tail_flops = 2 * hw * 9 * (64 * 64 + 64 * 64 + 64 * 2) * b
         tail_bytes = (64 * hw + 2 * hw) * size * b + (2 * 64 * 64 * 9 + 2 * 64 * 9) * size + 130 * 4
-        c, h, w, o = RING_LAYERS[0]
-        ring_flops = 12 * c * o * 2 * (h + w) * b
-        ring_bytes = (4 * (h + w) * c + 2 * o * (h + w)) * size * b + o * c * 9 * size
-        # the ring multiplies by taps folded in fp32: fp32 products either way
-        for name, flops, nbytes, k in (("fused_encoder_head", head_flops, head_bytes, kind),
-                                       ("fused_conv_tail", tail_flops, tail_bytes, kind),
-                                       ("border_lines", ring_flops, ring_bytes, "fp32")):
-            t_ops = flops / peak_flops[k] * 1e3
+        for name, flops, nbytes in (("fused_encoder_head", head_flops, head_bytes),
+                                    ("fused_conv_tail", tail_flops, tail_bytes)):
+            t_ops = flops / peak_flops[kind] * 1e3
             t_bytes = nbytes / peak_bytes * 1e3
             out[name, dtype] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+        out["border_lines", dtype] = ring_bound(peak_flops, peak_bytes, b, RING_LAYERS[0], dtype)
     return out
 
 
@@ -816,8 +854,7 @@ def main() -> int:
         reflect_border._lib()
         halo_conv._lib()
         phase.info = {"nvcc_seconds": seconds, "removed_stale": removed, "build_dir": _build.BUILD_DIR,
-                      **{f"{src}_ptxas": _build.ptxas_lines(src)
-                         for src in ("asm_propagate", "conv_stack", "halo_conv")}}
+                      **{f"{src}_ptxas": _build.ptxas_lines(src) for src in _build.SOURCES}}
 
     with open(os.path.join(REPO, "checkpoints", "config.json")) as f:
         cfg = ExperimentConfig.from_json(f.read())
@@ -859,6 +896,10 @@ def main() -> int:
         launches.update(conv_stack.LAUNCHES)
         if not all(launches[k] > 0 for k in conv_stack.LAUNCHES):
             _die(f"the int8 path did not launch both stack kernels: {conv_stack.LAUNCHES}", 1)
+        tc_launches = dict(conv_stack.TC_LAUNCHES)
+        if tc_launches != conv_stack.LAUNCHES:
+            _die(f"the int8 path ran a stack off the tensor cores: {tc_launches} of "
+                 f"{conv_stack.LAUNCHES}", 1)
         args = (goldens.content_holo[10], goldens.style_mean, goldens.style_std,
                 float(goldens.distance_style[10].reshape(-1)[0]), physics)
         net_cpu = copy.deepcopy(net).cpu()
@@ -878,6 +919,7 @@ def main() -> int:
         phase.info = {
             "n_scales": len(scales),
             "launches": {k: launches[k] for k in conv_stack.LAUNCHES},
+            "tensor_core_launches": tc_launches,
             "stacks_on_random_weights": suite_summary(metrics_on),
             "stacks_off_random_weights": suite_summary(metrics_off),
             "fp32_random_weights": {"mean_psnr": metrics["mean_psnr"], "r2": metrics["r2"]},
@@ -889,7 +931,8 @@ def main() -> int:
                 float(goldens.distance_style[10].reshape(-1)[0]), physics)
         set_reflect_backend("cuda")
         reflect_border.reset_launches()
-        r_cuda = retrieval_step(net, *args, device=dev)
+        with recording_ring_layers() as ring_layers_of_step:
+            r_cuda = retrieval_step(net, *args, device=dev)
         torch.cuda.synchronize()
         launches.update(reflect_border.LAUNCHES)
         set_reflect_backend("matpad")
@@ -900,6 +943,7 @@ def main() -> int:
         # Two fp32 conv algorithms on the card: the tolerances of card vs CPU.
         phase.info = {
             "launches_per_step": launches["border_lines"],
+            "ring_layers_of_step": ring_layers_of_step,
             "cuda_vs_matpad_batch_10": compare_outputs(
                 r_cuda, r_matpad, SLICE_AMP_TOL, SLICE_DIST_TOL, SLICE_PHASE_TOL,
                 SLICE_PHASE_FRACTION, "reflect backends cuda and matpad"),
@@ -1002,6 +1046,7 @@ def main() -> int:
             x, k = ring_args(b, torch.float32, layer, 2, dev)
             ring_layers_ms["x".join(map(str, layer))] = median_ms(lambda: reflect_border.border_lines(x, k))
         del x, k
+        ring_step = time_ring_step(ring_layers_of_step, peak_flops, peak_bytes, b, dev)
         conv_b = conv_bounds(peak_flops, peak_bytes, b)
 
         # retrieval_step in int8 with the stacks on, and its stages alone on
@@ -1088,6 +1133,7 @@ def main() -> int:
             "fp32_reflect_cuda_holograms_per_s": b / r_step_ms * 1e3,
             "conv_kernel_ms": {f"{k}/{_dt(d)}": v for (k, d), v in conv_timings.items()},
             "ring_fp32_ms_by_layer": ring_layers_ms,
+            "ring_fp32_step": ring_step,
             "conv_bound_ms": {f"{k}/{_dt(d)}": v for (k, d), v in conv_b.items()},
         }
 
@@ -1125,6 +1171,11 @@ def main() -> int:
         "fused_conv_tail": (csrc + "conv_stack.cu", jk + "conv_stack.py:122", torch.bfloat16),
         "border_lines": (csrc + "reflect_border.cu", jk + "reflect_border.py:97", torch.float32),
     }
+    extras = {
+        "border_lines": {"step_fp32_ms": ring_step["step_ms"],
+                         "step_fp32_bound_ms": ring_step["step_bound_ms"],
+                         "step_convs": ring_step["convs"]},
+    }
     for k, (source, where, dt) in conv_meta.items():
         mine = [r for r in conv_rows if r["kernel"] == k]
         at = [r for r in mine if r["B"] == b and r["dtype"] == _dt(dt)
@@ -1143,8 +1194,11 @@ def main() -> int:
             "ms": conv_timings[k, dt][0], "plain_ms": conv_timings[k, dt][1],
             "bound_ms": conv_b[k, dt][0], "bound_by": conv_b[k, dt][1],
             "ms_by_dtype": {_dt(d): conv_timings[k, d][0] for d in CONV_TOLERANCES},
+            "plain_ms_by_dtype": {_dt(d): conv_timings[k, d][1] for d in CONV_TOLERANCES},
             "bound_ms_by_dtype": {_dt(d): conv_b[k, d][0] for d in CONV_TOLERANCES},
             "library_ms": conv_timings[k, dt][2],
+            "library_ms_by_dtype": {_dt(d): conv_timings[k, d][2] for d in CONV_TOLERANCES},
+            **extras.get(k, {}),
         })
     halo_where = {"halo_conv_tail": jk + "halo_conv.py:105",
                   "halo_conv_tail_static": jk + "halo_conv.py:175"}

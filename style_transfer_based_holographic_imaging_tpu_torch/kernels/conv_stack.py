@@ -15,13 +15,18 @@ fp32, the fp32 bias added before the cast, the relu, and the result rounded
 to the input type. With one input channel the taps are summed one by one in
 the TPU kernel's order. Nothing between the layers goes to device memory.
 
-The tail in bf16 runs on the tensor cores (wgmma), and so do the halo
-kernels (``halo_conv``), which share its tile body: each layer is an
-implicit GEMM over 9 taps x 16-channel steps whose weights the host packs
-with ``pack_tc_weights``; ``conv_tail_packed`` is that product written as
-plain tensor ops. In fp32, and the head in both types, the kernels take
-``_tap_major`` fp32 copies and run on the CUDA cores. The input type
-decides, and nothing else.
+In bf16 the tail runs on the tensor cores (wgmma), and so do the halo
+kernels (``halo_conv``), which share its tile body, and the head's conv1_2:
+each such layer is an implicit GEMM over 9 taps x 16-channel steps whose
+weights the host packs with ``pack_tc_weights``; ``conv_tail_packed`` and
+``encoder_head_packed`` are those products written as plain tensor ops.
+The head's conv1_1 (one or three input channels) stays on the CUDA cores
+with an fp32 ``_tap_major`` copy, as every layer does in fp32, where the
+kernels run on the CUDA cores. The input type decides, with one
+exception: the tensor-core bodies stage a layer's whole weights in shared
+memory, which holds one 64-channel block a layer (every release's width).
+A bf16 stack wider than that runs the SIMT body in bf16; ``TC_LAUNCHES``
+counts the launches that ran on the tensor cores.
 
 Inputs are NCHW in fp32 or bf16, kernels OIHW in the input type, biases
 fp32; H and W even and >= 4, as the JAX package's ``_use_fused`` admits.
@@ -51,26 +56,38 @@ __all__ = [
     "conv_tail_plain",
     "conv_tail_reference",
     "conv_tail_packed",
+    "encoder_head_packed",
     "pack_tc_weights",
     "TC_N_TILES",
+    "HEAD_TC_TILES",
     "LAUNCHES",
+    "TC_LAUNCHES",
     "reset_launches",
 ]
 
-# Launches of each kernel by its wrapper.
+# Launches of each kernel by its wrapper, and those of them that ran the
+# tensor-core body.
 LAUNCHES = {"fused_encoder_head": 0, "fused_conv_tail": 0}
+TC_LAUNCHES = {"fused_encoder_head": 0, "fused_conv_tail": 0}
 
 _SOURCE = "conv_stack"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The multiple each tail layer's output channels are padded to in its
 # packed blocks: conv8's and conv9's products take 64 output channels at a
 # time (wgmma's M), conv10's 8 (wgmma's least N).
 TC_N_TILES = (64, 64, 8)
+# The head in bf16: conv1_1 takes the fp32 tap-major copy (None), conv1_2
+# the packed blocks, its output channels padded to 64.
+HEAD_TC_TILES = (None, 64)
+# The body code of the entry points: fp32 and bf16 on the SIMT body, bf16
+# on the tensor cores.
+_SIMT = {torch.float32: 0, torch.bfloat16: 2}
+_TENSOR_CORES = 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        TC_LAUNCHES[k] = 0
 
 
 def _conv3x3_plain(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
@@ -175,6 +192,41 @@ def conv_tail_packed(x, k8, b8, k9, b9, k10, b10):
     return a[:, : k10.shape[0]].contiguous()
 
 
+def encoder_head_packed(x, k1, b1, k2, b2):
+    """conv1_1 -> relu -> conv1_2 -> relu -> 2x2 pool as the tensor-core
+    head sums it, in plain tensor ops: conv1_1 per input channel over the 9
+    taps in (kh, kw) order, each product added to the fp32 sum in turn (with
+    one channel the JAX kernel's broadcast branch), then the fp32 bias, the
+    relu and one rounding; conv1_2 an im2col product over the
+    ``pack_tc_weights`` blocks, channels-last with the channels padded with
+    zeros to a multiple of 16, summed in fp32 tap by tap and 16 channels at
+    a time (the kernel's K order; each 16-long dot product's own order is
+    the library's), the fp32 bias, the relu, one rounding; then the max of
+    each 2x2 quad of the rounded values."""
+    dt = x.dtype
+    b, c, h, w = x.shape
+    xp = F.pad(x.float(), (1, 1, 1, 1), mode="reflect")
+    k1f = k1.float()
+    acc = torch.zeros(b, k1.shape[0], h, w, device=x.device)
+    for ci in range(c):
+        for t in range(9):
+            kh, kw = divmod(t, 3)
+            acc = acc + xp[:, ci : ci + 1, kh : kh + h, kw : kw + w] * k1f[:, ci, kh, kw].view(1, -1, 1, 1)
+    a = torch.relu(acc + b1.float().view(1, -1, 1, 1)).to(dt)
+    o1 = k1.shape[0]
+    a = F.pad(a, (0, 0, 0, 0, 0, _round_up(o1, 16) - o1))
+    packed = pack_tc_weights(k2, HEAD_TC_TILES[1]).float()
+    ap = F.pad(a.float(), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+    acc = torch.zeros(b, h, w, packed.shape[1], device=x.device)
+    for t in range(9):
+        kh, kw = divmod(t, 3)
+        win = ap[:, kh : kh + h, kw : kw + w]
+        for c0 in range(0, packed.shape[2], 16):
+            acc += win[..., c0 : c0 + 16] @ packed[t, :, c0 : c0 + 16].T
+    y = torch.relu(acc[..., : k2.shape[0]] + b2.float()).to(dt).permute(0, 3, 1, 2)
+    return F.max_pool2d(y, 2, 2)
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
@@ -183,7 +235,20 @@ def _lib() -> ctypes.CDLL:
     lib.conv_head.restype = ctypes.c_int
     lib.conv_tail.argtypes = [i, p, i, i, i, i] + [p, p, i] * 3 + [p, p]
     lib.conv_tail.restype = ctypes.c_int
+    lib.conv_head_tc.argtypes = [i] * 3
+    lib.conv_head_tc.restype = ctypes.c_int
+    lib.conv_tail_tc.argtypes = [i] * 4
+    lib.conv_tail_tc.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _on_tensor_cores(query: str, device: int, *channels: int) -> bool:
+    """Whether the bf16 stack ``query`` (``conv_head_tc`` or
+    ``conv_tail_tc``) runs on the tensor cores at these channel counts on
+    card ``device``."""
+    with torch.cuda.device(device):
+        return bool(getattr(_lib(), query)(*channels))
 
 
 def _check(x: torch.Tensor, layers) -> None:
@@ -200,7 +265,7 @@ def check_stack(x: torch.Tensor, layers) -> None:
     device."""
     if x.ndim != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _SIMT:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the conv stacks take CPU or CUDA tensors, got {x.device}")
@@ -225,23 +290,27 @@ def _tap_major(k: torch.Tensor) -> torch.Tensor:
 
 
 def launch(counts: dict, name: str, fn, x: torch.Tensor, layers, out: torch.Tensor,
-           *extra: int, tensor_cores: bool = False) -> torch.Tensor:
-    """Launch a conv-stack entry point ``fn(dtype, x, B, C, H, W, *extra,
+           *extra: int, tc_tiles=None) -> torch.Tensor:
+    """Launch a conv-stack entry point ``fn(body, x, B, C, H, W, *extra,
     (kernel, bias, O) per layer, out, stream)`` on x's card and count it in
-    ``counts[name]``; raise if the launch failed. With ``tensor_cores`` (the
-    tail's entry points) a bf16 ``x`` takes the ``pack_tc_weights`` blocks,
-    else the kernels take ``_tap_major`` fp32 copies."""
-    if tensor_cores and x.dtype == torch.bfloat16:
-        weights = [(pack_tc_weights(k, n), bias.contiguous())
-                   for (k, bias), n in zip(layers, TC_N_TILES)]
+    ``counts[name]``; raise if the launch failed. For a bf16 ``x``,
+    ``tc_tiles`` picks the tensor-core body and names per layer the
+    ``n_tile`` of its ``pack_tc_weights`` blocks (``TC_N_TILES`` for the
+    tail's entry points, ``HEAD_TC_TILES`` for the head's), or None where
+    the layer takes the ``_tap_major`` fp32 copy, as every layer does on
+    the SIMT body (without ``tc_tiles`` or in fp32)."""
+    if tc_tiles is None or x.dtype != torch.bfloat16:
+        body, tc_tiles = _SIMT[x.dtype], (None,) * len(layers)
     else:
-        weights = [(_tap_major(k), bias.contiguous()) for k, bias in layers]
+        body = _TENSOR_CORES
+    weights = [(_tap_major(k) if n is None else pack_tc_weights(k, n), bias.contiguous())
+               for (k, bias), n in zip(layers, tc_tiles)]
     ptrs = [v for (kt, bt), (k, _) in zip(weights, layers)
             for v in (kt.data_ptr(), bt.data_ptr(), k.shape[0])]
     b, c, h, w = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        status = fn(_DTYPES[x.dtype], x.data_ptr(), b, c, h, w, *extra, *ptrs, out.data_ptr(), stream)
+        status = fn(body, x.data_ptr(), b, c, h, w, *extra, *ptrs, out.data_ptr(), stream)
     _build.check_status(status, name)
     counts[name] += 1
     return out
@@ -254,9 +323,14 @@ def fused_encoder_head(x, k1, b1, k2, b2):
     _check(x, layers)
     if x.device.type == "cpu":
         return encoder_head_plain(x, k1, b1, k2, b2)
-    b, _, h, w = x.shape
+    b, c, h, w = x.shape
+    tc = x.dtype == torch.bfloat16 and _on_tensor_cores(
+        "conv_head_tc", x.device.index, c, k1.shape[0], k2.shape[0])
     out = torch.empty(b, k2.shape[0], h // 2, w // 2, dtype=x.dtype, device=x.device)
-    return launch(LAUNCHES, "fused_encoder_head", _lib().conv_head, x, layers, out)
+    launch(LAUNCHES, "fused_encoder_head", _lib().conv_head, x, layers, out,
+           tc_tiles=HEAD_TC_TILES if tc else None)
+    TC_LAUNCHES["fused_encoder_head"] += tc
+    return out
 
 
 def fused_conv_tail(x, k8, b8, k9, b9, k10, b10):
@@ -266,7 +340,11 @@ def fused_conv_tail(x, k8, b8, k9, b9, k10, b10):
     _check(x, layers)
     if x.device.type == "cpu":
         return conv_tail_plain(x, k8, b8, k9, b9, k10, b10)
-    b, _, h, w = x.shape
+    b, c, h, w = x.shape
+    tc = x.dtype == torch.bfloat16 and _on_tensor_cores(
+        "conv_tail_tc", x.device.index, c, k8.shape[0], k9.shape[0], k10.shape[0])
     out = torch.empty(b, k10.shape[0], h, w, dtype=x.dtype, device=x.device)
-    return launch(LAUNCHES, "fused_conv_tail", _lib().conv_tail, x, layers, out,
-                  tensor_cores=True)
+    launch(LAUNCHES, "fused_conv_tail", _lib().conv_tail, x, layers, out,
+           tc_tiles=TC_N_TILES if tc else None)
+    TC_LAUNCHES["fused_conv_tail"] += tc
+    return out

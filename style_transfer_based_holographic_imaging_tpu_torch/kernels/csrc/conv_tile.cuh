@@ -23,12 +23,17 @@
 //     16-byte chunk (`stmatrix .trans`). conv10 (`tc_conv_last`, O = 2):
 //     M = 64 output pixels, N = 8 channels (wgmma's least N), m64n8k16 with
 //     A from registers (`ldmatrix`, each lane naming its own pixel row).
+//     The encoder head in bf16 (`tc_head_tile`) reuses `tc_conv_ss` for
+//     conv1_2 (64 -> 64, the tail's conv9) with runs of 136 pixels on a
+//     16 x 32 pre-pool tile, four runs, one a warpgroup; conv1_1 (one or
+//     three input channels) runs on the CUDA cores straight into the
+//     channels-last buffer, and a pass pools conv1_2's rounded output.
 //   * fp32: `tail_tile` / `conv_layer`, on the CUDA cores (tensor cores have
 //     no exact fp32 product): each thread owns 4 output pixels and OT (up to
 //     16) output channels, 64 fp32 accumulators, and reads per input channel
 //     and tap 4 activations and OT weights (warp-uniform 128-bit broadcasts)
 //     from channel planes; the weights are staged CK = 16 input channels at
-//     a time. The encoder head runs this body in both types.
+//     a time. The encoder head in fp32 runs this body too (TO_POOL).
 //
 // What bounds the bf16 tail on this card: the products, 2,454 MFLOP an
 // image at 128^2 against 2 MB in. A 16 x 16 tile recomputes its
@@ -369,12 +374,12 @@ __device__ __forceinline__ int chunk_off(const Act& a, int q, int j) {
   return (j >> 3) * a.blk + q * 128 + (((j & 7) ^ (q & 7)) << 4);
 }
 
-// Pixels a buffer of nr x nc must hold when conv8 / conv9 reads it for an
-// output region of (nr - 2) rows: the products run over whole rows of the
-// input buffer in steps of TC_PIX, and each tap reads up to 2 rows + 2
-// pixels past its step's first pixel.
-__host__ __device__ inline int tc_reach(int nr, int nc) {
-  const int n = round_up((nr - 2) * nc, TC_PIX) + 2 * nc + 2;
+// Pixels a buffer of nr x nc must hold when a `tc_conv_ss` layer reads it
+// for an output region of (nr - 2) rows: the products run over whole rows
+// of the input buffer in runs of pix, and each tap reads up to 2 rows + 2
+// pixels past its run's first pixel.
+__host__ __device__ inline int tc_reach(int nr, int nc, int pix = TC_PIX) {
+  const int n = round_up((nr - 2) * nc, pix) + 2 * nc + 2;
   return round_up(n > nr * nc ? n : nr * nc, 8);
 }
 
@@ -496,9 +501,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 112 fp32, registers) += A (64 x 16) . B (16 x 112), both bf16
-// K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n112(float (&d)[56], uint64_t da, uint64_t db) {
+// D (64 x N fp32, registers) += A (64 x 16) . B (16 x N), both bf16 K-major
+// in shared memory; one instance for each run length of the bodies.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<112>(float (&d)[56], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -519,6 +528,35 @@ __device__ __forceinline__ void wgmma_ss_n112(float (&d)[56], uint64_t da, uint6
         "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
         "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<136>(float (&d)[68], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67}, "
+      "%68, %69, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67])
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -551,10 +589,10 @@ __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, ui
                : "memory");
 }
 
-// conv8 or conv9 on the tensor cores: `in` (in.cp channels) -> `out`, the
-// region one pixel inside `in` on every side. D (output channels x pixels)
-// = W (the weights, A) . X (the pixels, B): a product tile is 64 output
-// channels by TC_PIX consecutive pixels q of `in`'s buffer, whose output
+// conv8, conv9 or conv1_2 on the tensor cores: `in` (in.cp channels) ->
+// `out`, the region one pixel inside `in` on every side. D (output channels
+// x pixels) = W (the weights, A) . X (the pixels, B): a product tile is 64
+// output channels by PIX consecutive pixels q of `in`'s buffer, whose output
 // is at out's (q / in.nc, q % in.nc); for each tap the B operand is the
 // same run shifted by the tap's offset, (tap / 3) * in.nc + tap % 3, so
 // the 3x3 window is a start address. Runs cross buffer rows; the two
@@ -565,12 +603,17 @@ __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, ui
 // region gets its plain 3x3 window's value: `fix_pads` then gives the
 // reflect pad its value. The channels from O to out.cp are zeros (zero
 // weights and bias). `ws`: the staged weights, np rows; `bias`
-// in shared memory, np values.
+// in shared memory, np values. With SYNC the block meets at a barrier
+// between its products and its epilogues, so `out` may overlay `in` (the
+// caller keeps the jobs to one round: runs x np / 64 <= TC_WARPGROUPS).
+// NC > 0 states in.nc at compile time (the epilogue divides by it).
+template <int PIX, bool SYNC = false, int NC = 0>
 __device__ void tc_conv_ss(const Act& in, uint32_t ws, int np, const float* bias, bool relu,
                            const Act& out, uint32_t trash) {
   const int t = threadIdx.x % 128, wg = threadIdx.x / 128;
   const int warp = t / 32, lane = t % 32;
-  const int runs = (out.nr * in.nc + TC_PIX - 1) / TC_PIX, mtiles = np / TC_M;
+  const int in_nc = NC > 0 ? NC : in.nc;
+  const int runs = (out.nr * in_nc + PIX - 1) / PIX, mtiles = np / TC_M;
   const int nkb = (in.cp + 63) / 64;
   const uint32_t in_base = in.s, w_base = ws, out_base = out.s;
 
@@ -582,10 +625,10 @@ __device__ void tc_conv_ss(const Act& in, uint32_t ws, int np, const float* bias
   for (int it = 0; it < (jobs + TC_WARPGROUPS - 1) / TC_WARPGROUPS; ++it) {
     const int job = min(it * TC_WARPGROUPS + wg, jobs - 1);
     const bool active = it * TC_WARPGROUPS + wg < jobs;
-    const int q0 = job % runs * TC_PIX, m0 = job / runs * TC_M;
-    float acc[TC_PIX / 2];
+    const int q0 = job % runs * PIX, m0 = job / runs * TC_M;
+    float acc[PIX / 2];
 #pragma unroll
-    for (int i = 0; i < TC_PIX / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < PIX / 2; ++i) acc[i] = 0.f;
     wgmma_fence();
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
@@ -596,28 +639,34 @@ __device__ void tc_conv_ss(const Act& in, uint32_t ws, int np, const float* bias
         const uint64_t da = desc128(a0 + kb * np * 128), db = desc128(b0 + kb * in.blk);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {  // 16 channels a step: 32 bytes, 2 in the address field
-          wgmma_ss_n112(acc, da + 2 * k, db + 2 * k);
+          wgmma_ss<PIX>(acc, da + 2 * k, db + 2 * k);
         }
       } while (++kb < nkb);
       wgmma_commit();
     }
     wgmma_wait<0>();
     fence_acc(acc);
+    if constexpr (SYNC) __syncthreads();
 
     // Accumulator layout of m64nNk16: warp w holds rows (output channels)
     // 16w + lane/4 (+8); register 4j + {0,1} columns (pixels) 8j +
     // 2(lane%4) + {0,1}, 4j + {2,3} the same columns 8 rows down. Pixel
     // group j and j+1 (8 pixels each) by channel halves: four matrices a
-    // stmatrix, chunk m0/8 + 2w (+1) of each pixel.
+    // stmatrix, chunk m0/8 + 2w (+1) of each pixel. With PIX / 8 odd the
+    // last stmatrix has no group j+1: its lanes store to `trash`.
     const int o = m0 + warp * 16 + lane / 4;
     const float bias0 = bias[o], bias1 = bias[o + 8];
     const int mi = lane / 8, chunk = (m0 + warp * 16) / 8 + (mi & 1);
 #pragma unroll
-    for (int j = 0; j < TC_PIX / 8; j += 2) {
+    for (int j = 0; j < PIX / 8; j += 2) {
       uint32_t r[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int jj = j + (u >> 1), hh = u & 1;
+        if (jj >= PIX / 8) {
+          r[u] = 0u;
+          continue;
+        }
         float y0 = acc[4 * jj + 2 * hh] + (hh ? bias1 : bias0);
         float y1 = acc[4 * jj + 2 * hh + 1] + (hh ? bias1 : bias0);
         if (relu) {
@@ -626,9 +675,10 @@ __device__ void tc_conv_ss(const Act& in, uint32_t ws, int np, const float* bias
         }
         r[u] = pack_bf16x2(y0, y1);
       }
-      const int q = q0 + 8 * (j + (mi >> 1)) + lane % 8;
-      const int rr = q / in.nc, cc = q % in.nc;
-      const uint32_t addr = active && rr < out.nr && cc < out.nc
+      const int jq = j + (mi >> 1);
+      const int q = q0 + 8 * jq + lane % 8;
+      const int rr = q / in_nc, cc = q % in_nc;
+      const uint32_t addr = active && jq < PIX / 8 && rr < out.nr && cc < out.nc
                                 ? out_base + chunk_off(out, rr * out.nc + cc, chunk)
                                 : trash;
       stmatrix_x4_trans(addr, r[0], r[1], r[2], r[3]);
@@ -838,17 +888,299 @@ __device__ void tc_tail_tile(const __nv_bfloat16* __restrict__ xb, int C, int H,
   tc_weights_wait();
   __syncthreads();
   const uint32_t trash = ws + p.trash_off;
-  tc_conv_ss(tx, ws, p.np8, bs, true, ta, trash);
+  tc_conv_ss<TC_PIX>(tx, ws, p.np8, bs, true, ta, trash);
   __syncthreads();
   fix_pads<VALID_H>(ta, H, W);
   tc_stage_weights(w9, p.cp8, p.np9, ws);
   tc_weights_wait();
   __syncthreads();
-  tc_conv_ss(ta, ws, p.np9, bs + p.np8, true, tb, trash);
+  tc_conv_ss<TC_PIX>(ta, ws, p.np9, bs + p.np8, true, tb, trash);
   __syncthreads();
   fix_pads<VALID_H>(tb, H, W);
   if (!last) tc_stage_weights(w8, p.cp0, p.np8, ws);  // the next tile's; waited on there
   tc_conv_last<VALID_H>(tb, ws10, p.np10, bs + p.np8 + p.np9, O10, to, g, H, W, g_y0, g_h);
+}
+
+// ===========================================================================
+// The encoder head's bf16 body: conv1_1 on the CUDA cores, conv1_2 on the
+// tensor cores, the 2x2 pool from shared memory.
+// ===========================================================================
+
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 m = __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&m);
+}
+
+// The tensor-core head's shared memory on a pre-pool output tile of rows x
+// cols, conv1_2 in runs of pix pixels: [conv1_2's weights][conv1_1's
+// weights, fp32 (C, 9, 64)][the biases, 64 + 64][16 bytes of trash][the
+// input tile, fp32 planes (C, rows + 4, cols + 4)][A: conv1_1's output over
+// the 1-pixel halo, then conv1_2's rounded output (the pool's input) over
+// it], A at a multiple of TC_ALIGN, plus TC_ALIGN bytes of slack to align
+// the base. Channels are padded to one 64-channel block: O1, O2 <= 64.
+struct TcHead {
+  int cp1;    // conv1_1's output channels padded to 16: conv1_2's K
+  int blk_a;  // bytes of A's 64-channel block
+  int w1_off, bias_off, trash_off, x_off, a_off;  // bytes from the aligned base
+  size_t bytes;
+};
+
+__host__ __device__ inline TcHead tc_head_plan(int rows, int cols, int pix, int C, int O1) {
+  TcHead p;
+  p.cp1 = round_up(O1, 16);
+  p.blk_a = tc_reach(rows + 2, cols + 2, pix) * 128;
+  p.w1_off = (int)tc_weight_bytes(p.cp1, TC_M);
+  p.bias_off = p.w1_off + C * 9 * TC_M * 4;
+  p.trash_off = p.bias_off + 2 * TC_M * 4;
+  p.x_off = p.trash_off + 16;
+  p.a_off = (int)align_up(p.x_off + (size_t)C * (rows + 4) * (cols + 4) * 4);
+  p.bytes = p.a_off + (size_t)p.blk_a + TC_ALIGN;
+  return p;
+}
+
+// The input of a head tile, NR x NC positions a channel from virtual row
+// y0 - 2 and column x0 - 2: positions -1 .. H (W) take the reflected real
+// value, the rest zeros (read by no kept output). `head_fetch` gathers one
+// channel into registers, the bf16 bits of elements threadIdx.x + u *
+// TC_THREADS, so that the next tile's input is in flight during this
+// tile's pool; `head_put` writes them to the fp32 planes `xs`.
+constexpr int HEAD_FETCH = 2;  // input values a thread holds for the next tile
+
+template <int NR, int NC>
+__device__ __forceinline__ void head_fetch(const __nv_bfloat16* __restrict__ xb, int H, int W,
+                                           int y0, int x0, uint32_t (&v)[HEAD_FETCH]) {
+  static_assert(NR * NC <= HEAD_FETCH * TC_THREADS, "one channel in HEAD_FETCH values a thread");
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(xb);
+#pragma unroll
+  for (int u = 0; u < HEAD_FETCH; ++u) {
+    const int i = threadIdx.x + u * TC_THREADS;
+    const int vr = y0 - 2 + i / NC, vc = x0 - 2 + i % NC;
+    v[u] = i < NR * NC && vr >= -1 && vr <= H && vc >= -1 && vc <= W
+               ? (uint32_t)__ldg(xs + (size_t)reflect1(vr, H) * W + reflect1(vc, W))
+               : 0u;
+  }
+}
+
+template <int NR, int NC>
+__device__ __forceinline__ void head_put(const uint32_t (&v)[HEAD_FETCH], float* __restrict__ xs) {
+#pragma unroll
+  for (int u = 0; u < HEAD_FETCH; ++u) {
+    const int i = threadIdx.x + u * TC_THREADS;
+    if (i < NR * NC) xs[i] = __uint_as_float(v[u] << 16);
+  }
+}
+
+// The same for C channels at once, loaded and stored in one pass (the head
+// with the stem unfolded, C > 1).
+template <int NR, int NC>
+__device__ void head_load_input(const __nv_bfloat16* __restrict__ xb, int C, int H, int W, int y0,
+                                int x0, float* __restrict__ xs) {
+  for (int i = threadIdx.x; i < C * NR * NC; i += TC_THREADS) {
+    const int c = i / (NR * NC), r = i % (NR * NC) / NC, s = i % NC;
+    const int vr = y0 - 2 + r, vc = x0 - 2 + s;
+    float v = 0.f;
+    if (vr >= -1 && vr <= H && vc >= -1 && vc <= W) {
+      v = __bfloat162float(xb[((size_t)c * H + reflect1(vr, H)) * W + reflect1(vc, W)]);
+    }
+    xs[i] = v;
+  }
+}
+
+// conv1_1 on the CUDA cores: the input planes `xs` ((NR + 2) x (NC + 2)
+// from virtual (a.y0 - 1, a.x0 - 1)) -> `a` (NR x NC), every position of
+// its region and all 64 channels of its block (zero weights and bias past
+// O1). A position at virtual -1 or H (W) takes its own reflected window,
+// its source's, so `a` needs no fix_pads; positions outside the padded
+// image are zeros, read only by products whose outputs are dropped. Per
+// input channel the 9 taps in (kh, kw) order, one fmaf each, then the
+// bias, the relu, one rounding. With C = 1 that is the JAX kernel's
+// broadcast branch (a bf16 x bf16 product is exact in fp32, so each fmaf
+// rounds where its multiply-then-add rounds). Each warp keeps one chunk of
+// 8 channels; an item is two vertically neighbouring positions, so each
+// tap's two 16-byte weight broadcasts serve 16 FMAs; neighbouring lanes
+// take neighbouring columns, so the 16-byte stores meet no bank twice.
+template <int NR, int NC>
+__device__ void head_conv1(const float* __restrict__ xs, int C, const float* __restrict__ w1,
+                           const float* __restrict__ b1, const Act& a, int H, int W) {
+  static_assert(NR % 2 == 0, "positions in vertical pairs");
+  constexpr int XC = NC + 2, PLANE = (NR + 2) * XC, ITEMS = NR / 2 * NC;
+  constexpr int LANES = TC_THREADS / 8;  // threads a chunk
+  const int j = threadIdx.x / 32 % 8;
+  const int l = threadIdx.x / 256 * 32 + threadIdx.x % 32;
+  float bj[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) bj[e] = b1[8 * j + e];
+  for (int it = l; it < ITEMS; it += LANES) {
+    const int r0 = it / NC * 2, s = it % NC;
+    const int vc = a.x0 + s;
+    bool ok[2];
+    const float* xp[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int vr = a.y0 + r0 + h;
+      ok[h] = vc >= -1 && vc <= W && vr >= -1 && vr <= H;
+      xp[h] = xs + (ok[h] ? (reflect1(vr, H) - a.y0) * XC + reflect1(vc, W) - a.x0 : 0);
+    }
+    float acc[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[h][e] = 0.f;
+    const float* wp = w1 + 8 * j;
+    for (int c = 0; c < C; ++c, wp += 9 * TC_M) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const float4 wa = reinterpret_cast<const float4*>(wp + tap * TC_M)[0];
+        const float4 wb = reinterpret_cast<const float4*>(wp + tap * TC_M)[1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float xv = xp[h][c * PLANE + (tap / 3) * XC + tap % 3];
+          acc[h][0] = fmaf(xv, wa.x, acc[h][0]);
+          acc[h][1] = fmaf(xv, wa.y, acc[h][1]);
+          acc[h][2] = fmaf(xv, wa.z, acc[h][2]);
+          acc[h][3] = fmaf(xv, wa.w, acc[h][3]);
+          acc[h][4] = fmaf(xv, wb.x, acc[h][4]);
+          acc[h][5] = fmaf(xv, wb.y, acc[h][5]);
+          acc[h][6] = fmaf(xv, wb.z, acc[h][6]);
+          acc[h][7] = fmaf(xv, wb.w, acc[h][7]);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = ok[h] ? pack_bf16x2(fmaxf(acc[h][2 * e] + bj[2 * e], 0.f),
+                                   fmaxf(acc[h][2 * e + 1] + bj[2 * e + 1], 0.f))
+                     : 0u;
+      }
+      st_shared_v4(a.s + chunk_off(a, (r0 + h) * NC + s, j), make_uint4(v[0], v[1], v[2], v[3]));
+    }
+  }
+}
+
+// The 2x2/2 max pool of conv1_2's rounded output `o` (ROWS x COLS, 64
+// channels) into the image's (O2, H/2, W/2) output `g`: the max of rounded
+// values, which is the rounded max. An item is one pooled row, 8 pooled
+// columns and two channels: it reads the pair's 4 bytes of the 32 pixels
+// and writes 16 bytes to each channel's row, element by element at a
+// ragged or unaligned end; the two items of a row's 16 pooled columns are
+// neighbouring lanes, so each store instruction writes whole 32-byte
+// sectors. Pooled positions outside the image are not written.
+template <int ROWS, int COLS>
+__device__ void head_pool(const Act& o, int O2, int H, int W, __nv_bfloat16* __restrict__ g) {
+  constexpr int GROUPS = COLS / 16;
+  const int hp = H / 2, wp = W / 2, py0 = o.y0 / 2, px0 = o.x0 / 2;
+  const int pairs = (O2 + 1) / 2;
+  unsigned short* gs = reinterpret_cast<unsigned short*>(g);
+  for (int i = threadIdx.x; i < ROWS / 2 * GROUPS * pairs; i += TC_THREADS) {
+    const int gi = i % GROUPS, e = i / GROUPS % pairs, pr = i / GROUPS / pairs;
+    const int pc0 = px0 + 8 * gi;
+    if (py0 + pr >= hp || pc0 >= wp) continue;
+    uint32_t m[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int q = 2 * pr * COLS + 2 * (8 * gi + u);
+      const uint32_t off = (e % 4) * 4;
+      const uint32_t top = max_bf16x2(ld_shared_u32(o.s + chunk_off(o, q, e / 4) + off),
+                                      ld_shared_u32(o.s + chunk_off(o, q + 1, e / 4) + off));
+      const uint32_t bot = max_bf16x2(ld_shared_u32(o.s + chunk_off(o, q + COLS, e / 4) + off),
+                                      ld_shared_u32(o.s + chunk_off(o, q + COLS + 1, e / 4) + off));
+      m[u] = max_bf16x2(top, bot);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ch = 2 * e + h;
+      if (ch >= O2) break;
+      unsigned short* dst = gs + ((size_t)ch * hp + py0 + pr) * wp + pc0;
+      if (pc0 + 8 <= wp && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        uint32_t w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          w[k] = h ? (m[2 * k] >> 16) | (m[2 * k + 1] & 0xffff0000u)
+                   : (m[2 * k] & 0xffffu) | (m[2 * k + 1] << 16);
+        }
+        asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(dst), "r"(w[0]), "r"(w[1]),
+                     "r"(w[2]), "r"(w[3])
+                     : "memory");
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (pc0 + u < wp) dst[u] = (unsigned short)(h ? m[u] >> 16 : m[u] & 0xffffu);
+        }
+      }
+    }
+  }
+}
+
+// conv1_1 -> relu -> conv1_2 -> relu -> 2x2 pool of one image, bf16, on the
+// pre-pool output tile of ROWS x COLS at (y0, x0), H and W even: `w1` is
+// conv1_1's fp32 tap-major (C, 3, 3, O1) copy, `w2` conv1_2's packed
+// blocks (9, 64, cp1) of `pack_tc_weights`, `g` the image's
+// (O2, H/2, W/2) output, `smem` TC_ALIGN-aligned with tc_head_plan's
+// bytes. The tile: its input planes with a 2-pixel halo; conv1_1 over the
+// 1-pixel halo into A; conv1_2 as one round of `tc_conv_ss` (a run of PIX
+// pixels a warpgroup), whose epilogue overwrites A after a barrier; the
+// pool. A block runs its tiles through this one after another: the
+// `first` stages both layers' weights and the biases for all of them.
+// With C = 1 the tile's input arrives in `pre` (`head_fetch`), and
+// `fetch_next(pre)` fetches the next tile's after the products, in flight
+// during the pool (it works out where that tile lies only then, so nothing
+// of it is held in registers across the products).
+template <int ROWS, int COLS, int PIX, typename FetchNext>
+__device__ void tc_head_tile(const __nv_bfloat16* __restrict__ xb, int C, int H, int W, int y0,
+                             int x0, const float* w1, const float* b1, int O1,
+                             const __nv_bfloat16* w2, const float* b2, int O2,
+                             __nv_bfloat16* __restrict__ g, unsigned char* smem, bool first,
+                             uint32_t (&pre)[HEAD_FETCH], FetchNext fetch_next) {
+  static_assert(ROWS % 2 == 0 && COLS % 16 == 0, "the pool takes whole quads, 8 columns a store");
+  static_assert(ROWS * (COLS + 2) <= TC_WARPGROUPS * PIX, "conv1_2 in one round of products");
+  asm volatile("" : "+r"(C), "+r"(O1));  // as in tc_tail_tile: recomputed, not held
+  const TcHead p = tc_head_plan(ROWS, COLS, PIX, C, O1);
+  const uint32_t ws = smem_u32(smem);
+  float* w1s = reinterpret_cast<float*>(smem + p.w1_off);
+  float* bs = reinterpret_cast<float*>(smem + p.bias_off);
+  float* xs = reinterpret_cast<float*>(smem + p.x_off);
+  const Act ta{ws + p.a_off, y0 - 1, x0 - 1, ROWS + 2, COLS + 2, p.cp1, p.blk_a};
+  const Act to{ws + p.a_off, y0, x0, ROWS, COLS, TC_M, ROWS * COLS * 128};
+
+  if (first) {  // the weights stay for all of the block's tiles
+    for (int i = threadIdx.x; i < p.w1_off / 16; i += TC_THREADS) {
+      st_shared_v4(ws + 16 * i, make_uint4(0u, 0u, 0u, 0u));
+    }
+    __syncthreads();
+    tc_stage_weights(w2, p.cp1, TC_M, ws);
+    for (int i = threadIdx.x; i < C * 9 * TC_M; i += TC_THREADS) {
+      const int o = i % TC_M;
+      w1s[i] = o < O1 ? w1[i / TC_M * O1 + o] : 0.f;
+    }
+    for (int i = threadIdx.x; i < 2 * TC_M; i += TC_THREADS) {
+      const int o = i % TC_M;
+      bs[i] = i < TC_M ? (o < O1 ? b1[o] : 0.f) : (o < O2 ? b2[o] : 0.f);
+    }
+  }
+  __syncthreads();  // the previous tile's pool is done reading A
+  if (C == 1) {
+    head_put<ROWS + 4, COLS + 4>(pre, xs);
+  } else {
+    head_load_input<ROWS + 4, COLS + 4>(xb, C, H, W, y0, x0, xs);
+  }
+  __syncthreads();
+  head_conv1<ROWS + 2, COLS + 2>(xs, C, w1s, bs, ta, H, W);
+  tc_weights_wait();  // conv1_2's weights (first tile) and A's stores, before the products read
+  __syncthreads();
+  tc_conv_ss<PIX, true, COLS + 2>(ta, ws, TC_M, bs + TC_M, true, to, ws + p.trash_off);
+  if (C == 1) fetch_next(pre);
+  __syncthreads();
+  head_pool<ROWS, COLS>(to, O2, H, W, g);
 }
 
 // Streaming multiprocessors of the current device: the persistent grids'

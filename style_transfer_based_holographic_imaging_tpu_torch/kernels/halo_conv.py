@@ -147,9 +147,9 @@ def halo_interior(x, k8, b8, k9, b9, k10, b10, *, bh: int = 30, static: bool = F
     out = torch.empty(b, k10.shape[0], h - 2 * EDGE, w, dtype=x.dtype, device=x.device)
     if static:
         return conv_stack.launch(LAUNCHES, "halo_conv_tail_static", _lib().halo_tail_static,
-                                 x, layers, out, bh, tensor_cores=True)
+                                 x, layers, out, bh, tc_tiles=conv_stack.TC_N_TILES)
     return conv_stack.launch(LAUNCHES, "halo_conv_tail", _lib().halo_tail, x, layers, out, bh,
-                             tensor_cores=True)
+                             tc_tiles=conv_stack.TC_N_TILES)
 
 
 def halo_conv_tail(x, k8, b8, k9, b9, k10, b10, *, bh: int = 30):

@@ -9,6 +9,11 @@ the four edge lines of each side alone, the taps folded to ``k0 + k2``
 against the reflected neighbour line and ``k1`` against the edge line, in
 fp32 before the multiply, with fp32 sums.
 
+On the card the ring is one fp32 GEMM per line orientation over every ring
+position of the batch (the design in the source's header): a prologue
+folds the taps once per call into the K-major array that ``ring_taps``
+writes as plain tensor ops, bit for bit the JAX kernel's fold.
+
 Layouts are the port's: ``x`` ``(B, C, H, W)``, ``k`` ``(O, C, 3, 3)``,
 both fp32 or both bf16. Returns ``rows`` ``(B, O, 2, W)`` (output rows 0
 and H-1) and ``cols`` ``(B, O, H, 2)`` (output columns 0 and W-1 over all
@@ -29,13 +34,16 @@ import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
 
-__all__ = ["border_lines", "border_lines_plain", "LAUNCHES", "reset_launches"]
+__all__ = ["border_lines", "border_lines_plain", "ring_taps", "LAUNCHES", "reset_launches"]
 
 # Launches of the kernel by its wrapper.
 LAUNCHES = {"border_lines": 0}
 
 _SOURCE = "reflect_border"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's blocks take 64 output channels: the folded taps' rows are
+# padded to a multiple of it.
+_BM = 64
 
 
 def reset_launches() -> None:
@@ -66,11 +74,29 @@ def border_lines_plain(x: torch.Tensor, k: torch.Tensor):
     return rows.to(x.dtype), cols.transpose(2, 3).to(x.dtype)
 
 
+def ring_taps(k: torch.Tensor) -> torch.Tensor:
+    """The folded taps the kernel multiplies by, ``(2, 6, C, O64)`` fp32:
+    orientation (rows, columns), then (near line, edge line) x the 3 taps
+    along the line, then the input channel, then the output channel padded
+    with zeros to a multiple of 64. Rows fold the kernel's rows, ``k[:, :,
+    0] + k[:, :, 2]`` against the near line and ``k[:, :, 1]`` against the
+    edge line, columns its columns, each sum in fp32: the JAX kernel's
+    ``k_sym``, ``k_mid``, ``kt_sym`` and ``kt_mid``."""
+    o, c = k.shape[:2]
+    kf = k.float()
+    parts = (kf[:, :, 0] + kf[:, :, 2], kf[:, :, 1],        # rows: (O, C, 3) along W
+             kf[..., 0] + kf[..., 2], kf[..., 1])           # columns: (O, C, 3) along H
+    folded = torch.stack(parts).permute(0, 3, 2, 1).reshape(2, 6, c, o)
+    taps = folded.new_zeros(2, 6, c, -(-o // _BM) * _BM)
+    taps[..., :o] = folded
+    return taps
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.border_lines.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
+    lib.border_lines.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p]
     lib.border_lines.restype = ctypes.c_int
     return lib
 
@@ -93,11 +119,12 @@ def border_lines(x: torch.Tensor, k: torch.Tensor):
     o = k.shape[0]
     rows = torch.empty(b, o, 2, w, dtype=x.dtype, device=x.device)
     cols = torch.empty(b, o, h, 2, dtype=x.dtype, device=x.device)
+    taps = torch.empty(2, 6, c, -(-o // _BM) * _BM, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         status = _lib().border_lines(
-            _DTYPES[x.dtype], x.data_ptr(), k.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-            b, c, h, w, o, stream,
+            _DTYPES[x.dtype], x.data_ptr(), k.data_ptr(), taps.data_ptr(), rows.data_ptr(),
+            cols.data_ptr(), b, c, h, w, o, stream,
         )
     _build.check_status(status, "border_lines")
     LAUNCHES["border_lines"] += 1

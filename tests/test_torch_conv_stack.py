@@ -171,3 +171,56 @@ def test_packed_tail_matches_plain_version_and_jax(dtype, c):
     plain = _port(x, *layers, fn=conv_stack.conv_tail_plain, dtype=dtype)
     _check(got, plain, dtype, "pallas")
     _check(got, _jax(x, *layers, fn=jcs.fused_conv_tail, dtype=jdt), dtype, "pallas")
+
+
+def _packed_head_case(c, width):
+    """x (2, c, 20, 34), off every pre-pool tile of the bf16 head, and a
+    conv1_1 / conv1_2 pair at ``width``."""
+    rng = np.random.default_rng(10 * c + width)
+    x = rng.random((2, c, 20, 34)).astype(np.float32)
+    k2 = (rng.standard_normal((width, width, 3, 3)) * (2.0 / (9 * width)) ** 0.5).astype(np.float32)
+    return x, (_k(rng, c, width), _b(rng, width)), (k2, _b(rng, width))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("width", [16, 24, 48, 64])
+def test_packed_head_matches_plain_version_and_jax(dtype, channels, width):
+    """``encoder_head_packed``, the tensor-core head's sums (conv1_1 tap by
+    tap per channel, conv1_2 over the packed blocks 16 channels a step, one
+    rounding a layer, the pool of rounded values), against the JAX
+    package's Pallas head (the file's tolerances) and ``encoder_head_plain``
+    (fp32 atol 2e-5; bf16 one bf16 spacing at max|ref|, 2^(floor(log2
+    max|ref|) - 7): with three input channels the plain version's conv1_1
+    is the library's conv, whose other summation order can put a value on
+    the other side of a rounding boundary), at the releases' widths and an
+    H x W off the kernel's tiles."""
+    x, *layers = _packed_head_case(channels, width)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    got = _port(x, *layers, fn=conv_stack.encoder_head_packed, dtype=dtype)
+    assert got.shape == (2, width, 10, 17)
+    plain = _port(x, *layers, fn=conv_stack.encoder_head_plain, dtype=dtype)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, plain, atol=2e-5)
+    else:  # one bf16 spacing at max|ref|: a flipped rounding of the largest values
+        spacing = 2.0 ** (np.floor(np.log2(np.abs(plain).max())) - 7)
+        assert np.abs(got - plain).max() <= spacing
+    _check(got, _jax(x, *layers, fn=jcs.fused_encoder_head, dtype=jdt), dtype, "pallas")
+
+
+def test_packed_head_sums_one_channel_as_the_broadcast_branch():
+    """With one input channel conv1_1's sums are the JAX kernel's, bit for
+    bit in bf16: its tap order, each exact bf16 x bf16 product added in
+    fp32, the bias, one rounding. The tensor-core head's conv1_1 sums so."""
+    x, (k1, b1), _ = _packed_head_case(1, 64)
+    xt, kt = torch.as_tensor(x).bfloat16(), torch.as_tensor(k1).bfloat16()
+    ident = torch.zeros(64, 64, 3, 3, dtype=torch.bfloat16)
+    ident[torch.arange(64), torch.arange(64), 1, 1] = 1
+    zero = torch.zeros(64)
+    # conv1_2 as the identity: the pool of conv1_1's rounded output
+    got = conv_stack.encoder_head_packed(xt, kt, torch.as_tensor(b1), ident, zero)
+    jx = jnp.asarray(np.transpose(x, (0, 2, 3, 1)), jnp.bfloat16)
+    jk = jnp.asarray(np.transpose(k1, (2, 3, 1, 0)), jnp.bfloat16)
+    conv1 = jcs._conv3x3(jx, jk, jnp.asarray(b1), relu=True)
+    ref = np.transpose(np.asarray(jcs._pool2x2(conv1), np.float32), (0, 3, 1, 2))
+    np.testing.assert_array_equal(got.float().numpy(), ref)

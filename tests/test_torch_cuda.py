@@ -120,16 +120,27 @@ def _stack_args(card, dtype, c, layers, b=2, h=32, w=24, seed=0):
     return args
 
 
+# The head's shapes (B, width, H, W): the releases' widths (64 flagship, 48
+# `balanced`, 32 `fast`, 24 `turbo`, 16 `ultra`), H and W off the bf16
+# kernel's 16 x 32 pre-pool tile, and the flagship's 128^2.
+HEAD_SHAPES = [(2, 64, 32, 24), (2, 16, 20, 34), (2, 24, 34, 20), (2, 48, 20, 34),
+               (2, 32, 36, 40), (1, 64, 128, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("c_in", [1, 3])
-def test_encoder_head_matches_plain_version(card, dtype, c_in):
-    args = _stack_args(card, dtype, c_in, (64, 64))
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+def test_encoder_head_matches_plain_version(card, dtype, c_in, shape):
+    b, width, h, w = shape
+    args = _stack_args(card, dtype, c_in, (width, width), b=b, h=h, w=w)
     conv_stack.reset_launches()
     y = conv_stack.fused_encoder_head(*args)
     p = conv_stack.encoder_head_plain(*args)
     torch.cuda.synchronize()
     assert conv_stack.LAUNCHES["fused_encoder_head"] == 1
-    assert y.dtype == dtype and y.shape == p.shape == (2, 64, 16, 12)
+    # Every release's width runs the bf16 head on the tensor cores.
+    assert conv_stack.TC_LAUNCHES["fused_encoder_head"] == (dtype == torch.bfloat16)
+    assert y.dtype == dtype and y.shape == p.shape == (b, width, h // 2, w // 2)
     assert _rel(y.float(), p.float()) < CONV_BUDGETS[dtype]
 
 
@@ -148,12 +159,45 @@ def test_conv_tail_matches_plain_version(card, dtype, shape):
     p = conv_stack.conv_tail_plain(*args)
     torch.cuda.synchronize()
     assert conv_stack.LAUNCHES["fused_conv_tail"] == 1
+    assert conv_stack.TC_LAUNCHES["fused_conv_tail"] == (dtype == torch.bfloat16)
     assert y.dtype == dtype and y.shape == p.shape == (b, 2, h, w)
     assert _rel(y.float(), p.float()) < CONV_BUDGETS[dtype]
 
 
+# Stacks wider than one 64-channel block a layer (width 1.25 and 2.0 nets):
+# in bf16 the tensor-core bodies' weights outgrow shared memory there, so
+# both run the SIMT body; (kernel, B, C, widths, H, W).
+WIDE_STACKS = [("fused_encoder_head", 2, 1, (80, 80), 20, 34),
+               ("fused_encoder_head", 1, 3, (128, 128), 32, 24),
+               ("fused_conv_tail", 2, 80, (80, 80, 2), 20, 34),
+               ("fused_conv_tail", 1, 128, (128, 128, 2), 32, 24)]
+PLAIN = {"fused_encoder_head": conv_stack.encoder_head_plain,
+         "fused_conv_tail": conv_stack.conv_tail_plain}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 64, 128, 128, 64), (3, 512, 16, 16, 256), (2, 3, 9, 70, 5)])
+@pytest.mark.parametrize("case", WIDE_STACKS, ids=lambda c: f"{c[0]}-{c[3][0]}")
+def test_wide_stacks_run_the_simt_body(card, dtype, case):
+    name, b, c, widths, h, w = case
+    args = _stack_args(card, dtype, c, widths, b=b, h=h, w=w)
+    conv_stack.reset_launches()
+    y = getattr(conv_stack, name)(*args)
+    p = PLAIN[name](*args)
+    torch.cuda.synchronize()
+    assert conv_stack.LAUNCHES[name] == 1 and conv_stack.TC_LAUNCHES[name] == 0
+    assert y.dtype == dtype and y.shape == p.shape
+    assert _rel(y.float(), p.float()) < CONV_BUDGETS[dtype]
+
+
+# (B, C, H, W, O): the net's layers; odd H; short lines of several images
+# in one block of 128 ring positions (16- and 32-long lines, O off 64);
+# lines of 2 and 3; a block that holds parts of three lines of 47.
+RING_SHAPES = [(2, 64, 128, 128, 64), (3, 512, 16, 16, 256), (2, 3, 9, 70, 5),
+               (5, 64, 16, 16, 40), (3, 256, 32, 32, 96), (4, 9, 2, 3, 70), (2, 20, 33, 47, 130)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", RING_SHAPES)
 def test_border_lines_match_plain_version(card, dtype, shape):
     b, c, h, w, o = shape
     g = torch.Generator().manual_seed(1)

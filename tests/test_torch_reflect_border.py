@@ -6,6 +6,9 @@ and ``ReflectConv``'s border backends against the JAX package.
   1e-5 of max|ref| (fp32 sums in another order). The port's ring is NCHW;
   the JAX ring's rows (B, 2, W, O) and cols (B, H, 2, O) are transposed to
   (B, O, 2, W) and (B, O, H, 2);
+* the card kernel's folded taps (``ring_taps``) against the JAX kernel's
+  fold, bit for bit, and its GEMM over them against the plain ring, to
+  1e-5;
 * ``ReflectConv`` under ``einsum`` against the flax ``ReflectConv`` under
   ``einsum`` and against the port's ``matpad``, to 1e-5 of max|ref|.
 """
@@ -57,6 +60,53 @@ def test_plain_ring_matches_jax(shape, against):
     assert tuple(rows.shape) == (b, o, 2, w) and tuple(cols.shape) == (b, o, h, 2)
     assert _rel(rows.numpy(), np.transpose(np.asarray(rows_j), (0, 3, 1, 2))) < TOL
     assert _rel(cols.numpy(), np.transpose(np.asarray(cols_j), (0, 3, 1, 2))) < TOL
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["fp32", "bf16"])
+def test_ring_taps_are_the_jax_kernels_fold(dtype):
+    """``ring_taps``, the folded taps the card kernel multiplies by, equal
+    bit for bit the JAX kernel's ``k_sym``, ``k_mid``, ``kt_sym`` and
+    ``kt_mid`` (reflect_border.py:100-107: cast to fp32, then add), with
+    the output channels padded with zeros to a multiple of 64."""
+    _, k = _case(1, 5, 4, 4, 70, seed=3)
+    kj = jnp.asarray(np.transpose(k, (2, 3, 1, 0)), dtype)                 # (3, 3, C, O)
+    kd = kj.astype(jnp.float32)
+    parts = (kd[0] + kd[2], kd[1], kd[:, 0] + kd[:, 2], kd[:, 1])          # (3, C, O) each
+    want = np.concatenate([np.asarray(p) for p in parts]).reshape(2, 6, 5, 70)
+    kt = torch.as_tensor(np.array(kj.astype(jnp.float32))).permute(3, 2, 0, 1)
+    taps = reflect_border.ring_taps(kt.to(torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32))
+    assert taps.dtype == torch.float32 and tuple(taps.shape) == (2, 6, 5, 128)
+    np.testing.assert_array_equal(taps[..., :70].numpy(), want)
+    assert not taps[..., 70:].any()
+
+
+def test_ring_gemm_over_the_folded_taps_is_the_plain_ring():
+    """The ring as the card kernel sums it: per orientation one product of
+    the folded taps (K = 6 C) with the line values at every ring position,
+    each line reflect-padded along its length, positions flattened over
+    images, lines and sides (rows (b, side, p), columns (b, p, side)),
+    against ``border_lines_plain``."""
+    b, c, h, w, o = 3, 4, 5, 7, 6
+    x, k = _case(b, c, h, w, o, seed=4)
+    xt, kt = torch.as_tensor(x), torch.as_tensor(k)
+    taps = reflect_border.ring_taps(kt)[..., :o]                          # (2, 6, C, O)
+
+    def lines(near, edge):  # (B, C, 2, L) each -> K x positions, positions (b, side, p)
+        n = near.shape[-1]
+        idx = torch.cat([torch.tensor([1]), torch.arange(n), torch.tensor([n - 2])])
+        win = [t.index_select(-1, idx).unfold(-1, 3, 1) for t in (near, edge)]   # (B, C, 2, L, 3)
+        stacked = torch.stack(win, 1).permute(1, 5, 2, 0, 3, 4)                  # (2, 3, C, B, 2, L)
+        return stacked.reshape(6 * c, -1)
+
+    near_r = torch.stack([xt[:, :, 1], xt[:, :, h - 2]], 2)
+    edge_r = torch.stack([xt[:, :, 0], xt[:, :, h - 1]], 2)
+    rows = (taps[0].reshape(6 * c, o).T @ lines(near_r, edge_r)).reshape(o, b, 2, w).permute(1, 0, 2, 3)
+    near_c = torch.stack([xt[..., 1], xt[..., w - 2]], 2)
+    edge_c = torch.stack([xt[..., 0], xt[..., w - 1]], 2)
+    cols = (taps[1].reshape(6 * c, o).T @ lines(near_c, edge_c)).reshape(o, b, 2, h).permute(1, 0, 3, 2)
+    prows, pcols = reflect_border.border_lines_plain(xt, kt)
+    assert _rel(rows.numpy(), prows.numpy()) < TOL
+    assert _rel(cols.numpy(), pcols.numpy()) < TOL
 
 
 def test_plain_ring_keeps_the_input_dtype():
