@@ -34,7 +34,21 @@ line naming it and ends the run with exit code 3; nothing hangs):
    distances, with the launch counts reset just before and read just after;
    both ASM kernels must have launched. Then one golden batch on the card
    against the same port on the CPU.
-5. ``quant``   — the int8 serving path on the same net: int8 scales
+5. ``refine``  — physics refinement, whose steps differentiate the
+   propagator: the gradients of ``asm_cuda.AsmConst`` and ``AsmDynamic``
+   (the kernels forward, the composition's adjoint in ``torch.fft``
+   backward) against
+   ``propagate_torch`` autograd at B = 5 and 256, in ``high`` and
+   ``highest``, rtol 1e-3 of the largest gradient; ``physics_refine`` on
+   golden batch 10 from its GT phase plus 0.3 rad of noise (numpy seed 0) at
+   the true distances, 100 steps, on the card against the same call on the
+   CPU (PSNR within 0.05 dB); ``evaluate_golden_suite(refine_steps=100)`` on
+   the seeded net with the launch counts reset just before and read just
+   after (``asm_dynamic`` must have launched 20 x 101 times); one refine at
+   B = 256, 128^2, 100 steps timed with CUDA events, beside the same refine
+   through ``torch.fft`` alone (``asm_backend='torch'``), and split into the
+   forward kernel, the adjoint backward and the rest.
+6. ``quant``   — the int8 serving path on the same net: int8 scales
    calibrated on the golden suite, then the suite through
    ``evaluate_golden_suite(quant_scales=..., dtype=bf16)`` with the fused
    stacks on, the counts reset just before and read just after (both stack
@@ -45,11 +59,11 @@ line naming it and ends the run with exit code 3; nothing hangs):
    part (differing int8 steps, call by call), what one int8 step moves, the
    outputs, and the same path without int8 convs. Last, the suite once more
    with the stacks off.
-6. ``reflect`` — ``retrieval_step`` on one golden batch with the reflect
+7. ``reflect`` — ``retrieval_step`` on one golden batch with the reflect
    backend ``cuda`` (the border ring must launch once for each of the net's
    20 reflect convs, whose shapes the phase records), against the
    ``matpad`` backend on the card.
-7. ``halo``    — the halo row-block decoder tail, the path of
+8. ``halo``    — the halo row-block decoder tail, the path of
    ``scripts/port_exp_halo_conv.py``: ``halo_conv_tail`` and
    ``halo_conv_tail_static`` at B = 256, 128^2 x 64 -> 2, bf16, bh 30 and
    60, with the halo counts reset just before and read just after (both
@@ -63,7 +77,7 @@ line naming it and ends the run with exit code 3; nothing hangs):
    versions on the same inputs (the edge rows' strips take cuDNN's convs on
    the card), bf16 edge rows within four ulps of max|ref|. Times at B = 256
    of the script's rows.
-8. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
+9. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
    version and its library call in fp32 and bf16, the ring at each of the
    20 reflect convs of the step (and their sum beside its bound), and of
    the whole
@@ -98,7 +112,7 @@ import torch  # noqa: E402
 
 from style_transfer_based_holographic_imaging_tpu_torch import ExperimentConfig  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite  # noqa: E402
-from style_transfer_based_holographic_imaging_tpu_torch.eval import zero_mean  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.eval import psnr, zero_mean  # noqa: E402
 
 from style_transfer_based_holographic_imaging_tpu_torch.kernels import (  # noqa: E402
     _build,
@@ -122,6 +136,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # no
 )
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # noqa: E402
     evaluate_golden_suite,
+    physics_refine,
     retrieval_step,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.utils.bench import (  # noqa: E402
@@ -146,7 +161,7 @@ halo_exp = _load_script("port_exp_halo_conv")
 
 TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
-    "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0,
+    "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
     "quant": 90.0, "reflect": 60.0, "halo": 60.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
@@ -194,6 +209,16 @@ REFLECT_CONVS = 20
 # positions with output channels off a multiple of 64; the first is timed.
 RING_LAYERS = ((64, 128, 128, 64), (3, 128, 128, 64), (64, 64, 64, 128), (512, 16, 16, 256),
                (64, 127, 128, 64), (64, 16, 16, 40), (256, 32, 32, 96))
+# Physics refinement: the Functions' gradients against propagate_torch
+# autograd, max|err| / max|ref| (the JAX package's gradient budget, rtol
+# 1e-3); the refine of golden batch 10 from its GT phase plus REFINE_NOISE_RAD
+# of noise, on the card against the CPU, PSNR within REFINE_DB_TOL.
+GRAD_TOL = 1e-3
+REFINE_STEPS = 100
+REFINE_BATCH = 10
+REFINE_NOISE_RAD = 0.3
+REFINE_DB_TOL = 0.05
+REFINE_PAIRS = 10  # timed refines through each backend at B_TIMING
 B_TIMING = 256
 IMAGE = 128
 SERVING_REFOCUS_M = -2e-4  # -d_style = -0.2 mm, the golden suite's style plane
@@ -404,6 +429,165 @@ def compare_card_cpu(net, goldens, cfg, batch: int):
     return {"batch": batch, **compare_outputs(
         gpu, cpu, SLICE_AMP_TOL, SLICE_DIST_TOL, SLICE_PHASE_TOL, SLICE_PHASE_FRACTION,
         "card and CPU on the slice")}
+
+
+def _grads_of(fn, xre, xim, dist, weights):
+    """Gradients of a real loss, nonlinear in (yre, yim), for xre, xim and
+    a tensor ``dist``."""
+    inputs = [xre.clone().requires_grad_(), xim.clone().requires_grad_()]
+    if isinstance(dist, torch.Tensor):
+        inputs.append(dist.clone().requires_grad_())
+    yre, yim = fn(*inputs)
+    loss = (weights[0] * yre + weights[1] * yim * yim + 0.3 * (yre * yre + yim * yim) ** 2).sum()
+    return torch.autograd.grad(loss, inputs)
+
+
+def check_function_grads(physics, device, batches=(5, 256)):
+    """AsmConst's field gradient and AsmDynamic's field and distance
+    gradients against propagate_torch autograd on the card."""
+    kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
+    rows = []
+    for b in batches:
+        xre, xim = random_planes(b, seed=b + 1, device=device)
+        g = torch.Generator().manual_seed(b + 2)
+        weights = torch.randn(2, b, IMAGE, IMAGE, generator=g).to(device)
+        dist = spread_distances(b, device)
+
+        def fft(xre, xim, d=SERVING_REFOCUS_M):
+            y = propagate_torch(torch.complex(xre, xim), d.reshape(-1, 1, 1) if isinstance(
+                d, torch.Tensor) else d, **kw)
+            return y.real, y.imag
+
+        for prec in ("high", "highest"):
+            for name, fn, d in (
+                ("asm_const", lambda xr, xi, p=prec: asm_cuda.AsmConst.apply(
+                    xr, xi, SERVING_REFOCUS_M, kw["wavelength"], kw["pixel_size"], p), None),
+                ("asm_dynamic", lambda xr, xi, dd, p=prec: asm_cuda.AsmDynamic.apply(
+                    xr, xi, dd, kw["wavelength"], kw["pixel_size"], p), dist),
+            ):
+                got = _grads_of(fn, xre, xim, d, weights)
+                ref = _grads_of(fft, xre, xim, d, weights)
+                torch.cuda.synchronize()
+                errs = [rel_err(a, r) for a, r in zip(got, ref)]
+                row = {"function": name, "B": b, "precision": prec, "tol": GRAD_TOL,
+                       "rel_err_field": max(errs[:2]),
+                       "rel_err_distance": errs[2] if len(errs) > 2 else None}
+                rows.append(row)
+                if not max(errs) < GRAD_TOL or not all(float(r.abs().max()) > 0 for r in ref):
+                    _die(f"gradient check failed: {json.dumps(row)}", 1)
+    return rows
+
+
+def noisy_golden_batch(goldens, b=None, seed=0):
+    """Golden batch REFINE_BATCH's (amplitude, GT phase plus REFINE_NOISE_RAD
+    of numpy-seeded noise, true distances, sqrt hologram, GT phase); with
+    ``b``, the whole suite's samples tiled to b images instead."""
+    if b is None:
+        gt, d, holo = (goldens.gt_phase[REFINE_BATCH], goldens.distance_content[REFINE_BATCH],
+                       goldens.content_holo[REFINE_BATCH])
+    else:
+        idx = np.arange(b) % (goldens.n_batches * goldens.batch_size)
+        gt = goldens.gt_phase.reshape(-1, 1, IMAGE, IMAGE)[idx]
+        d = goldens.distance_content.reshape(-1, 1, 1, 1)[idx]
+        holo = goldens.content_holo.reshape(-1, 1, IMAGE, IMAGE)[idx]
+    rng = np.random.default_rng(seed)
+    ph0 = (gt + REFINE_NOISE_RAD * rng.standard_normal(gt.shape)).astype(np.float32)
+    return np.full_like(gt, 0.6), ph0, d, np.sqrt(holo), gt
+
+
+def refined_psnr(out, gt) -> float:
+    return float(psnr(zero_mean(out["phase"].cpu()), zero_mean(torch.as_tensor(gt))))
+
+
+def refine_card_vs_cpu(goldens, physics, device):
+    """The physics-anchored refine on the card and on the CPU; the card's
+    asm_dynamic launches of its run."""
+    amp, ph0, d, meas, gt = noisy_golden_batch(goldens)
+    kw = dict(steps=REFINE_STEPS, optimize_amp=False)
+    asm_cuda.reset_launches()
+    card = physics_refine(amp, ph0, d, meas, physics, device=device, **kw)
+    torch.cuda.synchronize()
+    launches = asm_cuda.LAUNCHES["asm_dynamic"]
+    cpu = physics_refine(amp, ph0, d, meas, physics, device="cpu", **kw)
+    row = {"batch": REFINE_BATCH, "steps": REFINE_STEPS, "noise_rad": REFINE_NOISE_RAD,
+           "card_psnr_db": refined_psnr(card, gt), "cpu_psnr_db": refined_psnr(cpu, gt),
+           "start_psnr_db": refined_psnr({"phase": torch.as_tensor(ph0)}, gt),
+           "card_residual_mean": float(card["residual"].mean()),
+           "cpu_residual_mean": float(cpu["residual"].mean()),
+           "asm_dynamic_launches": launches, "tol_db": REFINE_DB_TOL}
+    if not abs(row["card_psnr_db"] - row["cpu_psnr_db"]) < REFINE_DB_TOL or launches != REFINE_STEPS + 1:
+        _die(f"refine on the card and the CPU part: {json.dumps(row)}", 1)
+    return row
+
+
+def _timed_refine(amp, ph0, d, meas, physics, backend, kw) -> float:
+    """ms of one physics_refine by CUDA events, the launch counts reset
+    just before it."""
+    asm_cuda.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    physics_refine(amp, ph0, d, meas, physics, asm_backend=backend, **kw)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_refine(goldens, physics, device, b: int = B_TIMING):
+    """One refine of b images at 128^2, REFINE_STEPS steps, its wall time by
+    CUDA events, through the kernels (``auto``) and through torch.fft alone
+    (``torch``): REFINE_PAIRS pairs, which path runs first alternating, each
+    path's median and quartiles, and the pairs the kernel path won; then at
+    the same shapes the forward kernel (asm_dynamic) and the Function's
+    backward (the adjoint) alone, and torch autograd's backward of
+    ``propagate_torch``, each a median of CUDA-event times; the rest of a
+    step is what neither takes."""
+    amp, ph0, d, meas, _ = (torch.as_tensor(a, device=device) for a in noisy_golden_batch(goldens, b))
+    kw = dict(steps=REFINE_STEPS, optimize_amp=False, device=device)
+    runs = {"auto": [], "torch": []}
+    launches = {}
+    for backend in ("auto", "torch"):  # warm-up
+        physics_refine(amp, ph0, d, meas, physics, asm_backend=backend, **dict(kw, steps=2))
+    for i in range(REFINE_PAIRS):
+        order = ("auto", "torch") if i % 2 == 0 else ("torch", "auto")
+        for backend in order:
+            runs[backend].append(_timed_refine(amp, ph0, d, meas, physics, backend, kw))
+            launches.setdefault(backend, set()).add(asm_cuda.LAUNCHES["asm_dynamic"])
+    if launches != {"auto": {REFINE_STEPS + 1}, "torch": {0}}:
+        _die(f"timed refines launched asm_dynamic {launches} times, want "
+             f"{{'auto': {REFINE_STEPS + 1}, 'torch': 0}} a run", 1)
+    total_ms = float(np.median(runs["auto"]))
+    torch_total_ms = float(np.median(runs["torch"]))
+    wins = sum(a < t for a, t in zip(runs["auto"], runs["torch"]))
+
+    xre = (amp * torch.cos(ph0)).reshape(b, IMAGE, IMAGE).contiguous()
+    xim = (amp * torch.sin(ph0)).reshape(b, IMAGE, IMAGE).contiguous()
+    dist = physics.to_metres(d).reshape(b).contiguous()
+    okw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
+    fwd_ms = median_ms(lambda: asm_cuda.asm_dynamic(xre, xim, dist, **okw))
+    xr, xi = xre.clone().requires_grad_(), xim.clone().requires_grad_()
+    yre, yim = asm_cuda.AsmDynamic.apply(xr, xi, dist, okw["wavelength"], okw["pixel_size"], None)
+    gre, gim = torch.randn_like(yre), torch.randn_like(yim)
+    bwd_ms = median_ms(lambda: torch.autograd.grad((yre, yim), (xr, xi), (gre, gim), retain_graph=True))
+    y = propagate_torch(torch.complex(xr, xi), dist.reshape(b, 1, 1), **okw)
+    torch_bwd_ms = median_ms(
+        lambda: torch.autograd.grad((y.real, y.imag), (xr, xi), (gre, gim), retain_graph=True))
+    step_ms = total_ms / REFINE_STEPS
+    fwd_step = fwd_ms * (REFINE_STEPS + 1) / REFINE_STEPS
+    return {
+        "B": b, "steps": REFINE_STEPS, "asm_dynamic_launches": REFINE_STEPS + 1, "pairs": REFINE_PAIRS,
+        "total_ms": total_ms, "total_ms_quartiles": np.percentile(runs["auto"], [25, 75]).tolist(),
+        "total_ms_runs": runs["auto"], "step_ms": step_ms,
+        "torch_backend_total_ms": torch_total_ms,
+        "torch_backend_total_ms_quartiles": np.percentile(runs["torch"], [25, 75]).tolist(),
+        "torch_backend_total_ms_runs": runs["torch"], "kernel_path_wins": wins,
+        "torch_backend_step_ms": torch_total_ms / REFINE_STEPS,
+        "step_ms_saved_by_kernel": (torch_total_ms - total_ms) / REFINE_STEPS,
+        "forward_kernel_ms_standalone": fwd_ms, "backward_ms_standalone": bwd_ms,
+        "torch_autograd_backward_ms_standalone": torch_bwd_ms,
+        "forward_kernel_share": fwd_step / step_ms, "backward_share": bwd_ms / step_ms,
+        "rest_ms_per_step": step_ms - fwd_step - bwd_ms,
+        "holograms_per_s": b / total_ms * 1e3,
+    }
 
 
 HEAD_WIDTHS = (64, 64)      # conv1_1 on the folded one-channel stem, conv1_2
@@ -884,6 +1068,31 @@ def main() -> int:
             "card_vs_cpu": card_vs_cpu,
         }
 
+    with Phase("refine") as phase:
+        grad_rows = check_function_grads(physics, dev)
+        anchored = refine_card_vs_cpu(goldens, physics, dev)
+        asm_cuda.reset_launches()
+        t0 = time.monotonic()
+        refined = evaluate_golden_suite(net, goldens, cfg, refine_steps=REFINE_STEPS, device=dev)
+        torch.cuda.synchronize()
+        suite_seconds = time.monotonic() - t0
+        refine_launches = dict(asm_cuda.LAUNCHES)
+        want = goldens.n_batches * (REFINE_STEPS + 1)
+        if refine_launches["asm_dynamic"] != want:
+            _die(f"the refined suite launched asm_dynamic {refine_launches['asm_dynamic']} times, "
+                 f"want {want}", 1)
+        for key in ("mean_psnr", "mean_mae", "r2", "heldout_mean_psnr"):
+            if not math.isfinite(refined[key]):
+                _die(f"refined suite metric {key} is not finite: {refined[key]}", 1)
+        refine_timing = time_refine(goldens, physics, dev)
+        phase.info = {
+            "gradient_checks": grad_rows, "card_vs_cpu_batch_10": anchored,
+            "launches": refine_launches, "refined_suite_seconds": suite_seconds,
+            "refined_mean_psnr_random_weights": refined["mean_psnr"],
+            "unrefined_mean_psnr_random_weights": metrics["mean_psnr"],
+            "timing": refine_timing,
+        }
+
     with Phase("quant") as phase:
         scales = quant.calibrate_scales(
             net, golden_contents(goldens), goldens.style_mean, goldens.style_std, device=dev)
@@ -1162,6 +1371,11 @@ def main() -> int:
             "ms_by_precision": {p: by_precision[p][k] for p in PRODUCTS},
             "bound_ms_by_precision": {p: bounds[k, p][0] for p in PRODUCTS},
             "library_ms": timings[k][2],
+            "launches_by_path": {"slice": launches[k], "refine": refine_launches[k]},
+            **({"refine_step_ms": refine_timing["step_ms"],
+                "refine_step_ms_torch_backend": refine_timing["torch_backend_step_ms"],
+                "refine_forward_share": refine_timing["forward_kernel_share"]}
+               if k == "asm_dynamic" else {}),
         })
     csrc = "style_transfer_based_holographic_imaging_tpu_torch/kernels/csrc/"
     jk = "style_transfer_based_holographic_imaging_tpu/kernels/"

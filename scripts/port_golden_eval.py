@@ -16,6 +16,11 @@ JSON line: the port's metrics beside the release's recorded values.
 mode the recorded int8 metrics were taken in). ``--jax`` also runs the JAX
 package's own evaluation of the same release, path and mode, and prints its
 metrics beside the port's (minutes on the CPU).
+
+``--refine-steps N`` refines every batch's phase against its hologram
+(``physics_refine``, N Adam steps, phase only at the known amplitude) in
+both evaluations; ``--refine-distance`` refines the distances too. The
+release's recorded ``refined_*`` metrics are then the ones compared.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ def main() -> int:
     ap.add_argument("--scales", default="checkpoints/quant_scales.json")
     ap.add_argument("--fused-stacks", choices=("on", "off"), default="off")
     ap.add_argument("--jax", action="store_true", help="also run the JAX package's evaluation")
+    ap.add_argument("--refine-steps", type=int, default=0, help="physics refinement steps (0: off)")
+    ap.add_argument("--refine-distance", action="store_true", help="refine the distances too")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
 
@@ -80,24 +87,30 @@ def main() -> int:
     scales = quant.load_scales(path(args.scales)) if args.quant else None
     quant.set_fused_stacks(args.fused_stacks)
 
+    refine = dict(refine_steps=args.refine_steps, refine_distance=args.refine_distance)
     t0 = time.perf_counter()
     got = evaluate_golden_suite(
         net, load_golden_suite(), cfg, style_override=style, quant_scales=scales,
-        dtype=torch.bfloat16 if args.quant else None, device="cpu",
+        dtype=torch.bfloat16 if args.quant else None, device="cpu", **refine,
     )
     seconds = time.perf_counter() - t0
     with open(path(recorded)) as f:
         rec = json.load(f)
+    # Refined runs are compared with the record's refined_* keys (the
+    # record keeps no refined per-batch PSNR).
+    rec_key = (lambda k: f"refined_{k}") if args.refine_steps else (lambda k: k)  # noqa: E731
     out = {
         "release": args.release, "device": "cpu", "eval_seconds": round(seconds, 3),
         "path": "int8 bf16" if args.quant else "fp32",
         "fused_stacks": args.fused_stacks if args.quant else None,
+        **refine,
         "port": {k: got[k] for k in KEYS},
-        "recorded": {k: rec.get(k) for k in KEYS},
+        "recorded": {k: rec.get(rec_key(k)) for k in KEYS},
+        "recorded_refined_steps": rec.get("refined_steps"),
         "recorded_file": recorded,
         "distance_outlier_batches": got["distance_outlier_batches"],
     }
-    if "psnr_per_batch" in rec:
+    if "psnr_per_batch" in rec and not args.refine_steps:
         out["max_abs_psnr_per_batch_diff_db"] = max(
             abs(a - b) for a, b in zip(got["psnr_per_batch"], rec["psnr_per_batch"])
         )
@@ -114,7 +127,7 @@ def main() -> int:
         ref = jfr.evaluate_golden_suite(
             params, j_goldens(), JConfig.from_json(config_text),
             style_override=(jnp.asarray(style[0]), jnp.asarray(style[1])),
-            quant_scales=scales,
+            quant_scales=scales, **refine,
         )
         out["jax"] = {k: float(ref[k]) for k in KEYS}
         out["jax_eval_seconds"] = round(time.perf_counter() - t0, 3)

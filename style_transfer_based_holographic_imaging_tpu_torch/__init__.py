@@ -13,7 +13,9 @@ Subpackages mirror the JAX package's layout:
 - ``kernels``   — the hand-written CUDA kernels, their wrappers and plain
                   PyTorch versions.
 - ``models``    — ``nn.Module`` networks: VGG encoder, decoder, distance MLP.
-- ``pipelines`` — eager end-to-end field retrieval and the golden-suite eval.
+- ``pipelines`` — eager end-to-end field retrieval, the golden-suite eval,
+                  physics refinement and autofocus.
+- ``train``     — losses (so far the TV regulariser refinement uses).
 - ``interop``   — carrying JAX parameter trees (as numpy) across.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
@@ -28,6 +30,7 @@ fp32 JAX package, and of each kernel with its plain version, needs full fp32.
 import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.config import (
+    DataConfig,
     EvalConfig,
     ExperimentConfig,
     ModelConfig,
@@ -39,4 +42,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["PhysicsConfig", "ModelConfig", "EvalConfig", "ExperimentConfig", "__version__"]
+__all__ = [
+    "PhysicsConfig",
+    "ModelConfig",
+    "DataConfig",
+    "EvalConfig",
+    "ExperimentConfig",
+    "__version__",
+]

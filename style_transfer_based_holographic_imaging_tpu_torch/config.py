@@ -2,9 +2,10 @@
 that field retrieval reads.
 
 Mirrors ``config.py`` of the JAX package (``PhysicsConfig``, ``ModelConfig``,
-``EvalConfig``, ``ExperimentConfig.from_json``). ``from_json`` parses a run's
-full ``config.json`` and ignores the sections this port does not use yet
-(``data``, ``train``).
+``EvalConfig``, ``ExperimentConfig.from_json``, and of ``DataConfig`` the
+object amplitude that refinement takes as known). ``from_json`` parses a
+run's full ``config.json`` and ignores what this port does not use yet (the
+rest of ``data``, ``train``).
 """
 
 from __future__ import annotations
@@ -53,6 +54,13 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """The data section's fields that the port reads."""
+
+    amplitude: float = 0.6              # constant object amplitude
+
+
+@dataclass(frozen=True)
 class EvalConfig:
     """Evaluation settings."""
 
@@ -67,11 +75,12 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """Top-level bundle: the physics, model and eval sections of a run."""
+    """Top-level bundle: the physics, model, data and eval sections of a run."""
 
     name: str = "mnist"
     physics: PhysicsConfig = field(default_factory=PhysicsConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
     @classmethod
@@ -92,6 +101,7 @@ class ExperimentConfig:
             name=d.get("name", "mnist"),
             physics=build(PhysicsConfig, d.get("physics")),
             model=build(ModelConfig, d.get("model")),
+            data=build(DataConfig, d.get("data")),
             eval=build(EvalConfig, d.get("eval")),
         )
 

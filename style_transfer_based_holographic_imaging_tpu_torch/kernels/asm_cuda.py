@@ -27,6 +27,19 @@ with the same bf16 roundings), which the wrapper takes only for a tensor on
 the CPU, and a launch count. For a CUDA tensor the wrapper launches the
 kernel or raises; it never falls back.
 
+The gradient: ``AsmConst`` and ``AsmDynamic`` are ``torch.autograd.Function``s
+around the two wrappers, the counterparts of the JAX package's
+``_propagate_const_cvjp`` and ``_propagate_cvjp``. Their forward is the
+kernel, unchanged; their backward is the VJP of the ``torch.fft``
+composition (``ops.asm.propagate_torch``), as the JAX ``custom_vjp`` takes
+``jax.vjp`` of its XLA composition, written as the composition's adjoint
+(``_adjoint``) so that no part of the forward runs twice: two FFTs for the
+field's gradient, one more for the distance's. The JAX package has no
+backward kernel, and neither has the port. Every input and output of the
+Functions is real, so the gradients of a real loss need no convention for
+complex cotangents. ``propagate_cuda`` calls the Functions; under
+``torch.no_grad`` they save nothing.
+
 Precision modes keep the JAX package's ``set_dft_precision`` names:
 ``"highest"`` (fp32), ``"high"`` (bf16 hi/lo three-product split, the
 default) and ``"bf16"`` (one bf16 product).
@@ -42,7 +55,7 @@ import numpy as np
 import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
-from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import kz_rel_grid
+from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import kz_rel_grid, pad_replicate
 from style_transfer_based_holographic_imaging_tpu_torch.utils.misc import static_scalar
 
 __all__ = [
@@ -50,6 +63,8 @@ __all__ = [
     "asm_dynamic",
     "asm_const_plain",
     "asm_dynamic_plain",
+    "AsmConst",
+    "AsmDynamic",
     "propagate_cuda",
     "folded_factors",
     "block_factors",
@@ -417,22 +432,114 @@ def asm_dynamic(xre, xim, dist, *, wavelength, pixel_size, precision=None):
     return yre, yim
 
 
+# --------------------------------------------------------------------------
+# Gradients
+# --------------------------------------------------------------------------
+
+
+def _fold_edges(g: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """The adjoint of the replicate pad of ``n // 2`` along ``dim`` (length
+    ``2 n`` to ``n``): each padded pixel's value added onto the edge pixel
+    it copies."""
+    p = n // 2
+    core = g.narrow(dim, p, n).clone()
+    core.select(dim, 0).add_(g.narrow(dim, 0, p).sum(dim))
+    core.select(dim, n - 1).add_(g.narrow(dim, p + n, p).sum(dim))
+    return core
+
+
+def _adjoint(ctx, gre, gim, dist, x=None):
+    """The VJP of ``propagate_torch`` (replicate pad P, fft2, x H, ifft2,
+    x g, crop C) written as its adjoint, for the cotangents (gre, gim) of
+    (yre, yim) of ``(B, H, W)`` images and ``dist`` a host float or a
+    ``(B,)`` tensor. The field's gradient is ``P^T ifft2(conj(H) E)`` with
+    ``E = fft2(conj(g) C^T gy)``; with ``x = (xre, xim)`` also the
+    distance's, ``-sum Im(conj(E) H fft2(P x)) (kz + k0) / N`` over each
+    image's padded spectrum (N its size), the two phases' terms summed
+    apart as autograd sums them. None of the forward is re-run: the field's
+    gradient needs none of it, the distance's one FFT of the padded input.
+    Returns ``(gxre or None, gxim or None, gdist or None)``."""
+    b, h, w = gre.shape
+    dev = gre.device
+    kz = _kz_tensor(2 * h, 2 * w, ctx.pixel_size, ctx.wavelength, dev)
+    k0 = float(np.float32(2.0 * math.pi / ctx.wavelength))
+    d = torch.as_tensor(dist, dtype=torch.float32, device=dev)
+    d = d.reshape(b, 1, 1) if d.dim() else d
+    phase, g_phase = d * kz, d * k0
+    transfer = torch.complex(torch.cos(phase), torch.sin(phase))
+    g_conj = torch.complex(torch.cos(g_phase), -torch.sin(g_phase))
+    e = gre.new_zeros((b, 2 * h, 2 * w), dtype=torch.complex64)
+    e[:, h // 2 : h // 2 + h, w // 2 : w // 2 + w] = torch.complex(gre, gim) * g_conj
+    e_hat = torch.fft.fft2(e)
+    gxre = gxim = gdist = None
+    if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+        gx = torch.fft.ifft2(torch.conj(transfer) * e_hat)
+        gxre = _fold_edges(_fold_edges(gx.real, w, 2), h, 1)
+        gxim = _fold_edges(_fold_edges(gx.imag, w, 2), h, 1)
+    if x is not None:
+        spectrum = torch.fft.fft2(pad_replicate(torch.complex(*x), h // 2, w // 2))
+        t = torch.imag(torch.conj(e_hat) * transfer * spectrum)
+        n = float(4 * h * w)
+        gdist = -((t * kz).sum((1, 2)) + k0 * t.sum((1, 2))) / n
+    return gxre, gxim, gdist
+
+
+class AsmConst(torch.autograd.Function):
+    """``asm_const`` with a gradient for the field: ``apply(xre, xim,
+    distance, wavelength, pixel_size, precision)``, the distance a host
+    float with no gradient. Counterpart of ``_propagate_const_cvjp``."""
+
+    @staticmethod
+    def forward(ctx, xre, xim, distance, wavelength, pixel_size, precision):
+        ctx.distance, ctx.wavelength, ctx.pixel_size = distance, wavelength, pixel_size
+        return asm_const(
+            xre, xim, distance, wavelength=wavelength, pixel_size=pixel_size, precision=precision
+        )
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gre, gim):
+        gxre, gxim, _ = _adjoint(ctx, gre, gim, ctx.distance)
+        return gxre, gxim, None, None, None, None
+
+
+class AsmDynamic(torch.autograd.Function):
+    """``asm_dynamic`` with gradients for the field and the ``(B,)``
+    distance in metres: ``apply(xre, xim, dist, wavelength, pixel_size,
+    precision)``. Counterpart of ``_propagate_cvjp``."""
+
+    @staticmethod
+    def forward(ctx, xre, xim, dist, wavelength, pixel_size, precision):
+        # The field is needed only for the distance's gradient.
+        ctx.save_for_backward(*((xre, xim, dist) if ctx.needs_input_grad[2] else (dist,)))
+        ctx.wavelength, ctx.pixel_size = wavelength, pixel_size
+        return asm_dynamic(
+            xre, xim, dist, wavelength=wavelength, pixel_size=pixel_size, precision=precision
+        )
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gre, gim):
+        *x, dist = ctx.saved_tensors
+        return _adjoint(ctx, gre, gim, dist, tuple(x) or None) + (None, None, None)
+
+
 def propagate_cuda(field: torch.Tensor, distance, *, wavelength, pixel_size, precision=None):
     """Complex ``(..., H, W)`` field through the kernels: a host-scalar
     distance takes ``asm_const``, anything else ``asm_dynamic`` with the
-    distance broadcast to the leading axes."""
+    distance broadcast to the leading axes. Differentiable in the field and
+    a tensor distance, through ``AsmConst`` and ``AsmDynamic``."""
     lead = tuple(field.shape[:-2])
     h, w = field.shape[-2], field.shape[-1]
     b = int(np.prod(lead)) if lead else 1
     flat = field.reshape(b, h, w)
     xre = flat.real.float().contiguous()
     xim = flat.imag.float().contiguous()
-    kw = dict(wavelength=wavelength, pixel_size=pixel_size, precision=precision)
     static_d = static_scalar(distance)
     if static_d is not None:
-        yre, yim = asm_const(xre, xim, static_d, **kw)
+        yre, yim = AsmConst.apply(xre, xim, static_d, wavelength, pixel_size, precision)
     else:
         dist = torch.as_tensor(distance, dtype=torch.float32, device=field.device)
         dist = dist.broadcast_to(lead + (1, 1)).reshape(b).contiguous()
-        yre, yim = asm_dynamic(xre, xim, dist, **kw)
+        yre, yim = AsmDynamic.apply(xre, xim, dist, wavelength, pixel_size, precision)
     return torch.complex(yre, yim).reshape(field.shape)

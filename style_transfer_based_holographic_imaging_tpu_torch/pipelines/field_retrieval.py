@@ -13,6 +13,10 @@ equal, is hoisted to a Python float: the refocus then takes the
 constant-transfer-function kernel (``asm_const``). A genuinely per-sample
 distance takes the per-image kernel (``asm_dynamic``).
 
+``evaluate_golden_suite(refine_steps=n)`` polishes each batch's refocused
+phase against its hologram with ``pipelines.refine.physics_refine``
+(phase only, at the known amplitude ``config.data.amplitude``).
+
 ``quant_scales`` (from ``models.quant.calibrate_scales``) switches the net
 to the int8 serving path (``models/quant.py``) in ``quant_dtype`` (bf16 by
 default); the physics stays fp32 and every output is fp32 either way.
@@ -39,6 +43,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models.quant import quant_retrieval_forward
 from style_transfer_based_holographic_imaging_tpu_torch.ops.holo import holo_forward
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import physics_refine
 from style_transfer_based_holographic_imaging_tpu_torch.utils.misc import static_scalar
 
 __all__ = ["retrieval_step", "make_retrieval_fn", "evaluate_golden_suite"]
@@ -183,6 +188,8 @@ def evaluate_golden_suite(
     style_override: Optional[Tuple[Any, Any]] = None,
     dtype: Optional[torch.dtype] = None,
     quant_scales: Optional[Dict[str, float]] = None,
+    refine_steps: int = 0,
+    refine_distance: bool = False,
     device: str | torch.device = "cuda",
 ) -> Dict[str, Any]:
     """Run the 20 x 5 golden suite and return the reference's metrics.
@@ -194,6 +201,13 @@ def evaluate_golden_suite(
     end of the loop. ``quant_scales`` runs the int8 path in ``dtype`` (bf16
     when None); without them the net runs fp32, the only dtype of the
     port's fp net.
+
+    ``refine_steps > 0`` refines each batch's focused phase against its
+    hologram (``physics_refine``, phase only at the known amplitude
+    ``config.data.amplitude``, from the network's ``ph_foc`` and
+    ``distance_pred``); with ``refine_distance`` the distance too, and the
+    refined distances are the ones reported. 0 keeps the network-only
+    inference.
     """
     config = config or ExperimentConfig()
     physics = config.physics
@@ -220,6 +234,23 @@ def evaluate_golden_suite(
         # Host numpy on purpose: an all-equal style distance is hoisted to
         # a host float without a device round trip.
         out = fn(net, holo, sm, ss, goldens.distance_style[i])
+        if refine_steps:
+            # The golden suite is a pure-phase domain of known constant
+            # amplitude: refine the phase alone against that prior.
+            refined = physics_refine(
+                torch.full_like(out["amp_foc"], config.data.amplitude),
+                out["ph_foc"],
+                out["distance_pred"],
+                torch.sqrt(holo),
+                physics,
+                steps=refine_steps,
+                optimize_amp=False,
+                refine_distance=refine_distance,
+                device=device,
+            )
+            out = dict(out, ph_foc=refined["phase"])
+            if refine_distance:
+                out["distance_pred"] = refined["distance"]
         gt_phase = metrics_mod.zero_mean(torch.as_tensor(goldens.gt_phase[i], device=device))
         ph_foc = metrics_mod.zero_mean(out["ph_foc"])
         psnr_list.append(metrics_mod.psnr(ph_foc, gt_phase))

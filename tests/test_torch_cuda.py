@@ -8,6 +8,10 @@ with ``nvcc`` at first use); elsewhere they skip. On a machine with a card:
 Tolerance on max|err| / max|plain|: for the ASM kernels the JAX package's
 budgets per precision mode (1e-5 highest, 1e-4 high, 2e-2 bf16); kernel and
 plain version round alike and differ only in the order of their fp32 sums.
+The gradients of ``AsmConst`` and ``AsmDynamic`` (the kernels forward, the
+composition's adjoint in ``torch.fft`` backward) against ``propagate_torch``
+autograd: rtol 1e-3 of the largest gradient, the JAX package's gradient
+budget.
 For the conv stacks, the halo tail and the border ring: 1e-5 in fp32
 (summation order);
 1e-2 in bf16, where a value that the other summation order puts on a bf16
@@ -26,7 +30,11 @@ from style_transfer_based_holographic_imaging_tpu_torch.kernels import (
     halo_conv,
     reflect_border,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.config import PhysicsConfig
 from style_transfer_based_holographic_imaging_tpu_torch.ops import asm as torch_asm
+from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines import physics_refine
+from style_transfer_based_holographic_imaging_tpu_torch.train import tv_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -108,6 +116,113 @@ def test_wrapper_rejects_tensors_on_two_devices(card):
         asm_cuda.asm_const(xre, xim.cpu(), -2e-4, **KW)
     with pytest.raises(ValueError):
         asm_cuda.asm_dynamic(xre, xim, torch.zeros(2), **KW)
+
+
+GRAD_BUDGET = 1e-3
+
+
+def _grads(fn, xre, xim, dist, weights):
+    inputs = [xre.clone().requires_grad_(), xim.clone().requires_grad_()]
+    if dist is not None:
+        inputs.append(dist.clone().requires_grad_())
+    yre, yim = fn(*inputs)
+    loss = (weights[0] * yre + weights[1] * yim * yim + 0.3 * (yre * yre + yim * yim) ** 2).sum()
+    return torch.autograd.grad(loss, inputs)
+
+
+def _fft(xre, xim, d=-2e-4):
+    d = d.reshape(-1, 1, 1) if isinstance(d, torch.Tensor) else d
+    y = torch_asm.propagate_torch(torch.complex(xre, xim), d, **KW)
+    return y.real, y.imag
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("b", [5, 256])
+@pytest.mark.parametrize("kind", ["const", "dynamic"])
+def test_function_gradients_match_torch_fft_autograd(card, kind, b, precision):
+    xre, xim = _planes(b, 128, 128, card, seed=b)
+    weights = torch.randn(2, b, 128, 128, generator=torch.Generator().manual_seed(b)).to(card)
+    wl, px = KW["wavelength"], KW["pixel_size"]
+    if kind == "const":
+        fn, dist = (lambda xr, xi: asm_cuda.AsmConst.apply(xr, xi, -2e-4, wl, px, precision)), None
+    else:
+        dist = torch.linspace(-8e-4, 8e-4, b, device=card)
+        fn = lambda xr, xi, d: asm_cuda.AsmDynamic.apply(xr, xi, d, wl, px, precision)  # noqa: E731
+    asm_cuda.reset_launches()
+    got = _grads(fn, xre, xim, dist, weights)
+    assert asm_cuda.LAUNCHES["asm_" + kind] == 1
+    ref = _grads(_fft, xre, xim, dist, weights)
+    torch.cuda.synchronize()
+    assert len(got) == (2 if kind == "const" else 3)
+    for g, r in zip(got, ref):
+        assert float(r.abs().max()) > 0
+        assert _rel(g, r) < GRAD_BUDGET
+
+
+def _refine_loss_grads(amp, phase, d, meas, backend):
+    """Gradients of data residual + TV through holo_forward, and of the TV
+    term alone, for (phase, d)."""
+    physics = PhysicsConfig()
+    phase, d = phase.clone().requires_grad_(), d.clone().requires_grad_()
+    synth = holo_forward(amp, phase, d, physics, asm_backend=backend)
+    data = torch.mean((torch.sqrt(torch.clamp(synth, min=0.0)) - meas) ** 2)
+    tv = 5e-3 * tv_loss(phase) / phase.shape[0]
+    total = torch.autograd.grad(data + tv, (phase, d), retain_graph=True)
+    return total, torch.autograd.grad(tv, phase)[0]
+
+
+@pytest.fixture
+def dft_precision():
+    yield asm_cuda.set_dft_precision
+    asm_cuda.set_dft_precision("high")
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("backend", ["auto", "cuda"])
+def test_refine_loss_has_its_data_gradient_on_the_card(card, backend, precision, dft_precision):
+    """The fault of the port before the Functions: on a CUDA tensor the
+    propagator's output had no grad_fn, so a loss of data residual plus TV
+    gave the TV gradient alone. The phase's data gradient must be nonzero
+    and the torch backend's. The distance's is held in ``highest``: it sums
+    the residual, which the ``high`` forward's rounding (1e-5 of the field)
+    moves by about 3e-3 of the gradient (the plain version on the CPU)."""
+    dft_precision(precision)
+    g = torch.Generator().manual_seed(0)
+    b = 4
+    phase = torch.rand(b, 1, 128, 128, generator=g).to(card)
+    amp = torch.full_like(phase, 0.6)
+    d = torch.tensor([0.4, 0.5, 0.6, 0.7], device=card).reshape(b, 1, 1, 1)
+    meas = torch.sqrt(holo_forward(amp, phase + 0.1 * torch.rand(phase.shape, generator=g).to(card),
+                                   d, PhysicsConfig(), asm_backend="torch"))
+    asm_cuda.reset_launches()
+    (g_phase, g_d), g_tv = _refine_loss_grads(amp, phase, d, meas, backend)
+    assert asm_cuda.LAUNCHES["asm_dynamic"] == 1
+    (r_phase, r_d), r_tv = _refine_loss_grads(amp, phase, d, meas, "torch")
+    torch.cuda.synchronize()
+    data, ref_data = g_phase - g_tv, r_phase - r_tv
+    assert float(ref_data.abs().max()) > 10 * float((g_tv - r_tv).abs().max())
+    assert _rel(data, ref_data) < GRAD_BUDGET
+    if precision == "highest":
+        assert _rel(g_d, r_d) < GRAD_BUDGET
+
+
+def test_physics_refine_on_the_card_matches_the_torch_backend(card):
+    """Ten refinement steps with the kernel forward against the same steps
+    through torch.fft on the card: the per-sample residuals within 1e-3."""
+    g = torch.Generator().manual_seed(1)
+    phase = torch.rand(3, 1, 64, 64, generator=g).to(card)
+    amp = torch.full_like(phase, 0.6)
+    d = torch.tensor([0.45, 0.6, 0.75], device=card).reshape(3, 1, 1, 1)
+    meas = torch.sqrt(holo_forward(amp, phase, d, PhysicsConfig(), asm_backend="torch"))
+    start = phase + 0.2 * torch.randn(phase.shape, generator=g).to(card)
+    kw = dict(steps=10, optimize_amp=False, device=card)
+    asm_cuda.reset_launches()
+    got = physics_refine(amp, start, d, meas, PhysicsConfig(), **kw)
+    assert asm_cuda.LAUNCHES["asm_dynamic"] == 11
+    ref = physics_refine(amp, start, d, meas, PhysicsConfig(), asm_backend="torch", **kw)
+    assert float((got["residual"] - ref["residual"]).abs().max()) < 1e-3
+    assert float(got["residual"].mean()) < 0.8 * float(
+        torch.sqrt(((torch.sqrt(holo_forward(amp, start, d, PhysicsConfig())) - meas) ** 2).mean()))
 
 
 def _stack_args(card, dtype, c, layers, b=2, h=32, w=24, seed=0):
