@@ -84,6 +84,40 @@ line naming it and ends the run with exit code 3; nothing hangs):
    ``retrieval_step`` (holograms/s): fp32, int8 with the stacks on and with
    them off (with the stages of each), fp32 with the ring.
 
+10. ``golden`` — the ``fast`` release's own weights
+   (``checkpoints/fast/torch_weights.npz``; a missing file fails the run)
+   over the whole 20 x 5 suite on the card, with the launch counts reset
+   just before and read just after: fp32, every batch within 0.3 dB of
+   ``golden_metrics.json`` (the release gate's rule) and within 0.005 dB
+   (this card's fp32; the bf16 net is 0.013 dB off on the mean), and every
+   distance within 3 µm; int8 in bf16 with
+   the stacks off, mean PSNR within 0.05 dB and R² within 1e-4 of
+   ``quant_golden_metrics.json``; int8 with the stacks on (no record: printed
+   beside the stacks-off run; every stack launch on the tensor cores);
+   refined, 100 steps, mean and held-out PSNR within 0.05 dB of the
+   ``refined_*`` records; the fp net in bf16, held to the JAX package's
+   ``bf16_golden_metrics.json`` with the int8 rule. A miss prints every
+   reading and fails the phase.
+11. ``serve``  — ``RetrievalService`` on the ``fast`` weights (bf16, batch
+   32) behind ``serve_forever`` on 127.0.0.1, port 0, in a daemon thread:
+   requests of B = 1, 5 (a golden batch) and 37 (chunked and padded) through
+   ``retrieve_remote``, each answer equal bit for bit to the direct
+   ``make_retrieval_fn`` call on the same padded batches on the card;
+   ``/healthz`` and a 400 for a request without ``holo``; one request to an
+   int8 service and one to a service with ``refine_steps`` 10, each equal to
+   its direct call. Each request's ASM launches are counted from 0 just
+   before it and read just after, and must be what it implies: one
+   ``asm_const`` a chunk and, with ``refine_steps`` n, n + 1 ``asm_dynamic``
+   a chunk; the phase's launches are their sum (the direct calls and the
+   timings run outside the counts). Holograms/s at batch 32 over HTTP,
+   through ``RetrievalService.retrieve`` in process, and by the direct call
+   on a batch already on the card, in bf16 and int8 (and fp32 direct), with
+   the host's time for the npz wire format of a request.
+12. ``stream`` — the golden suite through ``stream_retrieval`` and its
+   pinned prefetch in batches of 8 (the last batch of 4 padded and
+   trimmed), equal bit for bit to the per-batch retrieval, one
+   ``asm_const`` a batch; frames/s.
+
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line. The script imports the port (and the port's
@@ -93,8 +127,11 @@ only.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import importlib.util
+import io
 import json
 import math
 import os
@@ -102,6 +139,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 
 _t_start = time.monotonic()
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -112,6 +151,10 @@ import torch  # noqa: E402
 
 from style_transfer_based_holographic_imaging_tpu_torch import ExperimentConfig  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.interop import (  # noqa: E402
+    load_release_weights,
+    load_style_vector,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.eval import psnr, zero_mean  # noqa: E402
 
 from style_transfer_based_holographic_imaging_tpu_torch.kernels import (  # noqa: E402
@@ -135,9 +178,16 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # no
     calc_mean_std,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # noqa: E402
+    RetrievalService,
+    StreamStats,
     evaluate_golden_suite,
+    make_retrieval_fn,
     physics_refine,
+    refine_retrieval,
     retrieval_step,
+    retrieve_remote,
+    serve_forever,
+    stream_retrieval,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.utils.bench import (  # noqa: E402
     head_library,
@@ -162,7 +212,8 @@ halo_exp = _load_script("port_exp_halo_conv")
 TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
-    "quant": 90.0, "reflect": 60.0, "halo": 60.0, "timing": 120.0,
+    "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
+    "stream": 30.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
 # (B, H, W) where the ASM kernels' tensor-core tiles are ragged: the card
@@ -197,7 +248,7 @@ CONV_TOLERANCES = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # readings; the path with no int8 conv (empty scales: the stacks, cuDNN and
 # the transposed convs in fp32, nothing to requantize) is held to the
 # slice's tolerances.
-QUANT_OPS = ("int8_conv_valid", "fused_encoder_head", "fused_conv_tail", "_conv_fp")
+QUANT_OPS = ("int8_conv_valid", "fused_encoder_head", "fused_conv_tail", "conv_in_dtype")
 QUANT_PATH_TOL = {
     torch.float32: {"amp_foc_rel_err": 0.35, "amp_foc_rel_l2": 0.15, "distance_pred_abs_err": 1e-3},
     torch.bfloat16: {"amp_foc_rel_err": 0.35, "amp_foc_rel_l2": 0.15, "distance_pred_abs_err": 0.05},
@@ -222,6 +273,29 @@ REFINE_PAIRS = 10  # timed refines through each backend at B_TIMING
 B_TIMING = 256
 IMAGE = 128
 SERVING_REFOCUS_M = -2e-4  # -d_style = -0.2 mm, the golden suite's style plane
+# The fast release on the card, held to its records (PERF.md section 2):
+# fp32 every batch within GOLDEN_BATCH_DB and every distance within
+# GOLDEN_UM (tests/test_torch_release_gate.py); int8 and the bf16 fp net the
+# mean within SUITE_DB and R² within SUITE_R2; refined the mean and held-out
+# within REFINE_DB_TOL (tests/test_torch_refine.py).
+FAST = os.path.join(REPO, "checkpoints", "fast")
+GOLDEN_BATCH_DB = 0.3
+# fp32 every batch also within GOLDEN_FP32_BATCH_DB, tight enough to tell
+# fp32 from bf16: the card's fp32 reads 4.4e-5 dB at most on a batch, the
+# fp net in bf16 0.013 dB off the fp32 mean (PERF.md section 6).
+GOLDEN_FP32_BATCH_DB = 0.005
+GOLDEN_UM = 3.0
+SUITE_DB = 0.05
+SUITE_R2 = 1e-4
+# The serve phase: request sizes (one, a golden batch, more than a batch:
+# chunked and padded), the service's batch, the refine request's steps and
+# the timed requests a path; the stream's batch.
+SERVE_REQUESTS = (1, 5, 37)
+SERVE_BATCH = 32
+SERVE_REFINE_STEPS = 10
+SERVE_TIMED = 10
+WIRE_TIMED = 3
+STREAM_BATCH = 8
 # Peaks by card (NVIDIA data sheets, dense): fp32 FLOP/s outside the tensor
 # cores, bf16 FLOP/s on the tensor cores, bytes/s.
 PEAKS = {
@@ -870,7 +944,7 @@ def run_recorded(net, args, scales, dt, device, one_step=False):
     for op in QUANT_OPS:
         setattr(quant, op, recording(op))
     try:
-        out = retrieval_step(net, *args, quant_scales=scales, quant_dtype=dt, device=device)
+        out = retrieval_step(net, *args, quant_scales=scales, dtype=dt, device=device)
     finally:
         for op, fn in real.items():
             setattr(quant, op, fn)
@@ -898,7 +972,7 @@ def divergence(calls, calls_ref):
         _die("two runs of the int8 path called different ops", 1)
     rows = []
     for (op, a, kw, _), (_, a_ref, _, _) in zip(calls, calls_ref):
-        i = 1 if op == "_conv_fp" else 0  # _conv_fp(op, x, kernel, bias, dt)
+        i = 1 if op == "conv_in_dtype" else 0  # conv_in_dtype(op, x, kernel, bias, dt)
         x, x_ref = a[i].cpu().float(), a_ref[i].cpu().float()
         row = {"op": op, "input_rel_diff": rel_err(x, x_ref)}
         if op == "int8_conv_valid":
@@ -949,6 +1023,294 @@ def int8_path_card_vs_cpu(net, net_cpu, args, scales, dt):
     if not held:
         _die(f"int8 path ({_dt(dt)}) on the card and the CPU disagree: {json.dumps(result)}", 1)
     return result
+
+
+def load_fast(device):
+    """The ``fast`` release on the card: (net, config, style vector, int8
+    scales, records by path). A missing file raises: the weights are
+    committed."""
+    with open(os.path.join(FAST, "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    state = load_release_weights(os.path.join(FAST, "torch_weights.npz"))
+    net = StyleTransferNet.from_state_dict(state, cfg.model.width).to(device)
+    style = load_style_vector(os.path.join(FAST, "style_vector.npz"))
+    scales = quant.load_scales(os.path.join(FAST, "quant_scales.json"))
+    records = {}
+    for path, name in (("fp32", "golden_metrics.json"), ("int8", "quant_golden_metrics.json"),
+                       ("bf16", "bf16_golden_metrics.json")):
+        with open(os.path.join(FAST, name)) as f:
+            records[path] = json.load(f)
+    return net, cfg, style, scales, records
+
+
+def suite_rule(metrics, record):
+    """The int8 rule: mean PSNR within SUITE_DB and R² within SUITE_R2 of
+    the record."""
+    d_db = metrics["mean_psnr"] - record["mean_psnr"]
+    d_r2 = metrics["r2"] - record["r2"]
+    return {"mean_psnr": metrics["mean_psnr"], "record_mean_psnr": record["mean_psnr"],
+            "r2": metrics["r2"], "record_r2": record["r2"],
+            "heldout_mean_psnr": metrics["heldout_mean_psnr"],
+            "mean_psnr_diff_db": d_db, "r2_diff": d_r2,
+            "held": abs(d_db) < SUITE_DB and abs(d_r2) < SUITE_R2}
+
+
+def run_golden(net, goldens, cfg, style, scales, records, device):
+    """Every path of the release over the suite on the card, each against
+    its record. Returns (readings, launches, seconds by path)."""
+    bf16 = torch.bfloat16
+    paths = {
+        "fp32": ("off", {}),
+        "int8_stacks_off": ("off", {"quant_scales": scales, "dtype": bf16}),
+        "int8_stacks_on": ("on", {"quant_scales": scales, "dtype": bf16}),
+        "refined": ("off", {"refine_steps": REFINE_STEPS}),
+        "bf16": ("off", {"dtype": bf16}),
+    }
+    runs, seconds = {}, {}
+    asm_cuda.reset_launches()
+    conv_stack.reset_launches()
+    try:
+        for path, (stacks, kw) in paths.items():
+            quant.set_fused_stacks(stacks)
+            t0 = time.monotonic()
+            runs[path] = evaluate_golden_suite(net, goldens, cfg, style_override=style, device=device, **kw)
+            torch.cuda.synchronize()
+            seconds[path] = time.monotonic() - t0
+    finally:
+        quant.set_fused_stacks("auto")
+    launches = {**asm_cuda.LAUNCHES, **conv_stack.LAUNCHES}
+    tc = dict(conv_stack.TC_LAUNCHES)
+
+    fp, rec = runs["fp32"], records["fp32"]
+    batch_db = max(abs(a - b) for a, b in zip(fp["psnr_per_batch"], rec["psnr_per_batch"]))
+    um = max(abs(a - b) for a, b in zip(fp["distance_pred_um"], rec["distance_pred_um"]))
+    ref = runs["refined"]
+    d_ref = ref["mean_psnr"] - rec["refined_mean_psnr"]
+    d_held = ref["heldout_mean_psnr"] - rec["refined_heldout_mean_psnr"]
+    on, off = runs["int8_stacks_on"], runs["int8_stacks_off"]
+    readings = {
+        "fp32": {"mean_psnr": fp["mean_psnr"], "record_mean_psnr": rec["mean_psnr"],
+                 "heldout_mean_psnr": fp["heldout_mean_psnr"], "r2": fp["r2"], "record_r2": rec["r2"],
+                 "max_batch_psnr_diff_db": batch_db, "max_distance_diff_um": um,
+                 "batch_db_limits": [GOLDEN_BATCH_DB, GOLDEN_FP32_BATCH_DB],
+                 "batch_db_margin": GOLDEN_FP32_BATCH_DB - batch_db,
+                 "held": batch_db < GOLDEN_BATCH_DB and batch_db < GOLDEN_FP32_BATCH_DB
+                 and um < GOLDEN_UM},
+        "int8_stacks_off": suite_rule(off, records["int8"]),
+        "int8_stacks_on": {"mean_psnr": on["mean_psnr"], "heldout_mean_psnr": on["heldout_mean_psnr"],
+                           "r2": on["r2"], "minus_stacks_off_db": on["mean_psnr"] - off["mean_psnr"],
+                           "tensor_core_launches": tc},
+        "refined": {"mean_psnr": ref["mean_psnr"], "record_mean_psnr": rec["refined_mean_psnr"],
+                    "heldout_mean_psnr": ref["heldout_mean_psnr"],
+                    "record_heldout_mean_psnr": rec["refined_heldout_mean_psnr"],
+                    "mean_psnr_diff_db": d_ref, "heldout_diff_db": d_held,
+                    "held": abs(d_ref) < REFINE_DB_TOL and abs(d_held) < REFINE_DB_TOL},
+        "bf16": suite_rule(runs["bf16"], records["bf16"]),
+    }
+    n = goldens.n_batches
+    want = {"asm_const": len(paths) * n, "asm_dynamic": n * (REFINE_STEPS + 1),
+            "fused_encoder_head": n, "fused_conv_tail": n}
+    misses = [p for p, r in readings.items() if not r.get("held", True)]
+    if launches != want or tc != conv_stack.LAUNCHES or misses:
+        emit({"golden_readings": readings, "launches": launches, "want_launches": want})
+        _die(f"the fast release on the card missed {misses or 'its launch counts'}", 1)
+    return readings, launches, seconds
+
+
+@contextlib.contextmanager
+def serving(service):
+    """``service`` behind ``serve_forever`` on 127.0.0.1, port 0, in a daemon
+    thread; yields its URL and shuts the server down on the way out."""
+    box, bound = {}, threading.Event()
+
+    def ready(httpd):
+        box["httpd"] = httpd
+        bound.set()
+
+    t = threading.Thread(target=serve_forever, args=(service, "127.0.0.1", 0),
+                         kwargs={"ready": ready}, daemon=True)
+    t.start()
+    if not bound.wait(30):
+        _die("the server did not bind its socket", 1)
+    try:
+        yield f"http://127.0.0.1:{box['httpd'].server_address[1]}"
+    finally:
+        box["httpd"].shutdown()
+        t.join(30)
+
+
+def direct_answer(fn, net, holo, style, d_style, batch, device, refine=None):
+    """What a service must answer: the direct retrieval call on each chunk
+    of ``batch``, the last padded with its last frame, trimmed; with
+    ``refine`` (physics, steps) refined as the service refines."""
+    outs = []
+    for lo in range(0, len(holo), batch):
+        chunk = holo[lo : lo + batch]
+        n = len(chunk)
+        x = torch.from_numpy(np.concatenate([chunk, np.repeat(chunk[-1:], batch - n, axis=0)])).to(device)
+        out = fn(net, x, *style, d_style)
+        if refine is not None:
+            out = refine_retrieval(out, x, refine[0], steps=refine[1], device=device)
+        outs.append({k: v[:n].float().cpu().numpy() for k, v in out.items()})
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def check_equal(got, want, label):
+    diff = {k: float(np.abs(got[k] - want[k]).max()) for k in want if got[k].shape == want[k].shape}
+    if set(got) != set(want) or len(diff) != len(want) or any(diff.values()):
+        _die(f"{label}: the answer is not the direct call's: {diff}", 1)
+
+
+def _npz(**arrays) -> bytes:
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
+
+
+def _unnpz(blob: bytes):
+    with np.load(io.BytesIO(blob)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def served_rates(service, url, fn, net, style_dev, d_style, holo):
+    """Holograms/s at the service's batch: over HTTP, through
+    ``retrieve`` in process (host arrays in and out), and by the direct call
+    on a batch already on the card (CUDA events); and the host's share of a
+    request spent on its wire format, the compressed npz of the request and
+    of the answer, each encoded and decoded once."""
+    b = len(holo)
+    x = torch.from_numpy(holo).to(service.device)
+    host = dict(reps=SERVE_TIMED, warmup=1, cuda=False)
+    ms = {
+        "direct_on_card": median_ms(lambda: fn(net, x, *style_dev, d_style), reps=SERVE_TIMED, warmup=2),
+        "retrieve_in_process": median_ms(lambda: service.retrieve(holo), **host),
+        "http": median_ms(lambda: retrieve_remote(url, holo), **host),
+    }
+    answer = service.retrieve(holo)
+    request_blob, answer_blob = _npz(holo=holo), _npz(**answer)
+    host = dict(reps=WIRE_TIMED, warmup=0, cuda=False)
+    wire = {
+        "request_encode": median_ms(lambda: _npz(holo=holo), **host),
+        "request_decode": median_ms(lambda: _unnpz(request_blob), **host),
+        "answer_encode": median_ms(lambda: _npz(**answer), **host),
+        "answer_decode": median_ms(lambda: _unnpz(answer_blob), **host),
+    }
+    return {"ms": ms, "holograms_per_s": {k: b / v * 1e3 for k, v in ms.items()},
+            "wire_ms": wire, "wire_bytes": {"request": len(request_blob), "answer": len(answer_blob)}}
+
+
+def served(url, holo, want):
+    """One request over HTTP, with the ASM kernels' counts set to 0 just
+    before it and read just after; fails unless they are ``want``, the
+    launches the request implies. Returns (answer, launches)."""
+    torch.cuda.synchronize()
+    asm_cuda.reset_launches()
+    got = retrieve_remote(url, holo)
+    torch.cuda.synchronize()
+    launches = dict(asm_cuda.LAUNCHES)
+    if launches != want:
+        _die(f"a request of {len(holo)} launched {launches}, want {want}", 1)
+    return got, launches
+
+
+def drive_serve(fast_net, fast_cfg, fast_style, fast_scales, goldens, dev, card_name, smi):
+    """The serve phase (see the module docstring); returns its readings.
+    Its launches are those of the served requests alone: every direct call
+    they are compared with, and every timing, runs outside the counts."""
+    bf16 = torch.bfloat16
+    d_style = float(fast_cfg.physics.to_network_units(fast_cfg.data.style_distances[0]))
+    style_dev = tuple(torch.as_tensor(v, device=dev) for v in fast_style)
+    kw = dict(batch_size=SERVE_BATCH, device=dev)
+    services = {
+        "bf16": RetrievalService(fast_net, fast_style, fast_cfg, dtype=bf16, **kw),
+        "int8": RetrievalService(fast_net, fast_style, fast_cfg, quant_scales=fast_scales, **kw),
+        "refine": RetrievalService(fast_net, fast_style, fast_cfg, dtype=bf16,
+                                   refine_steps=SERVE_REFINE_STEPS, **kw),
+    }
+    fns = {
+        "bf16": make_retrieval_fn(fast_cfg.physics, dtype=bf16, device=dev),
+        "int8": make_retrieval_fn(fast_cfg.physics, quant_scales=fast_scales, device=dev),
+    }
+    fns["refine"] = fns["bf16"]
+    all_holo = goldens.content_holo.reshape(-1, 1, IMAGE, IMAGE)
+    for service in services.values():
+        service.warmup()
+    requests, launches = {}, collections.Counter()
+    with serving(services["bf16"]) as url:
+        for b in SERVE_REQUESTS:
+            holo = all_holo[:b] if b != 5 else goldens.content_holo[10]
+            chunks = -(-b // SERVE_BATCH)
+            got, n = served(url, holo, {"asm_const": chunks, "asm_dynamic": 0})
+            launches.update(n)
+            check_equal(got, direct_answer(fns["bf16"], fast_net, holo, fast_style, d_style,
+                                           SERVE_BATCH, dev), f"bf16 request of {b}")
+            requests[f"bf16_B{b}"] = {"equal": True, "chunks": chunks, "launches": n}
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        if health["device"] != card_name or health["batch_size"] != SERVE_BATCH:
+            _die(f"/healthz: {health}", 1)
+        buf = io.BytesIO()
+        np.savez(buf, nope=np.zeros(2, np.float32))
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                url + "/retrieve", data=buf.getvalue(), method="POST"), timeout=30)
+            _die("a request without holo was answered", 1)
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                _die(f"a request without holo got {e.code}, want 400", 1)
+        rates = {"bf16": served_rates(services["bf16"], url, fns["bf16"], fast_net, style_dev,
+                                      d_style, all_holo[:SERVE_BATCH])}
+    x = torch.from_numpy(all_holo[:SERVE_BATCH]).to(dev)
+    fp32_fn = make_retrieval_fn(fast_cfg.physics, dtype=torch.float32, device=dev)
+    fp32_ms = median_ms(lambda: fp32_fn(fast_net, x, *style_dev, d_style), reps=SERVE_TIMED, warmup=2)
+    rates["fp32"] = {"ms": {"direct_on_card": fp32_ms},
+                     "holograms_per_s": {"direct_on_card": SERVE_BATCH / fp32_ms * 1e3}}
+    for path, want in (("int8", {"asm_const": 1, "asm_dynamic": 0}),
+                       ("refine", {"asm_const": 1, "asm_dynamic": SERVE_REFINE_STEPS + 1})):
+        with serving(services[path]) as url:
+            holo = goldens.content_holo[10]
+            got, n = served(url, holo, want)
+            launches.update(n)
+            refine = (fast_cfg.physics, SERVE_REFINE_STEPS) if path == "refine" else None
+            check_equal(got, direct_answer(fns[path], fast_net, holo, fast_style, d_style,
+                                           SERVE_BATCH, dev, refine), f"{path} request")
+            requests[f"{path}_B5"] = {"equal": True, "launches": n}
+            if path == "int8":
+                rates["int8"] = served_rates(services["int8"], url, fns["int8"], fast_net,
+                                             style_dev, d_style, all_holo[:SERVE_BATCH])
+    torch.cuda.synchronize()
+    return {"nvidia_smi": smi, "batch": SERVE_BATCH, "requests": requests,
+            "health": health, "rates": rates, "launches": dict(launches),
+            "tolerance": "bit-equal (same batch shapes on the card)"}
+
+
+def drive_stream(fast_net, fast_cfg, fast_style, goldens, dev, smi):
+    """The stream phase (see the module docstring); returns its readings."""
+    d_style = float(fast_cfg.physics.to_network_units(fast_cfg.data.style_distances[0]))
+    all_holo = goldens.content_holo.reshape(-1, 1, IMAGE, IMAGE)
+    batches = [{"holo": all_holo[lo : lo + STREAM_BATCH]} for lo in range(0, len(all_holo), STREAM_BATCH)]
+    asm_cuda.reset_launches()
+    stats = StreamStats()
+    outs = list(stream_retrieval(fast_net, batches, fast_style, fast_cfg, stats=stats, device=dev))
+    torch.cuda.synchronize()
+    stream_launches = dict(asm_cuda.LAUNCHES)
+    if stream_launches != {"asm_const": len(batches), "asm_dynamic": 0}:
+        _die(f"the stream of {len(batches)} batches launched {stream_launches}", 1)
+    fn = make_retrieval_fn(fast_cfg.physics, device=dev)
+    for i, (batch, out) in enumerate(zip(batches, outs)):
+        want = direct_answer(fn, fast_net, batch["holo"], fast_style, d_style, STREAM_BATCH, dev)
+        check_equal({k: v.cpu().numpy() for k, v in out.items()}, want, f"stream batch {i}")
+    if len(outs) != len(batches) or stats.n_frames != len(all_holo):
+        _die(f"the stream yielded {len(outs)} batches, {stats.n_frames} frames", 1)
+    timed = StreamStats()
+    for _ in stream_retrieval(fast_net, batches, fast_style, fast_cfg, stats=timed, device=dev):
+        pass
+    torch.cuda.synchronize()
+    return {"nvidia_smi": smi, "batch": STREAM_BATCH, "batches": len(batches),
+            "last_batch": len(batches[-1]["holo"]), "equal": True,
+            "launches": stream_launches,
+            "frames_per_s": timed.n_frames / timed.elapsed,
+            "first_run_frames_per_s": stats.n_frames / stats.elapsed}
 
 
 def golden_contents(goldens):
@@ -1116,7 +1478,7 @@ def main() -> int:
             _dt(dt): int8_path_card_vs_cpu(net, net_cpu, args, scales, dt)
             for dt in (torch.float32, bf16)
         }
-        no_int8 = [retrieval_step(n, *args, quant_scales={}, quant_dtype=torch.float32, device=d)
+        no_int8 = [retrieval_step(n, *args, quant_scales={}, dtype=torch.float32, device=d)
                    for n, d in ((net, "cuda"), (net_cpu, "cpu"))]
         quant_card_vs_cpu["float32_no_int8"] = compare_outputs(
             *no_int8, SLICE_AMP_TOL, SLICE_DIST_TOL, SLICE_PHASE_TOL, SLICE_PHASE_FRACTION,
@@ -1176,6 +1538,22 @@ def main() -> int:
             "checks": halo_rows, "card_vs_cpu": halo_card_vs_cpu, "B": B_TIMING, "ms": halo_ms,
             "bound_ms": {f"{p}/{_dt(d)}": v for (p, d), v in halo_b.items()},
         }
+
+    with Phase("golden") as phase:
+        fast_net, fast_cfg, fast_style, fast_scales, fast_records = load_fast(dev)
+        golden_readings, golden_launches, golden_seconds = run_golden(
+            fast_net, goldens, fast_cfg, fast_style, fast_scales, fast_records, dev)
+        phase.info = {"release": "checkpoints/fast", "width": fast_cfg.model.width,
+                      "readings": golden_readings, "launches": golden_launches,
+                      "seconds_by_path": golden_seconds}
+
+    with Phase("serve") as phase:
+        serve_info = drive_serve(fast_net, fast_cfg, fast_style, fast_scales, goldens, dev, name, smi)
+        phase.info = serve_info
+
+    with Phase("stream") as phase:
+        stream_info = drive_stream(fast_net, fast_cfg, fast_style, goldens, dev, smi)
+        phase.info = stream_info
 
     with Phase("timing") as phase:
         kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
@@ -1371,7 +1749,9 @@ def main() -> int:
             "ms_by_precision": {p: by_precision[p][k] for p in PRODUCTS},
             "bound_ms_by_precision": {p: bounds[k, p][0] for p in PRODUCTS},
             "library_ms": timings[k][2],
-            "launches_by_path": {"slice": launches[k], "refine": refine_launches[k]},
+            "launches_by_path": {"slice": launches[k], "refine": refine_launches[k],
+                                 "golden": golden_launches[k], "serve": serve_info["launches"][k],
+                                 "stream": stream_info["launches"][k]},
             **({"refine_step_ms": refine_timing["step_ms"],
                 "refine_step_ms_torch_backend": refine_timing["torch_backend_step_ms"],
                 "refine_forward_share": refine_timing["forward_kernel_share"]}
@@ -1412,6 +1792,8 @@ def main() -> int:
             "bound_ms_by_dtype": {_dt(d): conv_b[k, d][0] for d in CONV_TOLERANCES},
             "library_ms": conv_timings[k, dt][2],
             "library_ms_by_dtype": {_dt(d): conv_timings[k, d][2] for d in CONV_TOLERANCES},
+            **({"launches_by_path": {"quant": launches[k], "golden": golden_launches[k]}}
+               if k in golden_launches else {}),
             **extras.get(k, {}),
         })
     halo_where = {"halo_conv_tail": jk + "halo_conv.py:105",

@@ -21,6 +21,22 @@ metrics beside the port's (minutes on the CPU).
 (``physics_refine``, N Adam steps, phase only at the known amplitude) in
 both evaluations; ``--refine-distance`` refines the distances too. The
 release's recorded ``refined_*`` metrics are then the ones compared.
+
+``--bf16`` runs the fp net in bf16 (the JAX package's
+``StyleTransferNet(dtype=bfloat16)``, which ``cli serve`` serves by default),
+in both evaluations; the physics stays fp32. ``--write-record PATH`` (with
+``--jax``) writes the JAX package's metrics of that run as a JSON record with
+a ``note`` on how it was made: ``checkpoints/fast/bf16_golden_metrics.json``
+is one.
+
+``--export-npz PATH`` writes the release's weights for the port and exits:
+the port's state dict (``convert_params`` of the orbax restore) as fp32
+arrays, one per state-dict key, with ``numpy.savez_compressed``. The port
+reads it with ``interop.load_release_weights`` where orbax cannot run.
+``checkpoints/fast/torch_weights.npz`` was written by
+
+    JAX_PLATFORMS=cpu python scripts/port_golden_eval.py \
+        --release checkpoints/fast/release --export-npz checkpoints/fast/torch_weights.npz
 """
 
 from __future__ import annotations
@@ -48,7 +64,16 @@ def main() -> int:
     ap.add_argument("--jax", action="store_true", help="also run the JAX package's evaluation")
     ap.add_argument("--refine-steps", type=int, default=0, help="physics refinement steps (0: off)")
     ap.add_argument("--refine-distance", action="store_true", help="refine the distances too")
+    ap.add_argument("--bf16", action="store_true", help="the fp net in bf16")
+    ap.add_argument("--write-record", default=None, metavar="PATH",
+                    help="write the JAX package's metrics as a record (needs --jax)")
+    ap.add_argument("--export-npz", default=None, metavar="PATH",
+                    help="write the port's state dict of the release and exit")
     args = ap.parse_args()
+    if args.write_record and not args.jax:
+        ap.error("--write-record writes the JAX package's metrics: add --jax")
+    if args.bf16 and args.quant:
+        ap.error("--bf16 is the fp net in bf16; the int8 path (--quant) runs bf16 already")
     sys.path.insert(0, REPO)
 
     import jax
@@ -77,6 +102,15 @@ def main() -> int:
         "checkpoints/quant_golden_metrics.json" if args.quant else "checkpoints/golden_metrics.json"
     )
     params = ocp.StandardCheckpointer().restore(path(args.release))["params"]
+    if args.export_npz:
+        import numpy as np
+
+        state = convert_params(params)
+        np.savez_compressed(path(args.export_npz), **{k: v.numpy() for k, v in state.items()})
+        print(json.dumps({"release": args.release, "npz": args.export_npz, "arrays": len(state),
+                          "parameters": sum(v.numel() for v in state.values()),
+                          "bytes": os.path.getsize(path(args.export_npz))}))
+        return 0
     with open(path(args.config)) as f:
         config_text = f.read()
     cfg = ExperimentConfig.from_json(config_text)
@@ -91,7 +125,7 @@ def main() -> int:
     t0 = time.perf_counter()
     got = evaluate_golden_suite(
         net, load_golden_suite(), cfg, style_override=style, quant_scales=scales,
-        dtype=torch.bfloat16 if args.quant else None, device="cpu", **refine,
+        dtype=torch.bfloat16 if args.quant or args.bf16 else None, device="cpu", **refine,
     )
     seconds = time.perf_counter() - t0
     with open(path(recorded)) as f:
@@ -101,7 +135,7 @@ def main() -> int:
     rec_key = (lambda k: f"refined_{k}") if args.refine_steps else (lambda k: k)  # noqa: E731
     out = {
         "release": args.release, "device": "cpu", "eval_seconds": round(seconds, 3),
-        "path": "int8 bf16" if args.quant else "fp32",
+        "path": "int8 bf16" if args.quant else ("fp bf16" if args.bf16 else "fp32"),
         "fused_stacks": args.fused_stacks if args.quant else None,
         **refine,
         "port": {k: got[k] for k in KEYS},
@@ -127,13 +161,27 @@ def main() -> int:
         ref = jfr.evaluate_golden_suite(
             params, j_goldens(), JConfig.from_json(config_text),
             style_override=(jnp.asarray(style[0]), jnp.asarray(style[1])),
-            quant_scales=scales, **refine,
+            quant_scales=scales, dtype=jnp.bfloat16 if args.bf16 else None, **refine,
         )
         out["jax"] = {k: float(ref[k]) for k in KEYS}
         out["jax_eval_seconds"] = round(time.perf_counter() - t0, 3)
         out["max_abs_psnr_per_batch_diff_vs_jax_db"] = max(
             abs(a - b) for a, b in zip(got["psnr_per_batch"], ref["psnr_per_batch"])
         )
+        if args.write_record:
+            what = "the int8 path in bf16" if args.quant else (
+                "the fp net in bf16 (StyleTransferNet(dtype=bfloat16))" if args.bf16 else "fp32")
+            record = {
+                **{k: ref[k] for k in ref},
+                "note": (
+                    f"JAX package's evaluate_golden_suite of {args.release}, {what}, physics fp32, "
+                    f"on the CPU, fused stacks {args.fused_stacks}, refine_steps {args.refine_steps}; "
+                    "written by scripts/port_golden_eval.py --write-record"
+                ),
+            }
+            with open(path(args.write_record), "w") as f:
+                json.dump(record, f, indent=1)
+            out["record_written"] = args.write_record
     print(json.dumps(out))
     return 0
 

@@ -14,9 +14,13 @@ Subpackages mirror the JAX package's layout:
                   PyTorch versions.
 - ``models``    — ``nn.Module`` networks: VGG encoder, decoder, distance MLP.
 - ``pipelines`` — eager end-to-end field retrieval, the golden-suite eval,
-                  physics refinement and autofocus.
+                  physics refinement, autofocus, the HTTP server and the
+                  stream.
+- ``data``      — the golden suite and the host -> card prefetch.
 - ``train``     — losses (so far the TV regulariser refinement uses).
-- ``interop``   — carrying JAX parameter trees (as numpy) across.
+- ``interop``   — carrying JAX parameter trees (as numpy) across, and a
+                  release's weights from its numpy file.
+- ``cli``       — ``python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 

@@ -3,7 +3,8 @@ that field retrieval reads.
 
 Mirrors ``config.py`` of the JAX package (``PhysicsConfig``, ``ModelConfig``,
 ``EvalConfig``, ``ExperimentConfig.from_json``, and of ``DataConfig`` the
-object amplitude that refinement takes as known). ``from_json`` parses a
+object amplitude that refinement takes as known and the style plane that
+the server and the stream refocus from). ``from_json`` parses a
 run's full ``config.json`` and ignores what this port does not use yet (the
 rest of ``data``, ``train``).
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 
 @dataclass(frozen=True)
@@ -58,6 +59,7 @@ class DataConfig:
     """The data section's fields that the port reads."""
 
     amplitude: float = 0.6              # constant object amplitude
+    style_distances: Sequence[float] = (0.2,)  # mm; the first is the served style plane
 
 
 @dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 from style_transfer_based_holographic_imaging_tpu_torch.interop.from_jax import (
     convert_params,
+    load_release_weights,
     load_style_vector,
 )
 
-__all__ = ["convert_params", "load_style_vector"]
+__all__ = ["convert_params", "load_release_weights", "load_style_vector"]

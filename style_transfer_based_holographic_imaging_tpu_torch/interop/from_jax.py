@@ -14,6 +14,11 @@ of an orbax restore of ``checkpoints/release``, with or without its outer
 
 A ``decoder_ph`` subtree, when present, converts like ``decoder``; build the
 net with ``has_phase_decoder(tree)``.
+
+``load_release_weights`` reads a release's state dict back from the numpy
+file that ``scripts/port_golden_eval.py --export-npz`` writes (one fp32
+array per state-dict key), where orbax cannot run: on the card machine,
+and in ``cli serve``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["convert_params", "load_style_vector"]
+__all__ = ["convert_params", "load_release_weights", "load_style_vector"]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -60,6 +65,18 @@ def convert_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     for path, value in _flatten(inner):
         name, arr = _convert_leaf(path, value)
         state[name] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    return state
+
+
+def load_release_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The port's state dict of a release from its ``torch_weights.npz``. Build
+    the net with ``StyleTransferNet.from_state_dict(state, width)``, the width
+    from the release's ``config.json``."""
+    with np.load(path) as z:
+        state = {k: torch.from_numpy(np.asarray(z[k])) for k in z.files}
+    bad = [k for k, v in state.items() if v.dtype != torch.float32]
+    if bad:
+        raise ValueError(f"{path}: arrays not float32: {bad}")
     return state
 
 

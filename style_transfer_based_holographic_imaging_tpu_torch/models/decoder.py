@@ -1,6 +1,6 @@
 """Amplitude/phase decoder (port of the JAX ``models/decoder.py``): relu4_1
 features back to a 2-channel (amplitude, phase) image, with the same layer
-order and names."""
+order and names. The forward takes a compute ``dtype`` (``models/layers.py``)."""
 
 from __future__ import annotations
 
@@ -47,8 +47,8 @@ class AmpPhaseDecoder(nn.Module):
             c_in = c_out
         self.conv10 = ReflectConv(c_in, out_channels)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         x = t
         for name, _, _ in _LAYERS:
-            x = F.relu(getattr(self, name)(x))
-        return self.conv10(x)
+            x = F.relu(getattr(self, name)(x, dtype))
+        return self.conv10(x, dtype)

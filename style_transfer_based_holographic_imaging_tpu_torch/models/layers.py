@@ -3,6 +3,12 @@
 Port of the JAX package's ``models/layers.py``: the reflect-padded 3x3 conv
 with its border backends, ceil-mode max pooling, the 2x2 stride-2 transposed
 conv and the row-wise instance norm of the distance head.
+
+The convs take a compute ``dtype`` per call, as the flax modules do: the
+parameters stay fp32 and are cast to it at each conv with the activation
+and the bias (``conv_in_dtype``). Below fp32 a reflect conv materializes
+its pad (the ``matpad`` backend, the JAX package's default), as the int8
+path's fp convs do.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ __all__ = [
     "ConvTranspose2x2",
     "instance_norm_rows",
     "set_reflect_backend",
+    "conv_in_dtype",
 ]
 
 # Border handling of ReflectConv, the JAX package's backends: "matpad"
@@ -39,13 +46,31 @@ def set_reflect_backend(backend: str) -> None:
     _REFLECT_BACKEND = backend
 
 
+def conv_in_dtype(op, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                  dt: torch.dtype, **kw) -> torch.Tensor:
+    """``op(x, kernel) + bias`` in ``dt``: the operands cast to ``dt``, the
+    products summed in fp32 and rounded once to ``dt`` (XLA's bf16 conv),
+    then the bias added in ``dt``. On the card the conv is cuDNN's in
+    ``dt`` (tensor cores, fp32 accumulation, one rounding); on the CPU the
+    rounded operands go through the fp32 conv, the same rule, which the CPU
+    tests hold bit for bit. In fp32 the casts are no-ops."""
+    if x.is_cuda:
+        y = op(x.to(dt), kernel.to(dt), **kw)
+    else:
+        y = op(x.to(dt).float(), kernel.to(dt).float(), **kw).to(dt)
+    return y + bias.to(dt).view(1, -1, 1, 1)
+
+
 class ReflectConv(nn.Conv2d):
     """``ReflectionPad2d(1)`` + VALID 3x3 ``Conv2d``. Weight ``(O, I, 3, 3)``."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, padding=0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        if dtype != torch.float32:
+            xp = F.pad(x.to(dtype), (1, 1, 1, 1), mode="reflect")
+            return conv_in_dtype(F.conv2d, xp, self.weight, self.bias, dtype)
         backend = "matpad" if _REFLECT_BACKEND == "auto" else _REFLECT_BACKEND
         h, w = x.shape[-2], x.shape[-1]
         if backend == "matpad" or h < 4 or w < 4:
@@ -78,7 +103,9 @@ class ConvTranspose2x2(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         nn.init.normal_(self.weight, std=in_channels**-0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        if dtype != torch.float32:
+            return conv_in_dtype(F.conv_transpose2d, x, self.weight, self.bias, dtype, stride=2)
         return F.conv_transpose2d(x, self.weight, self.bias, stride=2)
 
 

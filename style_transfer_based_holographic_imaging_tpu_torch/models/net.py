@@ -3,6 +3,14 @@
 VGG encoder + AdaIN against a stored style vector + amplitude/phase decoder
 + distance regressor. Only the inference path (``field_retrieval``) is
 ported; the training forward comes with the training slice.
+
+``field_retrieval`` takes the compute ``dtype`` per call, as the flax module
+takes it: the parameters stay fp32 and every conv, transposed conv and
+dense layer casts them, the activation and the bias to it. bf16 is the fp
+net that ``cli serve`` serves by default; its roundings are those of the
+int8 path's fp layers
+(``models/layers.conv_in_dtype``, the distance head and the feature
+statistics in ``models/distance.py`` and ``ops/stats.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +29,14 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (
 )
 
 __all__ = ["StyleTransferNet", "split_style_vector", "has_phase_decoder", "style_stats_nchw"]
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dtype(dtype: torch.dtype) -> torch.dtype:
+    if dtype not in _DTYPES:
+        raise ValueError(f"unsupported compute dtype {dtype}: float32 or bfloat16")
+    return dtype
 
 
 def has_phase_decoder(params: Mapping) -> bool:
@@ -63,8 +79,18 @@ class StyleTransferNet(nn.Module):
             self.decoder_ph = AmpPhaseDecoder(width=width)
         self.distance_g = DistanceMLP(self.encoder.out_channels)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.encoder(x)
+    @classmethod
+    def from_state_dict(cls, state: Mapping[str, torch.Tensor],
+                        width: float) -> "StyleTransferNet":
+        """The net of a release's state dict (``interop.load_release_weights``
+        or ``convert_params``) at the width of its ``config.json``, loaded
+        with ``strict=True``, in eval mode, on the CPU."""
+        net = cls(width=width, with_phase_decoder=has_phase_decoder(state))
+        net.load_state_dict(state, strict=True)
+        return net.eval()
+
+    def encode(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.encoder(x, dtype=dtype)
 
     def field_retrieval(
         self,
@@ -74,20 +100,23 @@ class StyleTransferNet(nn.Module):
         alpha: float = 1.0,
         *,
         unknown_distance: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         """sqrt-intensity hologram ``(B, 1, H, W)`` -> (A_t, phi_t[, d]) at the
-        style plane, each ``(B, 1, H, W)`` (d: ``(B, 1)``). ``style_mean`` /
-        ``style_std`` broadcast against the ``(B, C, h, w)`` relu4_1 features."""
-        content_feat = self.encode(content)
+        style plane, each ``(B, 1, H, W)`` (d: ``(B, 1)``), in the compute
+        ``dtype``. ``style_mean`` / ``style_std`` broadcast against the
+        ``(B, C, h, w)`` relu4_1 features."""
+        dt = _check_dtype(dtype)
+        content_feat = self.encode(content, dt)
         t = adain_with_stats(content_feat, style_mean, style_std)
         t = alpha * t + (1.0 - alpha) * content_feat
 
-        g = self.decoder(t)
+        g = self.decoder(t, dt)
         amp, phase = g[:, 0:1], g[:, 1:2]
         if self.with_phase_decoder:
-            phase = self.decoder_ph(t)[:, 0:1]
+            phase = self.decoder_ph(t, dt)[:, 0:1]
         if unknown_distance:
-            d = self.distance_g(calc_mean_std(content_feat))
+            d = self.distance_g(calc_mean_std(content_feat), dtype=dt)
             return amp, phase, d
         return amp, phase
 

@@ -37,7 +37,10 @@ from style_transfer_based_holographic_imaging_tpu_torch.kernels.conv_stack impor
     fused_conv_tail,
     fused_encoder_head,
 )
-from style_transfer_based_holographic_imaging_tpu_torch.models.layers import max_pool_ceil
+from style_transfer_based_holographic_imaging_tpu_torch.models.layers import (
+    conv_in_dtype,
+    max_pool_ceil,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.models.net import style_stats_nchw
 from style_transfer_based_holographic_imaging_tpu_torch.models.vgg import _BLOCKS
 from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (
@@ -158,20 +161,11 @@ def int8_conv_valid(
     return torch.relu(y) if relu else y
 
 
-def _conv_fp(op, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-             dt: torch.dtype, **kw) -> torch.Tensor:
-    """``op(x, kernel) + bias`` in ``dt``: the operands cast to ``dt``, the
-    products summed in fp32 and rounded once to ``dt`` (XLA's bf16 conv),
-    then the bias added in ``dt``. In fp32 the casts are no-ops."""
-    y = op(x.to(dt).float(), kernel.to(dt).float(), **kw).to(dt)
-    return y + bias.to(dt).view(1, -1, 1, 1)
-
-
 def _reflect_conv(x, kernel, bias, *, dt, act_max, relu):
     """One ReflectionPad2d(1) + 3x3 VALID conv: int8 when ``act_max`` is given,
     else the fp math of ``ReflectConv`` (matpad) in ``dt``."""
     if act_max is None:
-        y = _conv_fp(F.conv2d, F.pad(x.to(dt), (1, 1, 1, 1), mode="reflect"), kernel, bias, dt)
+        y = conv_in_dtype(F.conv2d, F.pad(x.to(dt), (1, 1, 1, 1), mode="reflect"), kernel, bias, dt)
         return torch.relu(y) if relu else y
     return int8_conv_valid(x, kernel, bias, dt=dt, act_max=act_max, relu=relu)
 
@@ -225,7 +219,7 @@ def quant_encode(
     folded = _fold_stem(encoder) if fold_stem else None
     if not fold_stem:
         stem = encoder.stem
-        x = _conv_fp(F.conv2d, x, stem.weight, stem.bias, dt)
+        x = conv_in_dtype(F.conv2d, x, stem.weight, stem.bias, dt)
     fused_head = _use_fused(x, observer, channels=encoder.conv1_1.out_channels) and n_taps >= 2
     if fused_head:
         k1, b1 = folded if folded is not None else (encoder.conv1_1.weight, encoder.conv1_1.bias)
@@ -269,7 +263,7 @@ def quant_decode(
         layer = getattr(decoder, name)
         if kind == "up":
             # ConvTranspose2d(k=2, s=2)
-            x = torch.relu(_conv_fp(F.conv_transpose2d, x, layer.weight, layer.bias, dt, stride=2))
+            x = torch.relu(conv_in_dtype(F.conv_transpose2d, x, layer.weight, layer.bias, dt, stride=2))
             continue
         if name == "conv8" and _use_fused(x, observer, channels=x.shape[1]):
             c9, c10 = decoder.conv9, decoder.conv10

@@ -3,6 +3,7 @@
 A 1x1 stem lifts the one-channel hologram to 3 channels, then reflect-padded
 3x3 convs with ceil-mode max pools climb the ``_BLOCKS`` ladder. Module names
 match the JAX parameter names, so converted trees load with ``strict=True``.
+The forward takes a compute ``dtype`` (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from torch import nn
 
 from style_transfer_based_holographic_imaging_tpu_torch.models.layers import (
     ReflectConv,
+    conv_in_dtype,
     max_pool_ceil,
 )
 
@@ -54,14 +56,18 @@ class VggEncoder(nn.Module):
                 c_in = c_out
         self.out_channels = c_in
 
-    def forward(self, x: torch.Tensor, *, all_taps: bool = False):
-        """``(B, 1, H, W)`` -> relu4_1 features, or all four taps."""
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, *, all_taps: bool = False,
+                dtype: torch.dtype = torch.float32):
+        """``(B, 1, H, W)`` -> relu4_1 features, or all four taps, in ``dtype``."""
+        if dtype == torch.float32:
+            x = self.stem(x)
+        else:
+            x = conv_in_dtype(F.conv2d, x, self.stem.weight, self.stem.bias, dtype)
         taps: List[torch.Tensor] = []
         for block in _BLOCKS:
             for name, _, pool_before in block:
                 if pool_before:
                     x = max_pool_ceil(x, 2, 2)
-                x = F.relu(getattr(self, name)(x))
+                x = F.relu(getattr(self, name)(x, dtype))
             taps.append(x)
         return taps if all_taps else taps[-1]

@@ -6,6 +6,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import (
     pad_replicate,
     propagate,
     propagate_torch,
+    set_asm_backend,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.ops.holo import back_prop, holo_forward
 from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (
@@ -21,6 +22,7 @@ __all__ = [
     "propagate_torch",
     "center_crop",
     "pad_replicate",
+    "set_asm_backend",
     "holo_forward",
     "back_prop",
     "calc_mean_std",

@@ -13,23 +13,45 @@ Port of the JAX package's ``ops/asm.py``. Semantics kept exactly:
 Backends: ``"torch"`` (the ``torch.fft`` composition, always available),
 ``"cuda"`` (the hand-written Hopper kernels of ``kernels/asm_cuda.py``) and
 ``"auto"`` (the default: ``cuda`` for an eligible CUDA tensor, ``torch``
-otherwise). An explicit ``"cuda"`` on an ineligible shape raises.
+otherwise). ``"cuda"`` on an ineligible shape raises. The process-wide
+backend is ``set_asm_backend`` or the ``STHI_ASM_BACKEND`` environment
+variable (read at import; ``cli --asm-backend`` sets it); a per-call
+``backend`` overrides it.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
 
 import numpy as np
 import torch
 
-__all__ = ["kz_rel_grid", "propagate", "propagate_torch", "center_crop", "pad_replicate"]
+__all__ = [
+    "kz_rel_grid",
+    "propagate",
+    "propagate_torch",
+    "center_crop",
+    "pad_replicate",
+    "set_asm_backend",
+]
 
 _BACKENDS = ("torch", "cuda", "auto")
+_BACKEND = os.environ.get("STHI_ASM_BACKEND", "auto").lower()
+if _BACKEND not in _BACKENDS:
+    raise ValueError(f"STHI_ASM_BACKEND={_BACKEND!r} is not one of 'torch'|'cuda'|'auto'")
 # The fused DFT-matmul kernels evaluate O(n^3) DFT products; beyond this
 # side the FFT composition wins (and the JAX kernel's VMEM budget ended here).
 _CUDA_MAX_SIDE = 256
+
+
+def set_asm_backend(name: str) -> None:
+    """The process-wide propagator backend: 'torch' | 'cuda' | 'auto'."""
+    global _BACKEND
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown ASM backend {name!r}")
+    _BACKEND = name
 
 
 def _fftfreq32(n: int, d: float) -> np.ndarray:
@@ -114,7 +136,8 @@ def propagate(
       distance: metres; a host scalar (routes to the constant-transfer-function
         kernel), or a tensor broadcastable to the leading axes of ``field``
         (e.g. ``(B, 1, 1, 1)``: one distance per sample).
-      backend: ``"torch"``, ``"cuda"`` or ``"auto"`` (default).
+      backend: ``"torch"``, ``"cuda"`` or ``"auto"``; None takes the
+        process-wide backend (``set_asm_backend``, ``"auto"`` by default).
 
     Returns:
       The propagated complex field, same shape as ``field``.
@@ -122,7 +145,7 @@ def propagate(
     if not field.is_complex():
         field = field.to(torch.complex64)
     h, w = field.shape[-2], field.shape[-1]
-    backend = "auto" if backend is None else backend
+    backend = _BACKEND if backend is None else backend
     if backend not in _BACKENDS:
         raise ValueError(f"unknown ASM backend {backend!r}")
     eligible = _cuda_eligible(h, w, pad=pad, pad_factor=pad_factor, band_limit=band_limit)

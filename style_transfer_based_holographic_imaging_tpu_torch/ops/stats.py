@@ -8,7 +8,9 @@ On bf16 features (the int8 serving path) the roundings sit where XLA puts
 them on the JAX package's jitted path: the sums are taken in fp32 and
 rounded to bf16, the square that feeds a sum is not rounded, and every other
 op rounds to bf16. Style statistics in fp32 promote the
-AdaIN output to fp32, as in JAX.
+AdaIN output to fp32, as in JAX; there the centred features round to bf16,
+and the division by the std and the multiply-add of the style statistics run
+in fp32 (one fused multiply-add), as XLA fuses them.
 """
 
 from __future__ import annotations
@@ -72,5 +74,9 @@ def adain_with_stats(
     """AdaIN against precomputed style statistics that broadcast against
     ``content_feat`` (e.g. ``(1, C, 1, 1)``)."""
     content_mean, content_std = calc_mean_std(content_feat, channel_axis=channel_axis)
-    normalized = (content_feat - content_mean) / content_std
-    return normalized * style_std + style_mean
+    if content_feat.dtype == torch.float32:
+        normalized = (content_feat - content_mean) / content_std
+        return normalized * style_std + style_mean
+    out_dtype = torch.promote_types(content_feat.dtype, style_mean.dtype)
+    normalized = (content_feat - content_mean).float() / content_std.float()
+    return torch.addcmul(style_mean.float(), normalized, style_std.float()).to(out_dtype)

@@ -9,13 +9,31 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines.field_retrieva
     make_retrieval_fn,
     retrieval_step,
 )
-from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import physics_refine
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import (
+    physics_refine,
+    refine_retrieval,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.server import (
+    RetrievalService,
+    retrieve_remote,
+    serve_forever,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.streaming import (
+    StreamStats,
+    stream_retrieval,
+)
 
 __all__ = [
     "retrieval_step",
     "make_retrieval_fn",
     "evaluate_golden_suite",
     "physics_refine",
+    "refine_retrieval",
     "autofocus",
     "sharpness",
+    "RetrievalService",
+    "serve_forever",
+    "retrieve_remote",
+    "StreamStats",
+    "stream_retrieval",
 ]

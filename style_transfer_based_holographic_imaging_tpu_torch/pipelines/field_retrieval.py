@@ -17,9 +17,11 @@ distance takes the per-image kernel (``asm_dynamic``).
 phase against its hologram with ``pipelines.refine.physics_refine``
 (phase only, at the known amplitude ``config.data.amplitude``).
 
-``quant_scales`` (from ``models.quant.calibrate_scales``) switches the net
-to the int8 serving path (``models/quant.py``) in ``quant_dtype`` (bf16 by
-default); the physics stays fp32 and every output is fp32 either way.
+``dtype`` is the net's compute dtype: the fp net's (fp32 when None; bf16
+is what ``cli serve`` serves by default), or, with ``quant_scales`` (from
+``models.quant.calibrate_scales``), that of the int8 serving path
+(``models/quant.py``; bf16 when None). The physics stays fp32 and every
+output is fp32 either way.
 """
 
 from __future__ import annotations
@@ -69,8 +71,8 @@ def retrieval_step(
     alpha: float = 1.0,
     unknown_distance: bool = True,
     unwrap: bool = True,
+    dtype: Optional[torch.dtype] = None,
     quant_scales: Optional[Dict[str, float]] = None,
-    quant_dtype: torch.dtype = torch.bfloat16,
     asm_backend: Optional[str] = None,
     device: str | torch.device = "cuda",
 ) -> Dict[str, torch.Tensor]:
@@ -79,8 +81,9 @@ def retrieval_step(
     Returns the style-plane field (``amp_field``, ``ph_field``), the field
     refocused to the object plane (``amp_foc``, ``ph_foc``) and, with
     ``unknown_distance``, the predicted content distance (``distance_pred``,
-    ``(B, 1, 1, 1)``), all fp32 on ``device``. ``quant_scales`` runs the net
-    on the int8 path in ``quant_dtype``.
+    ``(B, 1, 1, 1)``), all fp32 on ``device``. ``dtype`` is the fp net's
+    compute dtype (fp32 when None); ``quant_scales`` runs the net on the
+    int8 path in ``dtype`` instead (bf16 when None).
     """
     device = torch.device(device)
     _check_device(net, device)
@@ -91,11 +94,13 @@ def retrieval_step(
 
     if quant_scales is not None:
         out = quant_retrieval_forward(
-            net, content, sm, ss, alpha, scales=quant_scales, compute_dtype=quant_dtype,
-            unknown_distance=unknown_distance,
+            net, content, sm, ss, alpha, scales=quant_scales,
+            compute_dtype=dtype or torch.bfloat16, unknown_distance=unknown_distance,
         )
     else:
-        out = net.field_retrieval(content, sm, ss, alpha, unknown_distance=unknown_distance)
+        out = net.field_retrieval(
+            content, sm, ss, alpha, unknown_distance=unknown_distance,
+            dtype=dtype or torch.float32)
     if unknown_distance:
         amp, ph, d_pred = out
     else:
@@ -150,8 +155,8 @@ def make_retrieval_fn(
     alpha: float = 1.0,
     unknown_distance: bool = True,
     unwrap: bool = True,
+    dtype: Optional[torch.dtype] = None,
     quant_scales: Optional[Dict[str, float]] = None,
-    quant_dtype: torch.dtype = torch.bfloat16,
     asm_backend: Optional[str] = None,
     device: str | torch.device = "cuda",
 ) -> Callable[..., Dict[str, torch.Tensor]]:
@@ -171,8 +176,8 @@ def make_retrieval_fn(
             alpha=alpha,
             unknown_distance=unknown_distance,
             unwrap=unwrap,
+            dtype=dtype,
             quant_scales=quant_scales,
-            quant_dtype=quant_dtype,
             asm_backend=asm_backend,
             device=device,
         )
@@ -198,9 +203,9 @@ def evaluate_golden_suite(
     zero-meaned), the (true, predicted) distances in µm, their R², the
     batches whose worst distance misses by more than 25 µm, and the same
     metrics over the held-out batches. Metrics stay on the device until the
-    end of the loop. ``quant_scales`` runs the int8 path in ``dtype`` (bf16
-    when None); without them the net runs fp32, the only dtype of the
-    port's fp net.
+    end of the loop. ``dtype`` and ``quant_scales`` are ``retrieval_step``'s:
+    the fp net in ``dtype`` (fp32 when None), or the int8 path in ``dtype``
+    (bf16 when None).
 
     ``refine_steps > 0`` refines each batch's focused phase against its
     hologram (``physics_refine``, phase only at the known amplitude
@@ -212,13 +217,11 @@ def evaluate_golden_suite(
     config = config or ExperimentConfig()
     physics = config.physics
     device = torch.device(device)
-    if quant_scales is None and dtype not in (None, torch.float32):
-        raise ValueError(f"the fp net runs float32 only, got dtype {dtype}")
     fn = make_retrieval_fn(
         physics,
         alpha=config.eval.alpha,
+        dtype=dtype,
         quant_scales=quant_scales,
-        quant_dtype=dtype or torch.bfloat16,
         device=device,
     )
     if style_override is not None:

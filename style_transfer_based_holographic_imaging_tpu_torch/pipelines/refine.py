@@ -17,6 +17,10 @@ distance. On a CUDA tensor with the ``auto`` or ``cuda`` backend its forward
 is the ``asm_dynamic`` kernel and its backward the adjoint of the
 ``torch.fft`` composition (``kernels.asm_cuda.AsmDynamic``): ``steps + 1`` launches a batch, and with
 ``refine_distance`` ``max(steps // 2, 10)`` more.
+
+``refine_retrieval`` is the served form (the server's and the stream's
+``refine_steps``): amplitude and phase refined jointly from a retrieval
+step's outputs, with autograd on whatever grad mode the calling thread is in.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.config import PhysicsCon
 from style_transfer_based_holographic_imaging_tpu_torch.ops.holo import holo_forward
 from style_transfer_based_holographic_imaging_tpu_torch.train.losses import tv_loss
 
-__all__ = ["physics_refine"]
+__all__ = ["physics_refine", "refine_retrieval"]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -136,3 +140,32 @@ def physics_refine(
             "distance": params["d"],
             "residual": torch.sqrt(torch.mean(r * r, dim=(1, 2, 3))),
         }
+
+
+def refine_retrieval(
+    out: Dict[str, torch.Tensor],
+    holo: torch.Tensor,
+    physics: PhysicsConfig,
+    *,
+    steps: int,
+    device: str | torch.device = "cuda",
+) -> Dict[str, torch.Tensor]:
+    """``out`` (a ``retrieval_step`` result) with ``amp_foc`` and ``ph_foc``
+    refined jointly against the intensity holograms ``holo`` (``steps`` Adam
+    steps from ``distance_pred``), as the JAX package's server and stream do.
+
+    The refine differentiates, so it leaves any inference mode and enables
+    autograd here: an HTTP handler thread or a caller under
+    ``torch.inference_mode`` would otherwise run it without gradients.
+    """
+    with torch.inference_mode(False), torch.enable_grad():
+        refined = physics_refine(
+            out["amp_foc"],
+            out["ph_foc"],
+            out["distance_pred"],
+            torch.sqrt(torch.as_tensor(holo, dtype=torch.float32, device=device)),
+            physics,
+            steps=steps,
+            device=device,
+        )
+    return dict(out, amp_foc=refined["amp"], ph_foc=refined["phase"])

@@ -1,0 +1,266 @@
+"""HTTP serving daemon around the retrieval pipeline (port of the JAX
+package's ``pipelines/server.py``).
+
+A long-lived process that keeps the weights resident on the card and
+answers retrieval requests over the wire:
+
+* **Fixed batch shape.** Requests of any size are padded up or chunked to
+  the service's batch size (``run_chunked``), so every call of the net sees
+  one shape.
+* **One device owner.** A single lock serializes the card's work; the
+  stdlib ``ThreadingHTTPServer`` handles sockets and (de)serialization
+  concurrently outside the lock.
+* **npz in, npz out.** Requests carry a ``holo`` array ``(B, 1, H, W)`` of
+  intensity holograms; responses carry ``_RESULT_KEYS``, fp32.
+
+The refocus distance is the style plane's, kept as a host float: the
+refocus is the constant-transfer-function kernel (``asm_const``). With
+``refine_steps`` every chunk is refined against its holograms
+(``pipelines.refine.refine_retrieval``), whose steps launch ``asm_dynamic``.
+
+Endpoints:
+  GET  /healthz   -> JSON status (device, batch shape, quant/refine config)
+  POST /retrieve  -> npz body with ``holo`` -> npz response
+
+Start from the CLI::
+
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve \\
+      --checkpoint checkpoints/fast --port 8100
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from style_transfer_based_holographic_imaging_tpu_torch.config import ExperimentConfig
+from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
+    StyleTransferNet,
+    style_stats_nchw,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.field_retrieval import (
+    make_retrieval_fn,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import refine_retrieval
+
+__all__ = [
+    "RetrievalService",
+    "serve_forever",
+    "retrieve_remote",
+    "run_chunked",
+]
+
+# The serving result contract: the response's keys (and, with the export
+# slice, a frozen artifact's outputs).
+_RESULT_KEYS = ("amp_foc", "ph_foc", "distance_pred", "amp_field", "ph_field")
+
+
+def run_chunked(
+    holo: np.ndarray, batch_size: int, image_size: int, run
+) -> Dict[str, np.ndarray]:
+    """Validate (B, 1, S, S) holograms, pad the ragged tail with its last
+    frame, run ``run`` per batch-size chunk, trim and concatenate.
+
+    The one batching contract of the server (and of the export slice's
+    artifacts), so the padding and chunking seen over the wire cannot
+    diverge.
+    """
+    holo = np.asarray(holo, np.float32)
+    if holo.ndim == 3:
+        holo = holo[:, None]
+    if (
+        holo.ndim != 4
+        or holo.shape[0] == 0
+        or holo.shape[1] != 1
+        or holo.shape[2:] != (image_size, image_size)
+    ):
+        raise ValueError(
+            f"expected (B>=1, 1, {image_size}, {image_size}) intensity "
+            f"holograms, got {holo.shape}"
+        )
+    n = holo.shape[0]
+    outs = []
+    for lo in range(0, n, batch_size):
+        chunk = holo[lo : lo + batch_size]
+        pad = batch_size - chunk.shape[0]
+        if pad:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)], axis=0)
+        out = run(chunk)
+        if pad:
+            out = {k: v[: batch_size - pad] for k, v in out.items()}
+        outs.append(out)
+    if len(outs) == 1:
+        return outs[0]
+    return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
+
+
+class RetrievalService:
+    """The net's weights on the card and the retrieval fn, behind a lock.
+
+    ``net`` is moved to ``device``. ``dtype`` is the fp net's compute dtype
+    (fp32 when None; ``cli serve`` passes bf16 by default); ``quant_scales``
+    serves the int8 path instead, in ``dtype`` (bf16 when None).
+    """
+
+    def __init__(
+        self,
+        net: StyleTransferNet,
+        style_vector: Tuple[np.ndarray, np.ndarray],
+        config: Optional[ExperimentConfig] = None,
+        *,
+        batch_size: int = 32,
+        dtype: Optional[torch.dtype] = None,
+        quant_scales: Optional[Dict[str, float]] = None,
+        refine_steps: int = 0,
+        device: str | torch.device = "cuda",
+    ):
+        self.config = config or ExperimentConfig()
+        self.device = torch.device(device)
+        self.batch_size = int(batch_size)
+        self.image_size = int(self.config.model.image_size)
+        self.refine_steps = int(refine_steps)
+        self.quantized = quant_scales is not None
+        self.net = net.to(self.device).eval()
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._sm = style_stats_nchw(torch.as_tensor(np.asarray(style_vector[0]), **f32))
+        self._ss = style_stats_nchw(torch.as_tensor(np.asarray(style_vector[1]), **f32))
+        # millimetres -> network units, as the training synthesizer does. A
+        # host float: the refocus takes the constant-distance kernel.
+        physics = self.config.physics
+        self._d_style = float(physics.to_network_units(self.config.data.style_distances[0]))
+        self._fn = make_retrieval_fn(
+            self.config.physics,
+            alpha=self.config.eval.alpha,
+            dtype=dtype,
+            quant_scales=quant_scales,
+            device=self.device,
+        )
+        self._lock = threading.Lock()
+        self.n_served = 0
+
+    def warmup(self) -> None:
+        """One batch before the first request (cuDNN's algorithm choice,
+        the kernels' build)."""
+        self.retrieve(np.full((self.batch_size, 1, self.image_size, self.image_size), 0.1, np.float32))
+        self.n_served = 0
+
+    def _run_one(self, holo_np: np.ndarray) -> Dict[str, np.ndarray]:
+        holo = torch.from_numpy(holo_np).to(self.device)
+        out = self._fn(self.net, holo, self._sm, self._ss, self._d_style)
+        if self.refine_steps:
+            out = refine_retrieval(
+                out, holo, self.config.physics, steps=self.refine_steps, device=self.device)
+        return {k: out[k].detach().float().cpu().numpy() for k in _RESULT_KEYS if k in out}
+
+    def retrieve(self, holo: np.ndarray) -> Dict[str, np.ndarray]:
+        """Run retrieval on (B, 1, H, W) intensity holograms, any B >= 1.
+
+        Chunks and pads to the batch size; returns host fp32 arrays trimmed
+        back to the request's B.
+        """
+        with self._lock:
+            out = run_chunked(holo, self.batch_size, self.image_size, self._run_one)
+            self.n_served += next(iter(out.values())).shape[0]
+        return out
+
+    def health(self) -> Dict:
+        return {
+            "status": "ok",
+            "device": (
+                torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
+            ),
+            "batch_size": self.batch_size,
+            "image_size": self.image_size,
+            "width": self.net.width,
+            "quantized": self.quantized,
+            "refine_steps": self.refine_steps,
+            "n_devices": 1,
+            "n_served": self.n_served,
+        }
+
+
+def _make_handler(service: RetrievalService):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+        def _send(self, code: int, body: bytes, ctype: str):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _send_json(self, code: int, obj):
+            self._send(code, json.dumps(obj).encode(), "application/json")
+
+        def do_GET(self):
+            if self.path in ("/healthz", "/health", "/"):
+                self._send_json(200, service.health())
+            else:
+                self._send_json(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/retrieve":
+                self._send_json(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                with np.load(io.BytesIO(self.rfile.read(length))) as z:
+                    if "holo" not in z:
+                        raise ValueError("npz must contain a 'holo' array")
+                    holo = z["holo"]
+            except Exception as e:  # noqa: BLE001 — malformed request
+                self._send_json(400, {"error": str(e)})
+                return
+            try:
+                out = service.retrieve(holo)
+            except ValueError as e:  # bad shapes etc. — client's fault
+                self._send_json(400, {"error": str(e)})
+                return
+            except Exception as e:  # noqa: BLE001 — server-side failure
+                self._send_json(500, {"error": str(e)})
+                return
+            buf = io.BytesIO()
+            np.savez_compressed(buf, **out)
+            self._send(200, buf.getvalue(), "application/octet-stream")
+
+    return Handler
+
+
+def retrieve_remote(url: str, holo: np.ndarray, timeout: float = 120.0) -> Dict[str, np.ndarray]:
+    """Client helper: POST (B, 1, H, W) intensity holograms to a running
+    ``cli serve`` daemon and return its arrays. Stdlib and numpy only."""
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.savez_compressed(buf, holo=np.asarray(holo, np.float32))
+    req = urllib.request.Request(url.rstrip("/") + "/retrieve", data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return dict(np.load(io.BytesIO(r.read())))
+
+
+def serve_forever(
+    service: RetrievalService,
+    host: str = "127.0.0.1",
+    port: int = 8100,
+    *,
+    ready: Optional[Callable[[ThreadingHTTPServer], None]] = None,
+) -> ThreadingHTTPServer:
+    """Start the HTTP server (blocking); returns only after ``shutdown()``.
+
+    ``ready(httpd)`` is called once the socket is bound, before the first
+    request is taken: with port 0 the port is ``httpd.server_address[1]``,
+    and ``httpd.shutdown()`` from another thread ends the serve.
+    """
+    with ThreadingHTTPServer((host, port), _make_handler(service)) as httpd:
+        if ready is not None:
+            ready(httpd)
+        httpd.serve_forever()
+    return httpd

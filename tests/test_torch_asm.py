@@ -6,8 +6,15 @@
 * each CUDA kernel's plain PyTorch version against the Pallas kernel run in
   interpret mode, in each ``set_dft_precision`` mode, with the JAX package's
   budgets (tests/test_pallas.py): 1e-5 highest, 1e-4 high, 2e-2 bf16;
-* routing on CPU tensors.
+* routing on CPU tensors, and the process-wide backend (``set_asm_backend``,
+  ``STHI_ASM_BACKEND``) that ``cli --asm-backend`` sets: a per-call backend
+  overrides it, a global ``cuda`` means what a per-call ``cuda`` means, and
+  an unknown name raises from the call and from the variable at import.
 """
+
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -296,3 +303,65 @@ def test_scratch_holds_both_layouts(shape):
         assert t.dtype == torch.float32 and t.shape[0] == b
         assert t[0].numel() * 4 >= need_bytes[i // 2]
     assert yre.shape == yim.shape == (b, h, w)
+
+
+@pytest.fixture
+def global_backend():
+    yield torch_asm.set_asm_backend
+    torch_asm.set_asm_backend("auto")
+
+
+def _recording_cuda(monkeypatch):
+    calls = []
+    real = asm_cuda.propagate_cuda
+
+    def record(*a, **kw):
+        calls.append(a[1])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(asm_cuda, "propagate_cuda", record)
+    return calls
+
+
+@pytest.mark.parametrize("name,per_call,routed", [
+    ("cuda", None, True), ("torch", None, False), ("auto", None, False),
+    ("torch", "cuda", True), ("cuda", "torch", False),
+])
+def test_global_backend_and_the_per_call_override(global_backend, monkeypatch, name, per_call, routed):
+    # On a CPU tensor "cuda" runs the kernels' plain versions; "auto" is torch.fft there.
+    calls = _recording_cuda(monkeypatch)
+    global_backend(name)
+    f = torch.from_numpy(_field())
+    got = torch_asm.propagate(f, 5e-4, backend=per_call, **KW)
+    assert len(calls) == int(routed)
+    exact = torch_asm.propagate_torch(f, 5e-4, **KW)
+    if routed:
+        assert _rel(got.numpy(), exact.numpy()) < BUDGETS["high"]
+    else:
+        assert torch.equal(got, exact)
+
+
+def test_global_cuda_on_an_ineligible_shape_raises(global_backend):
+    global_backend("cuda")
+    with pytest.raises(ValueError, match="backend='cuda' requires"):
+        torch_asm.propagate(torch.zeros(1, 1, 31, 31, dtype=torch.complex64), 3e-4, **KW)
+
+
+def test_an_unknown_global_backend_raises(global_backend):
+    for name in ("xla", "pallas", "CUDA"):
+        with pytest.raises(ValueError):
+            global_backend(name)
+    assert torch_asm._BACKEND == "auto"
+
+
+@pytest.mark.parametrize("value,ok", [("torch", True), ("CUDA", True), ("pallas", False)])
+def test_the_environment_variable_at_import(value, ok):
+    code = ("from style_transfer_based_holographic_imaging_tpu_torch.ops import asm; "
+            "print(asm._BACKEND)")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=repo, env={**os.environ, "STHI_ASM_BACKEND": value})
+    if ok:
+        assert res.returncode == 0 and res.stdout.split()[-1] == value.lower()
+    else:
+        assert res.returncode != 0 and "STHI_ASM_BACKEND" in res.stderr

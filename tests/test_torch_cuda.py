@@ -17,9 +17,18 @@ For the conv stacks, the halo tail and the border ring: 1e-5 in fp32
 1e-2 in bf16, where a value that the other summation order puts on a bf16
 rounding boundary rounds the other way (2^-8 relative) and carries into the
 next layer.
+The served path: the HTTP service's answers equal the direct retrieval call
+on the same padded batches, bit for bit (same shapes, same kernels); the
+pinned prefetch gives the same batches, in order, as a blocking
+``.to("cuda")``, re-raises its producer's error and lets the producer go
+when the consumer stops early.
 """
 
 import math
+import os
+import threading
+
+import numpy as np
 
 import pytest
 import torch
@@ -30,10 +39,22 @@ from style_transfer_based_holographic_imaging_tpu_torch.kernels import (
     halo_conv,
     reflect_border,
 )
-from style_transfer_based_holographic_imaging_tpu_torch.config import PhysicsConfig
+from style_transfer_based_holographic_imaging_tpu_torch.config import ExperimentConfig, PhysicsConfig
+from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite, prefetch_to_device
+from style_transfer_based_holographic_imaging_tpu_torch.interop import (
+    load_release_weights,
+    load_style_vector,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
 from style_transfer_based_holographic_imaging_tpu_torch.ops import asm as torch_asm
 from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward
-from style_transfer_based_holographic_imaging_tpu_torch.pipelines import physics_refine
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (
+    RetrievalService,
+    make_retrieval_fn,
+    physics_refine,
+    retrieve_remote,
+    serve_forever,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.train import tv_loss
 
 pytestmark = pytest.mark.cuda
@@ -396,3 +417,76 @@ def test_halo_tail_on_the_card_matches_the_cpu(card, dtype, c):
         assert float((card_ref - ref).abs().max()) <= 4 * _bf16_ulp(ref)
     else:
         assert _rel(card_ref, ref) < CONV_BUDGETS[dtype]
+
+
+FAST = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints", "fast")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_served_answer_equals_the_direct_call(card, dtype):
+    with open(os.path.join(FAST, "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    net = StyleTransferNet.from_state_dict(load_release_weights(os.path.join(FAST, "torch_weights.npz")),
+                                           cfg.model.width)
+    style = load_style_vector(os.path.join(FAST, "style_vector.npz"))
+    service = RetrievalService(net, style, cfg, batch_size=4, dtype=dtype, device=card)
+    holo = load_golden_suite().content_holo[10]  # 5: one batch of 4, one padded
+    box, bound = {}, threading.Event()
+    t = threading.Thread(target=serve_forever, args=(service, "127.0.0.1", 0), daemon=True,
+                         kwargs={"ready": lambda h: (box.setdefault("h", h), bound.set())})
+    t.start()
+    try:
+        assert bound.wait(30)
+        asm_cuda.reset_launches()
+        got = retrieve_remote(f"http://127.0.0.1:{box['h'].server_address[1]}", holo)
+        assert asm_cuda.LAUNCHES["asm_const"] == 2
+    finally:
+        if "h" in box:
+            box["h"].shutdown()
+        t.join(30)
+    fn = make_retrieval_fn(cfg.physics, dtype=dtype, device=card)
+    d_style = float(cfg.physics.to_network_units(cfg.data.style_distances[0]))
+    padded = np.concatenate([holo, np.repeat(holo[-1:], 3, axis=0)])
+    for lo in (0, 4):
+        want = fn(net, padded[lo:lo + 4], *style, d_style)
+        n = min(4, len(holo) - lo)
+        for k, v in want.items():
+            assert np.array_equal(got[k][lo:lo + n], v[:n].cpu().numpy()), k
+
+
+def test_pinned_prefetch_gives_the_blocking_copies(card):
+    g = torch.Generator().manual_seed(0)
+    src = [{"holo": torch.rand(8, 1, 128, 128, generator=g).numpy(), "i": np.array([i])}
+           for i in range(12)]
+    seen = []
+    for batch, s in zip(prefetch_to_device(iter(src), device=card), src):
+        assert batch["holo"].is_cuda
+        want = torch.from_numpy(s["holo"]).to(card)
+        # work on the consumer stream between batches, as the stream's net does
+        for _ in range(3):
+            want = want * 1.0
+        assert torch.equal(batch["holo"], want)
+        seen.append(int(batch["i"][0]))
+    assert seen == list(range(12))
+
+
+def test_pinned_prefetch_reraises_and_lets_the_producer_go(card):
+    def failing():
+        yield {"holo": np.zeros((2, 1, 16, 16), np.float32)}
+        raise OSError("disk gone")
+
+    it = prefetch_to_device(failing(), device=card)
+    assert next(it)["holo"].is_cuda
+    with pytest.raises(OSError, match="disk gone"):
+        next(it)
+
+    before = threading.active_count()
+    endless = ({"holo": np.zeros((2, 1, 16, 16), np.float32)} for _ in iter(int, 1))
+    it = prefetch_to_device(endless, device=card)
+    next(it)
+    it.close()
+    deadline = 50
+    while threading.active_count() > before and deadline:
+        threading.Event().wait(0.1)
+        deadline -= 1
+    assert threading.active_count() <= before
