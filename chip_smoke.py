@@ -117,6 +117,22 @@ line naming it and ends the run with exit code 3; nothing hangs):
    pinned prefetch in batches of 8 (the last batch of 4 padded and
    trimmed), equal bit for bit to the per-batch retrieval, one
    ``asm_const`` a batch; frames/s.
+13. ``train``  — training at the flagship's configuration
+   (``checkpoints/config.json``: width 1.0, 128², B = 32, adversarial 1.0,
+   EMA 0.999, clip 1.0, the encoder trained) on the golden train-split
+   digits: (a) ``train()`` from ``init_net_params`` seed 0, TRAIN_STEPS
+   steps, every loss term finite, ``asm_dynamic`` launched twice a step
+   (the synthesis) with the counts reset just before and read just after;
+   (b) one step at B = 2 on the card against the CPU from the same params
+   and batch (aux, the gradients of both against a float64 evaluation on
+   the card, the optimizer given the same gradients, the states); (c) the
+   same draws rendered through ``asm_dynamic`` and ``torch.fft``; (d) the
+   ``cuda`` ring's gradients (``BorderLines``) at each of a step's reflect
+   convs against ``matpad`` and ``einsum``, and one train step with the
+   ring against ``matpad`` (38 ring launches); (e) TRAIN_LEARN_STEPS steps
+   on a fixed batch at lr 1e-4, the total loss must fall, timed with CUDA
+   events and split into synthesis, generator forward+backward,
+   optimizer+EMA and the discriminator's step, with the peak memory.
 
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -130,6 +146,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import importlib.util
 import io
 import json
@@ -137,6 +154,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -148,9 +166,11 @@ sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.func import functional_call  # noqa: E402
 
 from style_transfer_based_holographic_imaging_tpu_torch import ExperimentConfig  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.data import synth  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.interop import (  # noqa: E402
     load_release_weights,
     load_style_vector,
@@ -166,7 +186,11 @@ from style_transfer_based_holographic_imaging_tpu_torch.kernels import (  # noqa
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models import (  # noqa: E402
     ConvTranspose2x2,
+    PatchDiscriminator,
+    ReflectConv,
     StyleTransferNet,
+    init_net_params,
+    init_params,
     set_reflect_backend,
     split_style_vector,
 )
@@ -188,6 +212,19 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # no
     retrieve_remote,
     serve_forever,
     stream_retrieval,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.train import (  # noqa: E402
+    TrainStep,
+    create_train_state,
+    generator_loss_fn,
+    lsgan_d_loss,
+    train,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.train.state import (  # noqa: E402
+    apply_disc_gradients,
+    apply_gradients,
+    make_disc_optimizer,
+    make_optimizer,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.utils.bench import (  # noqa: E402
     head_library,
@@ -213,7 +250,7 @@ TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
     "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
-    "stream": 30.0, "timing": 120.0,
+    "stream": 30.0, "train": 90.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
 # (B, H, W) where the ASM kernels' tensor-core tiles are ragged: the card
@@ -296,6 +333,40 @@ SERVE_REFINE_STEPS = 10
 SERVE_TIMED = 10
 WIRE_TIMED = 3
 STREAM_BATCH = 8
+# The train phase: steps of train() at the flagship's batch; the one-step
+# comparisons' batch; the fixed-batch run at TRAIN_LEARN_LR, its first
+# TRAIN_WARMUP steps untimed. Tolerances: aux terms 1e-4 relative. The
+# generator's gradients of each fp32 path (card, CPU, the cuda ring) within
+# TRAIN_GRAD_TOL of each leaf's max of a float64 evaluation of the same loss
+# on the card: at width 1.0 the early encoder weights' gradients sum some
+# 32,000 products of a large mean and a zero-mean factor, and the nearly
+# empty decoder leaves at init cancel; both fp32 paths read up to 1.1e-3
+# there (card 1.0e-3, CPU 8.8e-4, the ring 1.1e-3; NVIDIA H100 80GB HBM3,
+# 700 W, this phase's functions). The optimizer and EMA given the same
+# gradients: TRAIN_OPT_TOL of each leaf's max. The whole step's params, EMA
+# and discriminator: every element within TRAIN_LEAF_TOL of its leaf's max
+# plus the spread of Adam's first step, lr g/(|g| + eps), over the
+# gradients within the leaf's measured fp32 noise (the two runs' largest
+# distance from the float64 gradient) of the float64 one: nothing where
+# |g| is far above the noise and eps, up to 2 lr where the noise reaches
+# zero and the sign is free. The synthesis's
+# holograms: the `high` kernel's 1e-4 of max, the phase objects 1e-5 (fp32
+# pow, cos/sin and the warp's gather weights on each device; read 3.9e-6);
+# the ring's gradients 1e-4.
+TRAIN_STEPS = 20
+TRAIN_CMP_BATCH = 2
+TRAIN_LEARN_STEPS = 30
+TRAIN_LEARN_LR = 1e-4
+TRAIN_WARMUP = 5
+TRAIN_AUX_RTOL = 1e-4
+TRAIN_GRAD_TOL = 2e-3
+TRAIN_OPT_TOL = 1e-6
+TRAIN_LEAF_TOL = 1e-4
+ADAM_EPS = 1e-8
+SYNTH_TOL = 1e-4
+SYNTH_OBJECT_TOL = 1e-5
+RING_GRAD_TOL = 1e-4
+RING_GRAD_BATCH = 2
 # Peaks by card (NVIDIA data sheets, dense): fp32 FLOP/s outside the tensor
 # cores, bf16 FLOP/s on the tensor cores, bytes/s.
 PEAKS = {
@@ -1376,6 +1447,320 @@ def conv_bounds(peak_flops, peak_bytes, b: int):
     return out
 
 
+def _train_cfg(cfg, **data_kw):
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data_kw))
+
+
+def drive_train(cfg, bank, device):
+    """(a) ``train()`` from ``init_net_params`` seed 0 for TRAIN_STEPS steps
+    at the flagship's configuration, its metrics read back from
+    ``train_metrics.jsonl``: every loss term finite, ``asm_dynamic``
+    launched twice a step (the synthesis) and nothing else."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        run = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, log_every=1, checkpoint_every=0, checkpoint_dir=tmp))
+        asm_cuda.reset_launches()
+        reflect_border.reset_launches()
+        t0 = time.monotonic()
+        train(run, bank=bank, iterations=TRAIN_STEPS, device=device, log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {**asm_cuda.LAUNCHES, **reflect_border.LAUNCHES}
+        with open(os.path.join(tmp, "train_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    if len(rows) != TRAIN_STEPS or not all(math.isfinite(v) for r in rows for v in r.values()):
+        _die(f"train(): {len(rows)} metric rows, want {TRAIN_STEPS}, all finite: {rows[-1:]}", 1)
+    want = {"asm_dynamic": 2 * TRAIN_STEPS, "asm_const": 0, "border_lines": 0}
+    if launches != want:
+        _die(f"train() launched {launches}, want {want}", 1)
+    return {"steps": TRAIN_STEPS, "batch": cfg.data.batch_size, "seconds": seconds,
+            "launches": launches, "first": rows[0], "last": rows[-1]}
+
+
+def adam_first_step_spread(g: torch.Tensor, noise: float, lr: float) -> torch.Tensor:
+    """The widest gap between Adam's first steps, lr g'/(|g'| + eps), of two
+    gradients g' within ``noise`` of ``g``: 2 lr where that interval holds
+    zero (the sign is free), 0 where ``g`` is exactly zero (no product
+    reaches the element on either device)."""
+    hi, lo = g.abs() + noise, g.abs() - noise
+    spread = lr * ADAM_EPS * (hi - lo) / ((hi + ADAM_EPS) * (lo + ADAM_EPS))
+    return torch.where(g == 0, torch.zeros_like(g), torch.where(lo > 0, spread, torch.full_like(g, 2 * lr)))
+
+
+def compare_states(got, want, anchor: dict, paths: tuple, train_cfg, label: str) -> dict:
+    """After one step: every element of params, EMA and discriminator within
+    TRAIN_LEAF_TOL of its leaf's max plus the spread of Adam's first step
+    (``adam_first_step_spread``) over the gradients that the leaf's fp32
+    noise allows around the float64 one in ``anchor``: the noise is the two
+    compared runs' largest distance from it (``paths``, from
+    ``step_gradients``), both scaled by the clip of the anchor's global
+    norm; the EMA moves by (1 - decay) of the params. The worst element's
+    share of its bound in each group, and the count of elements whose
+    spread exceeds TRAIN_LEAF_TOL of their leaf's max."""
+    out = {}
+    for group in ("params", "ema_params", "disc_params"):
+        a, b = getattr(got, group), getattr(want, group)
+        if b is None:
+            continue
+        grad_group = "disc_params" if group == "disc_params" else "params"
+        clip = 1.0
+        if grad_group == "params" and train_cfg.grad_clip_norm:
+            norm = math.sqrt(sum(float((g * g).sum()) for g in anchor["params"].values()))
+            clip = min(1.0, train_cfg.grad_clip_norm / norm)
+        scale = 1.0 - train_cfg.ema_decay if group == "ema_params" else 1.0
+        shares, loose, total = {}, 0, 0
+        for k in b:
+            g = anchor[grad_group][k]
+            noise = max(float((path[grad_group][k] - g).abs().max()) for path in paths)
+            spread = scale * adam_first_step_spread(clip * g, clip * noise, train_cfg.lr)
+            floor = TRAIN_LEAF_TOL * float(b[k].abs().max())
+            d = (a[k].cpu().double() - b[k].cpu().double()).abs()
+            shares[k] = float((d / (floor + spread).clamp_min(1e-30)).max())
+            loose += int((spread > floor).sum())
+            total += g.numel()
+        worst = max(shares, key=shares.get)
+        out[group] = {"worst_share_of_bound": shares[worst], "leaf": worst, "elements": total,
+                      "elements_beyond_leaf_tol": loose}
+        if not shares[worst] < 1.0:
+            _die(f"{label}: {group} off: {json.dumps(out[group])}", 1)
+    return out
+
+
+def compare_aux(got, want, label: str) -> float:
+    worst = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-30) for k in want)
+    if set(got) != set(want) or not worst < TRAIN_AUX_RTOL:
+        _die(f"{label}: aux off by {worst:.3e} relative: {got} vs {want}", 1)
+    return worst
+
+
+def step_gradients(cfg, params, disc_params, batch, device, dtype=torch.float32, backend="auto"):
+    """The gradients of one step (every leaf, float64 on the CPU) at
+    ``params`` on ``batch``: ``generator_loss_fn``'s under "params", and
+    under "disc_params" the discriminator's LSGAN loss at ``disc_params`` on
+    the style holograms and the forward's detached ``g_t``, as
+    ``TrainStep.disc_step`` takes it. The net and discriminator in
+    ``dtype``, the distance head in fp32, the reflect ``backend``."""
+    set_reflect_backend(backend)
+    net = StyleTransferNet(width=cfg.model.width).to(device, dtype)
+    net.distance_g.float()
+    disc = PatchDiscriminator(image_size=cfg.data.image_size).to(device, dtype)
+    p = {k: (v.float() if k.startswith("distance_g.") else v.to(dtype)).to(device).requires_grad_()
+         for k, v in params.items()}
+    b = {k: v.to(device, dtype) for k, v in batch.items()}
+    dp = {k: v.to(device, dtype) for k, v in disc_params.items()}
+    loss, aux = generator_loss_fn(p, b, net=net, physics=cfg.physics, cfg=cfg.train, disc=disc,
+                                  disc_params=dp)
+    grads = torch.autograd.grad(loss, list(p.values()))
+    dp = {k: v.requires_grad_() for k, v in dp.items()}
+    real, _ = functional_call(disc, dp, (b["style_holo"],))
+    fake, _ = functional_call(disc, dp, (aux["g_t"].detach(),))
+    dgrads = torch.autograd.grad(lsgan_d_loss(real, fake), list(dp.values()), allow_unused=True)
+    set_reflect_backend("auto")
+    host = lambda g, like: (torch.zeros_like(like) if g is None else g).detach().double().cpu()  # noqa: E731
+    return {"params": {k: host(g, p[k]) for k, g in zip(p, grads)},
+            "disc_params": {k: host(g, dp[k]) for k, g in zip(dp, dgrads)}}
+
+
+def check_gradients(paths: dict, anchor: dict, label: str) -> dict:
+    """Each fp32 path's gradients, the generator's and the discriminator's,
+    within TRAIN_GRAD_TOL of each leaf's max of the float64 ``anchor``; the
+    worst leaf of each."""
+    out = {}
+    for name, grads in paths.items():
+        errs = {k: float((grads[group][k] - want[k]).abs().max() / want[k].abs().max())
+                for group, want in anchor.items() for k in want if float(want[k].abs().max()) > 0}
+        worst = max(errs, key=errs.get)
+        out[name] = {"worst": errs[worst], "leaf": worst}
+        if not errs[worst] < TRAIN_GRAD_TOL:
+            _die(f"{label}: {name} gradients off the float64 ones: {json.dumps(out[name])}", 1)
+    return out
+
+
+def optimizer_card_vs_cpu(cfg, params, disc_params, grads, device) -> dict:
+    """The optimizer, EMA and the discriminator's Adam on the card and on the
+    CPU, given the same gradients (``grads``, and seeded ones for the
+    discriminator): every leaf within TRAIN_OPT_TOL of its max."""
+    g = torch.Generator().manual_seed(5)
+    dgrads = {k: torch.randn(v.shape, generator=g) for k, v in disc_params.items()}
+    states = {}
+    for dev in ("cpu", device):
+        state = create_train_state(params, cfg.train, disc_params=disc_params, device=dev)
+        apply_gradients(state, {k: grads[k].float().to(dev) for k in state.opt_state.mu},
+                        make_optimizer(cfg.train), cfg.train.ema_decay)
+        apply_disc_gradients(state, {k: v.to(dev) for k, v in dgrads.items()}, make_disc_optimizer(cfg.train))
+        states[str(dev)] = state
+    out = {}
+    for group in ("params", "ema_params", "disc_params"):
+        a, b = getattr(states[str(device)], group), getattr(states["cpu"], group)
+        out[group] = max(float((a[k].cpu() - b[k]).abs().max() / b[k].abs().max()) for k in b)
+        if not out[group] < TRAIN_OPT_TOL:
+            _die(f"the optimizer on the card and the CPU differ: {out}", 1)
+    return out
+
+
+def one_train_step(cfg, params, disc_params, batch, device, backend="auto"):
+    """One TrainStep of the flagship's config from ``params`` on ``batch``
+    on ``device`` with the reflect ``backend``: (state, aux)."""
+    set_reflect_backend(backend)
+    net = StyleTransferNet(width=cfg.model.width).to(device)
+    disc = PatchDiscriminator(image_size=cfg.data.image_size).to(device)
+    state = create_train_state(params, cfg.train, disc_params=disc_params, device=device)
+    state, aux = TrainStep(net, cfg.physics, cfg.train, disc=disc)(
+        state, {k: v.to(device) for k, v in batch.items()})
+    set_reflect_backend("auto")
+    return state, {k: float(v) for k, v in aux.items()}
+
+
+def train_step_card_vs_cpu(cfg, bank, device):
+    """(b) One step at width 1.0, B = TRAIN_CMP_BATCH, on the card and on the
+    CPU from the same params and the same CPU-synthesized batch: aux, the
+    gradients of both against a float64 evaluation on the card, the
+    optimizer given the same gradients, and the updated states."""
+    small = _train_cfg(cfg, batch_size=TRAIN_CMP_BATCH)
+    params = init_net_params(torch.Generator().manual_seed(0), width=cfg.model.width)
+    disc_params = init_params(PatchDiscriminator(image_size=cfg.data.image_size),
+                              torch.Generator().manual_seed(1))
+    batch = synth.synth_batch(0, torch.as_tensor(bank), small.data, cfg.physics, return_gt=True)
+    t0 = time.monotonic()
+    cpu_state, cpu_aux = one_train_step(small, params, disc_params, batch, "cpu")
+    cpu_seconds = time.monotonic() - t0
+    card_state, card_aux = one_train_step(small, params, disc_params, batch, device)
+    grads = {"card": step_gradients(small, params, disc_params, batch, device),
+             "cpu": step_gradients(small, params, disc_params, batch, "cpu")}
+    anchor = step_gradients(small, params, disc_params, batch, device, torch.float64)
+    return {"B": TRAIN_CMP_BATCH, "cpu_step_seconds": cpu_seconds,
+            "aux_rel_err": compare_aux(card_aux, cpu_aux, "one train step, card against CPU"),
+            "gradients_vs_float64": check_gradients(grads, anchor, "one train step"),
+            "optimizer_rel_err": optimizer_card_vs_cpu(small, params, disc_params, grads["cpu"]["params"],
+                                                       device),
+            "states": compare_states(card_state, cpu_state, anchor, (grads["card"], grads["cpu"]),
+                                     cfg.train, "one train step, card against CPU"),
+            "params": params, "disc_params": disc_params, "batch": batch, "anchor": anchor,
+            "card_grads": grads["card"]}
+
+
+def synthesis_card_vs_cpu(cfg, bank, device):
+    """(c) The same draws rendered on the card (``asm_dynamic``) and on the
+    CPU (``torch.fft``), B = the flagship's."""
+    draws = synth.draw_batch(synth.stream_generator(cfg.data.seed, 0), len(bank), cfg.data)
+    asm_cuda.reset_launches()
+    card = synth.render_batch(torch.as_tensor(bank, device=device), draws, cfg.data, cfg.physics,
+                              return_gt=True)
+    torch.cuda.synchronize()
+    launches = dict(asm_cuda.LAUNCHES)
+    cpu = synth.render_batch(torch.as_tensor(bank), draws, cfg.data, cfg.physics, return_gt=True)
+    if launches["asm_dynamic"] != 2:
+        _die(f"the synthesis launched {launches}, want 2 asm_dynamic", 1)
+    errs = {k: rel_err(card[k].cpu(), cpu[k]) for k in cpu}
+    tols = {k: SYNTH_TOL if k.endswith("holo") else SYNTH_OBJECT_TOL for k in cpu}
+    if not all(errs[k] < tols[k] for k in errs):
+        _die(f"the synthesis on the card and the CPU differ: {errs}", 1)
+    return {"B": cfg.data.batch_size, "launches": launches, "rel_err": errs, "tol": tols}
+
+
+def ring_gradients(layers, device, b: int = RING_GRAD_BATCH) -> list:
+    """(d) The gradients of a ReflectConv through the ``cuda`` ring (the
+    kernel forward, ``BorderLines``' plain VJP backward) against ``matpad``
+    and ``einsum`` autograd, x, weight and bias, at each distinct layer
+    ``(C, H, W, O)`` of a step, on the card."""
+    rows = []
+    for c, h, w, o in sorted(set(map(tuple, layers))):
+        g = torch.Generator().manual_seed(c + h + o)
+        conv = ReflectConv(c, o)
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * (2.0 / (9 * c)) ** 0.5)
+            conv.bias.copy_(0.1 * torch.randn(o, generator=g))
+        conv = conv.to(device)
+        x = torch.randn(b, c, h, w, generator=g).to(device).requires_grad_()
+        up = torch.randn(b, o, h, w, generator=g).to(device)
+        grads = {}
+        for backend in ("cuda", "matpad", "einsum"):
+            set_reflect_backend(backend)
+            y = conv(x)
+            grads[backend] = torch.autograd.grad((y * up).sum(), (x, conv.weight, conv.bias))
+        set_reflect_backend("auto")
+        torch.cuda.synchronize()
+        row = {"layer": [c, h, w, o], "B": b, "tol": RING_GRAD_TOL}
+        for ref in ("matpad", "einsum"):
+            row[f"rel_err_vs_{ref}"] = max(rel_err(a, r) for a, r in zip(grads["cuda"], grads[ref]))
+        rows.append(row)
+        if not all(row[f"rel_err_vs_{ref}"] < RING_GRAD_TOL for ref in ("matpad", "einsum")):
+            _die(f"the ring's gradient check failed: {json.dumps(row)}", 1)
+    return rows
+
+
+def train_step_ring(cfg, cmp, device) -> dict:
+    """(d) One train step with the ``cuda`` ring against ``matpad``, on the
+    card, from (b)'s params and batch: aux, the ring path's gradients against
+    (b)'s float64 ones, the updated states; the ring's launches in the step."""
+    small = _train_cfg(cfg, batch_size=TRAIN_CMP_BATCH)
+    args = (small, cmp["params"], cmp["disc_params"], cmp["batch"], device)
+    reflect_border.reset_launches()
+    ring_state, ring_aux = one_train_step(*args, backend="cuda")
+    torch.cuda.synchronize()
+    launches = reflect_border.LAUNCHES["border_lines"]
+    matpad_state, matpad_aux = one_train_step(*args, backend="matpad")
+    # three encoders (9 reflect convs each) and one decoder (11) a forward
+    if launches != 3 * 9 + 11:
+        _die(f"the cuda-ring train step launched the ring {launches} times, want 38", 1)
+    ring_grads = step_gradients(*args, backend="cuda")
+    return {"B": TRAIN_CMP_BATCH, "launches": launches,
+            "aux_rel_err": compare_aux(ring_aux, matpad_aux, "train step, cuda ring against matpad"),
+            "gradients_vs_float64": check_gradients({"cuda_ring": ring_grads}, cmp["anchor"],
+                                                    "train step, cuda ring"),
+            "states": compare_states(ring_state, matpad_state, cmp["anchor"], (ring_grads, cmp["card_grads"]),
+                                     cfg.train, "train step, cuda ring against matpad")}
+
+
+def learn_and_time(cfg, bank, device) -> dict:
+    """(e) TRAIN_LEARN_STEPS steps on one fixed batch at TRAIN_LEARN_LR from
+    ``init_net_params`` seed 0: the total loss must fall. Each step also
+    synthesizes a fresh batch, as ``train()`` does; CUDA events split it
+    into synthesis, generator forward+backward, optimizer+EMA and the
+    discriminator's step (medians after TRAIN_WARMUP steps), with the peak
+    of allocated memory."""
+    run = dataclasses.replace(cfg.train, lr=TRAIN_LEARN_LR)
+    bank_dev = torch.as_tensor(bank, device=device)
+    params = init_net_params(torch.Generator().manual_seed(0), width=cfg.model.width)
+    disc_params = init_params(PatchDiscriminator(image_size=cfg.data.image_size),
+                              torch.Generator().manual_seed(1))
+    state = create_train_state(params, run, disc_params=disc_params, device=device)
+    step = TrainStep(StyleTransferNet(width=cfg.model.width).to(device), cfg.physics, run,
+                     disc=PatchDiscriminator(image_size=cfg.data.image_size).to(device))
+    batch = synth.synth_batch(0, bank_dev, cfg.data, cfg.physics, return_gt=True)
+    parts = ("synthesis", "generator", "optimizer_ema", "discriminator")
+    times = {k: [] for k in parts + ("step",)}
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_LEARN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
+        ev[0].record()
+        synth.synth_batch(i + 1, bank_dev, cfg.data, cfg.physics, return_gt=True)
+        ev[1].record()
+        grads, aux = step.generator_grads(state, batch)
+        ev[2].record()
+        step.apply(state, grads)
+        ev[3].record()
+        step.disc_step(state, aux.pop("g_t"), batch["style_holo"])
+        ev[4].record()
+        ev[4].synchronize()
+        losses.append(float(aux["loss_total"]))
+        if i >= TRAIN_WARMUP:
+            for k, a, z in zip(parts, ev, ev[1:]):
+                times[k].append(a.elapsed_time(z))
+            times["step"].append(ev[0].elapsed_time(ev[-1]))
+    peak = torch.cuda.max_memory_allocated()
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (all(math.isfinite(v) for v in losses) and tail < head):
+        _die(f"the total loss did not fall over {TRAIN_LEARN_STEPS} steps: {losses}", 1)
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    return {"B": cfg.data.batch_size, "lr": TRAIN_LEARN_LR, "loss_total_first5": head,
+            "loss_total_last5": tail, "losses": losses, "ms": ms,
+            "images_per_s": cfg.data.batch_size / ms["step"] * 1e3,
+            "max_memory_allocated_bytes": peak, "timed_steps": len(times["step"])}
+
+
 def main() -> int:
     with Phase("device") as phase:
         smi = phase_device()
@@ -1554,6 +1939,21 @@ def main() -> int:
     with Phase("stream") as phase:
         stream_info = drive_stream(fast_net, fast_cfg, fast_style, goldens, dev, smi)
         phase.info = stream_info
+
+    with Phase("train") as phase:
+        train_bank = synth.golden_digit_bank(goldens, subset=synth.GOLDEN_TRAIN_DIGITS)
+        train_run = drive_train(cfg, train_bank, dev)
+        train_cmp = train_step_card_vs_cpu(cfg, train_bank, dev)
+        train_synth = synthesis_card_vs_cpu(cfg, train_bank, dev)
+        ring_grad_rows = ring_gradients(ring_layers_of_step, dev)
+        train_ring = train_step_ring(cfg, train_cmp, dev)
+        train_timing = learn_and_time(cfg, train_bank, dev)
+        for k in ("params", "disc_params", "batch", "anchor", "card_grads"):
+            train_cmp.pop(k)
+        phase.info = {"card": smi, "width": cfg.model.width, "run": train_run,
+                      "card_vs_cpu_step": train_cmp, "synthesis_card_vs_cpu": train_synth,
+                      "ring_gradients": ring_grad_rows, "ring_train_step": train_ring,
+                      "learn_and_time": train_timing}
 
     with Phase("timing") as phase:
         kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
@@ -1751,7 +2151,8 @@ def main() -> int:
             "library_ms": timings[k][2],
             "launches_by_path": {"slice": launches[k], "refine": refine_launches[k],
                                  "golden": golden_launches[k], "serve": serve_info["launches"][k],
-                                 "stream": stream_info["launches"][k]},
+                                 "stream": stream_info["launches"][k],
+                                 "train": train_run["launches"][k]},
             **({"refine_step_ms": refine_timing["step_ms"],
                 "refine_step_ms_torch_backend": refine_timing["torch_backend_step_ms"],
                 "refine_forward_share": refine_timing["forward_kernel_share"]}
@@ -1768,7 +2169,10 @@ def main() -> int:
     extras = {
         "border_lines": {"step_fp32_ms": ring_step["step_ms"],
                          "step_fp32_bound_ms": ring_step["step_bound_ms"],
-                         "step_convs": ring_step["convs"]},
+                         "step_convs": ring_step["convs"],
+                         "launches_by_path": {"reflect": launches["border_lines"],
+                                              "train_step_cuda_ring": train_ring["launches"]},
+                         "gradient_max_rel_err": max(r["rel_err_vs_matpad"] for r in ring_grad_rows)},
     }
     for k, (source, where, dt) in conv_meta.items():
         mine = [r for r in conv_rows if r["kernel"] == k]

@@ -12,15 +12,18 @@ Subpackages mirror the JAX package's layout:
                   unwrap, AdaIN statistics.
 - ``kernels``   — the hand-written CUDA kernels, their wrappers and plain
                   PyTorch versions.
-- ``models``    — ``nn.Module`` networks: VGG encoder, decoder, distance MLP.
+- ``models``    — ``nn.Module`` networks: VGG encoder, decoder, distance MLP,
+                  the PatchGAN discriminator.
 - ``pipelines`` — eager end-to-end field retrieval, the golden-suite eval,
                   physics refinement, autofocus, the HTTP server and the
                   stream.
-- ``data``      — the golden suite and the host -> card prefetch.
-- ``train``     — losses (so far the TV regulariser refinement uses).
+- ``data``      — the golden suite, hologram synthesis and the digit banks,
+                  the host -> card prefetch.
+- ``train``     — the generator's and discriminator's losses, the optax-faithful
+                  train state (Adam, clip, EMA, checkpoints) and the loop.
 - ``interop``   — carrying JAX parameter trees (as numpy) across, and a
                   release's weights from its numpy file.
-- ``cli``       — ``python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve``.
+- ``cli``       — ``python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve|train``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 
@@ -39,6 +42,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.config import (
     ExperimentConfig,
     ModelConfig,
     PhysicsConfig,
+    TrainConfig,
 )
 
 torch.backends.cudnn.allow_tf32 = False
@@ -52,5 +56,6 @@ __all__ = [
     "DataConfig",
     "EvalConfig",
     "ExperimentConfig",
+    "TrainConfig",
     "__version__",
 ]

@@ -1,14 +1,22 @@
 """Command-line interface of the port (the JAX package's ``cli.py``, its
-``serve`` subcommand so far):
+``serve`` and ``train`` subcommands so far):
 
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve \\
       --checkpoint checkpoints/fast [--quant] [--refine STEPS] [--fp32] [--cpu]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli train \\
+      --iterations 6000 --bank golden --adv-weight 1 --ema-decay 0.999 --train-encoder [--cpu]
 
 The weights come from the release's ``torch_weights.npz`` (written by
 ``scripts/port_golden_eval.py --export-npz``), in the checkpoint directory or
 its parent; the run config, style vector and int8 scales are looked up
 beside the checkpoint in the JAX package's order. Without ``--cpu`` it runs
 on the card, and raises when there is none.
+
+``train`` takes the JAX package's flags that the port implements; argparse
+refuses the others (mixed precision, the measured-tree sampler, the domain
+presets and their banks, the device mesh, TensorBoard) with a message and
+exit code 2. Its snapshots are the port's ``iter_<n>/state.pt``
+(``train/state.py``).
 """
 
 from __future__ import annotations
@@ -212,6 +220,79 @@ def cmd_serve(args):
     return 0
 
 
+def cmd_train(args):
+    """Train on synthesized holograms on the card (``train/loop.py``)."""
+    from style_transfer_based_holographic_imaging_tpu_torch.config import DataConfig, TrainConfig
+    from style_transfer_based_holographic_imaging_tpu_torch.data import synth
+    from style_transfer_based_holographic_imaging_tpu_torch.models import set_reflect_backend
+    from style_transfer_based_holographic_imaging_tpu_torch.train import (
+        latest_snapshot,
+        restore_checkpoint,
+        save_checkpoint,
+        train,
+    )
+
+    device = _setup_backend(args)
+    set_reflect_backend(args.reflect_backend)
+    cfg = ExperimentConfig(
+        model=ModelConfig(with_phase_decoder=args.phase_decoder),
+        data=DataConfig(batch_size=args.batch_size, image_size=args.image_size, seed=args.seed,
+                        rotate_deg=args.rotate_deg, elastic_px=args.elastic_px),
+        train=TrainConfig(
+            iterations=args.iterations, lr=args.lr, checkpoint_every=args.checkpoint_every,
+            checkpoint_dir=args.checkpoint_dir, freeze_encoder=not args.train_encoder,
+            supervised_weight=args.supervised_weight, physics_weight=args.physics_weight,
+            adv_weight=args.adv_weight, perceptual_weight=args.perceptual_weight,
+            distance_weight=args.distance_weight, content_weight=args.content_weight,
+            style_weight=args.style_weight, log_every=args.log_every,
+            grad_accum=args.grad_accum, ema_decay=args.ema_decay,
+        ),
+    )
+    if args.digit_bank:
+        if not os.path.isfile(args.digit_bank):
+            print(f"--digit-bank {args.digit_bank}: file not found", file=sys.stderr)
+            return 1
+        bank = synth.load_digit_bank(args.digit_bank)
+    elif args.bank == "sklearn":
+        bank = synth.sklearn_digit_bank()
+    else:
+        from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite
+
+        goldens = load_golden_suite()
+        bank = (synth.golden_digit_bank(goldens, subset=synth.GOLDEN_TRAIN_DIGITS)
+                if args.bank == "golden" else synth.mixed_digit_bank(goldens))
+
+    state = None
+    if args.resume:
+        snap = latest_snapshot(cfg.train.checkpoint_dir)
+        if snap:
+            from style_transfer_based_holographic_imaging_tpu_torch.models import (
+                PatchDiscriminator,
+                init_net_params,
+                init_params,
+            )
+            from style_transfer_based_holographic_imaging_tpu_torch.train import create_train_state
+
+            # train()'s fresh-start construction, discriminator included, as
+            # the structure to restore into.
+            params = init_net_params(torch.Generator().manual_seed(args.seed),
+                                     with_phase_decoder=cfg.model.with_phase_decoder)
+            disc_params = None
+            if cfg.train.adv_weight:
+                disc_params = init_params(PatchDiscriminator(image_size=cfg.data.image_size),
+                                          torch.Generator().manual_seed(args.seed + 1))
+            state = restore_checkpoint(
+                snap, create_train_state(params, cfg.train, disc_params=disc_params, device=device))
+            print(f"resumed from {os.path.basename(snap)} (step {state.step})", file=sys.stderr)
+        else:
+            print("no iter_* snapshot found; training from scratch", file=sys.stderr)
+
+    state = train(cfg, bank=bank, state=state, device=device)
+    path = save_checkpoint(state, cfg.train.checkpoint_dir)
+    print(f"final checkpoint: {path}")
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="style_transfer_based_holographic_imaging_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -227,6 +308,43 @@ def main(argv=None):
     p.add_argument("--fp32", dest="bf16", action="store_false")
     p.add_argument("--refine", type=int, default=0, metavar="STEPS")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("train", help="train on synthesized holograms")
+    _add_common(p)
+    p.add_argument("--iterations", type=int, default=20000)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-every", type=int, default=5000)
+    p.add_argument("--checkpoint-dir", type=str, default="checkpoints")
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--train-encoder", action="store_true")
+    p.add_argument("--phase-decoder", action="store_true",
+                   help="train a dedicated decoder_ph head for the phase plane")
+    p.add_argument("--rotate-deg", type=float, default=0.0,
+                   help="per-sample rotation (+/- deg) of the synthesized phase objects")
+    p.add_argument("--elastic-px", type=float, default=0.0,
+                   help="elastic-warp amplitude in pixels")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest iter_* snapshot in --checkpoint-dir")
+    p.add_argument("--supervised-weight", type=float, default=10.0)
+    p.add_argument("--physics-weight", type=float, default=10.0)
+    p.add_argument("--adv-weight", type=float, default=0.0)
+    p.add_argument("--perceptual-weight", type=float, default=0.0)
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="micro-batches accumulated per optimizer step")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="Polyak-average the generator into the snapshot's ema_params (0 = off)")
+    p.add_argument("--distance-weight", type=float, default=20.0)
+    p.add_argument("--content-weight", type=float, default=0.1)
+    p.add_argument("--style-weight", type=float, default=0.1)
+    p.add_argument("--digit-bank", type=str, default=None,
+                   help=".npz with a (N,64,64) 'bank' array or an MNIST export (overrides --bank)")
+    p.add_argument("--bank", default="mixed", choices=("sklearn", "golden", "mixed"),
+                   help="phase-object bank (sklearn and mixed need scikit-learn)")
+    p.add_argument("--reflect-backend", choices=("auto", "matpad", "einsum", "cuda"), default="auto",
+                   help="border handling of the reflect convs (cuda: the ring kernel)")
+    p.set_defaults(fn=cmd_train)
 
     args = parser.parse_args(argv)
     return args.fn(args)

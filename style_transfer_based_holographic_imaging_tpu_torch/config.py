@@ -1,12 +1,9 @@
-"""Configuration of the port: the subset of the JAX package's config tree
-that field retrieval reads.
+"""Configuration of the port: the JAX package's config tree.
 
 Mirrors ``config.py`` of the JAX package (``PhysicsConfig``, ``ModelConfig``,
-``EvalConfig``, ``ExperimentConfig.from_json``, and of ``DataConfig`` the
-object amplitude that refinement takes as known and the style plane that
-the server and the stream refocus from). ``from_json`` parses a
-run's full ``config.json`` and ignores what this port does not use yet (the
-rest of ``data``, ``train``).
+``DataConfig``, ``TrainConfig``, ``EvalConfig``, ``ExperimentConfig.from_json``),
+so a run's ``config.json`` loads whole. ``from_json`` ignores keys the port
+does not know.
 """
 
 from __future__ import annotations
@@ -56,10 +53,55 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The data section's fields that the port reads."""
+    """Hologram synthesis (``data/synth.py``) and the served style plane."""
 
+    batch_size: int = 8
+    image_size: int = 128
+    digit_pad: int = 32                 # 64x64 object padded to 128x128
     amplitude: float = 0.6              # constant object amplitude
     style_distances: Sequence[float] = (0.2,)  # mm; the first is the served style plane
+    content_distances: Sequence[float] = (0.4, 0.5, 0.6, 0.7, 0.8)
+    translate_frac: float = 0.1         # random-translate augmentation
+    flip: bool = True
+    # Per-sample phase scale and gamma jitter of the phase object;
+    # (1.0, 1.0) ranges disable it.
+    phase_scale_range: Sequence[float] = (0.7, 1.0)
+    gamma_range: Sequence[float] = (0.6, 1.6)
+    # Shape-diversity warp of the phase object: rotation (+/- deg) and a
+    # smooth elastic displacement (px) on an elastic_cells^2 control grid;
+    # 0 = off.
+    rotate_deg: float = 0.0
+    elastic_px: float = 0.0
+    elastic_cells: int = 8
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization settings (``train/``), the JAX package's fields."""
+
+    iterations: int = 20000              # the schedule's total length
+    lr: float = 1e-4
+    lr_decay: float = 5e-5
+    lr_schedule: str = "invtime"         # 'invtime' lr/(1+decay*count) | 'cosine' to 2 %
+    grad_clip_norm: float = 1.0          # global-norm clip of the gradient; 0 disables
+    content_weight: float = 1.0
+    style_weight: float = 10.0
+    physics_weight: float = 10.0
+    distance_weight: float = 10.0
+    supervised_weight: float = 10.0      # direct field supervision (synthetic data)
+    perceptual_weight: float = 0.0       # encoder-tap loss on the style-plane phase
+    tv_weight: float = 0.0
+    adv_weight: float = 0.0              # PatchGAN adversarial term
+    use_dropout: bool = False            # train-mode Dropout(0.5) in the distance head;
+                                         # off: a stochastic head scores far worse in
+                                         # eval mode on the same data (JAX package)
+    checkpoint_every: int = 5000
+    log_every: int = 100
+    checkpoint_dir: str = "checkpoints"
+    grad_accum: int = 1                 # micro-batches a step, gradients averaged
+    freeze_encoder: bool = True         # the encoder gets no update
+    ema_decay: float = 0.0              # Polyak averaging of the generator; 0 = off
 
 
 @dataclass(frozen=True)
@@ -77,13 +119,17 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """Top-level bundle: the physics, model, data and eval sections of a run."""
+    """Top-level bundle, one per run."""
 
     name: str = "mnist"
     physics: PhysicsConfig = field(default_factory=PhysicsConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "ExperimentConfig":
@@ -104,6 +150,7 @@ class ExperimentConfig:
             physics=build(PhysicsConfig, d.get("physics")),
             model=build(ModelConfig, d.get("model")),
             data=build(DataConfig, d.get("data")),
+            train=build(TrainConfig, d.get("train")),
             eval=build(EvalConfig, d.get("eval")),
         )
 

@@ -1,0 +1,338 @@
+"""Hologram synthesis: the training data path (port of the JAX ``data/synth.py``).
+
+A batch is made in two parts:
+
+* **draws** (``draw_batch``): the digit indices, flips, shifts, phase scale
+  and gamma, distance indices, rotation angles and elastic flow cells, taken
+  on the host from a ``torch.Generator``. ``InfiniteHologramSampler`` seeds
+  one from ``(data.seed, iteration)``, so iteration N is the same on the CPU
+  and on the card, and after a resume. The JAX package draws the same
+  quantities with ``jax.random``; the two streams differ, and the tests hand
+  the JAX package's draws to ``render_batch``.
+* **render** (``render_batch``): everything else, on the bank's device:
+  gamma and scale, the rotation and elastic warp (``jax.image.resize``'s
+  cubic weights, ``map_coordinates``' bilinear gather with zero fill, both
+  written out), the zero pad, flip and roll, and the holograms. They are
+  ``ops.holo.holo_forward`` with a per-sample distance, under ``no_grad``:
+  on a CUDA tensor the ``asm_dynamic`` kernel, two launches a batch (style
+  and content), as the JAX package's synthesis takes its Pallas kernel on
+  the TPU.
+
+Digit banks: ``golden_digit_bank`` (the golden suite's GT digits),
+``load_digit_bank`` (an ``.npz``), and ``sklearn_digit_bank`` /
+``mixed_digit_bank``, which need ``sklearn`` and raise where it is absent.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from style_transfer_based_holographic_imaging_tpu_torch.config import DataConfig, PhysicsConfig
+from style_transfer_based_holographic_imaging_tpu_torch.data.goldens import GOLDEN_HELDOUT_BATCHES
+from style_transfer_based_holographic_imaging_tpu_torch.ops.holo import holo_forward
+
+__all__ = [
+    "load_digit_bank",
+    "sklearn_digit_bank",
+    "golden_digit_bank",
+    "mixed_digit_bank",
+    "GOLDEN_TRAIN_DIGITS",
+    "GOLDEN_HELDOUT_BATCHES",
+    "resize_cubic",
+    "draw_batch",
+    "render_batch",
+    "synth_batch",
+    "stream_generator",
+    "InfiniteHologramSampler",
+]
+
+# The golden suite's first 50 digits train; batches 10..19 stay unseen.
+GOLDEN_TRAIN_DIGITS = slice(0, 50)
+
+_F32 = np.float32
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic kernel, a = -0.5, in fp32 (``jax.image``'s)."""
+    out = ((_F32(1.5) * x - _F32(2.5)) * x) * x + _F32(1.0)
+    out = np.where(x >= 1.0, ((_F32(-0.5) * x + _F32(2.5)) * x - _F32(4.0)) * x + _F32(2.0), out)
+    return np.where(x >= 2.0, _F32(0.0), out).astype(_F32)
+
+
+def cubic_weights(in_size: int, out_size: int) -> np.ndarray:
+    """``(in_size, out_size)`` fp32 weights of ``jax.image.resize(...,
+    "cubic")`` along one axis (``compute_weight_mat``, antialiased): the
+    kernel widened by the inverse scale when shrinking, each output's taps
+    renormalized to sum to one, outputs whose sample lies outside the input
+    zeroed."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = _F32(max(inv_scale, 1.0))
+    sample = (np.arange(out_size, dtype=_F32) + _F32(0.5)) * _F32(inv_scale) - _F32(0.0) - _F32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=_F32)[:, None]) / kernel_scale
+    w = _keys_cubic(x)
+    total = w.sum(axis=0, keepdims=True, dtype=_F32)
+    w = np.where(np.abs(total) > _F32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, _F32(1.0)), _F32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, _F32(0.0)).astype(_F32)
+
+
+def resize_cubic(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """``jax.image.resize(x, (..., height, width), "cubic")`` of the last two
+    axes, fp32, on ``x``'s device. An axis whose size stays is left alone."""
+    x = x.float()
+    h, w = x.shape[-2], x.shape[-1]
+    if h != height:
+        wh = torch.from_numpy(cubic_weights(h, height)).to(x.device)
+        x = torch.einsum("...hw,ho->...ow", x, wh)
+    if w != width:
+        ww = torch.from_numpy(cubic_weights(w, width)).to(x.device)
+        x = torch.einsum("...hw,wo->...ho", x, ww)
+    return x
+
+
+def _gather2d(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
+    """``img[b, iy, ix]`` per sample, indices clamped into range."""
+    b, h, w = img.shape
+    flat = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+    return img.reshape(b, h * w).gather(1, flat.reshape(b, -1)).reshape(iy.shape)
+
+
+def _map_coordinates_linear(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.ndimage.map_coordinates(img, [ys, xs], order=1,
+    mode="constant", cval=0)`` per sample: the four taps in JAX's order,
+    each weight ``wy * wx`` times the tap (0 outside the image), summed in
+    order, with integer index math."""
+    h, w = img.shape[-2], img.shape[-1]
+    nodes = []
+    for coord in (ys, xs):
+        lower = torch.floor(coord)
+        upper_w = coord - lower
+        idx = lower.to(torch.int64)
+        nodes.append(((idx, 1.0 - upper_w), (idx + 1, upper_w)))
+    out = None
+    for iy, wy in nodes[0]:
+        for ix, wx in nodes[1]:
+            valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+            tap = torch.where(valid, _gather2d(img, iy, ix), 0.0)
+            term = (wy * wx) * tap
+            out = term if out is None else out + term
+    return out
+
+
+def _shape_warp(img: torch.Tensor, angle_deg: torch.Tensor, flow: Optional[torch.Tensor],
+                elastic_px: float) -> torch.Tensor:
+    """Per-sample rotation by ``angle_deg`` ``(B,)`` and elastic warp by
+    ``flow`` ``(B, 2, cells, cells)`` upsampled cubically, of ``(B, S, S)``
+    phase objects: one bilinear gather at the displaced inverse-rotation
+    grid (the JAX ``_shape_warp``)."""
+    b, s = img.shape[0], img.shape[-1]
+    grid = torch.arange(s, dtype=torch.float32, device=img.device)
+    yy, xx = torch.meshgrid(grid, grid, indexing="ij")
+    c = (s - 1) / 2.0
+    theta = (angle_deg * float(_F32(np.pi / 180.0))).reshape(b, 1, 1)
+    cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+    ys = (yy - c) * cos_t - (xx - c) * sin_t + c
+    xs = (yy - c) * sin_t + (xx - c) * cos_t + c
+    if elastic_px:
+        up = resize_cubic(flow, s, s) * elastic_px
+        ys = ys + up[:, 0]
+        xs = xs + up[:, 1]
+    return _map_coordinates_linear(img, ys, xs)
+
+
+def _augment(img: torch.Tensor, flips: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """Per-sample vertical/horizontal flip (``flips`` ``(B, 2)``) and
+    ``jnp.roll`` by ``shifts`` ``(B, 2)`` of ``(B, S, S)`` images: a
+    zero-filled translate, since the digit sits in a zero margin at least
+    the largest shift wide."""
+    b, s = img.shape[0], img.shape[-1]
+    img = torch.where(flips[:, 0].reshape(b, 1, 1), img.flip(-2), img)
+    img = torch.where(flips[:, 1].reshape(b, 1, 1), img.flip(-1), img)
+    ar = torch.arange(s, device=img.device)
+    iy = (ar[None, :] - shifts[:, 0:1]) % s                      # out[y] = in[y - shift]
+    ix = (ar[None, :] - shifts[:, 1:2]) % s
+    img = img.gather(1, iy[:, :, None].expand(b, s, s))
+    return img.gather(2, ix[:, None, :].expand(b, s, s))
+
+
+def _warps(data: DataConfig) -> bool:
+    return bool(data.rotate_deg or data.elastic_px)
+
+
+def draw_batch(generator: torch.Generator, n_bank: int, data: DataConfig) -> Dict[str, torch.Tensor]:
+    """The host draws of one batch from ``generator``, CPU tensors (the first
+    axis of the pairs: 0 style, 1 content): ``idx`` ``(2, B)``, ``flips``
+    ``(2, B, 2)`` bool, ``shifts`` ``(2, B, 2)``, ``pscale``/``pgamma``
+    ``(2, B)``, ``d_idx`` ``(2, B)`` into the style/content distance lists,
+    and with the warp on ``angle`` ``(2, B)`` in degrees and, with
+    ``elastic_px``, ``flow`` ``(2, B, 2, cells, cells)``."""
+    b = data.batch_size
+    max_shift = int(round(data.translate_frac * data.image_size))
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator)
+
+    d_idx = torch.stack([
+        torch.randint(0, len(data.style_distances), (b,), generator=generator),
+        torch.randint(0, len(data.content_distances), (b,), generator=generator),
+    ])
+    draws = {
+        "idx": torch.randint(0, n_bank, (2, b), generator=generator),
+        "flips": torch.rand((2, b, 2), generator=generator) < 0.5,
+        "shifts": torch.randint(-max_shift, max_shift + 1, (2, b, 2), generator=generator),
+        "pscale": uniform((2, b), *data.phase_scale_range),
+        "pgamma": uniform((2, b), *data.gamma_range),
+        "d_idx": d_idx,
+    }
+    if _warps(data):
+        draws["angle"] = uniform((2, b), -data.rotate_deg, data.rotate_deg)
+        if data.elastic_px:
+            c = data.elastic_cells
+            draws["flow"] = torch.randn((2, b, 2, c, c), generator=generator)
+    return draws
+
+
+def render_batch(bank: torch.Tensor, draws: Dict[str, torch.Tensor], data: DataConfig,
+                 physics: PhysicsConfig, *, return_gt: bool = False) -> Dict[str, torch.Tensor]:
+    """One batch of (style, content) hologram pairs from ``draws``, on
+    ``bank``'s device. NCHW: ``style_holo``/``content_holo`` sqrt-intensity
+    ``(B, 1, S, S)``, ``distance_style``/``distance_content`` ``(B, 1, 1, 1)``
+    in network units; with ``return_gt`` also ``amplitude``,
+    ``phase_style`` and ``phase_content``."""
+    dev = bank.device
+    d = {k: v.to(dev) for k, v in draws.items()}
+    b = d["idx"].shape[1]
+    size, pad = data.image_size, data.digit_pad
+
+    def units(values, idx):
+        mm = torch.tensor(tuple(values), dtype=torch.float32, device=dev)[idx]
+        return physics.to_network_units(mm).reshape(b, 1, 1, 1)
+
+    d_style = units(data.style_distances, d["d_idx"][0])
+    d_content = units(data.content_distances, d["d_idx"][1])
+
+    flips = d["flips"] if data.flip else torch.zeros_like(d["flips"])
+    phases = []
+    for i in range(2):
+        digits = torch.pow(bank[d["idx"][i]].clamp(0.0, 1.0), d["pgamma"][i].reshape(b, 1, 1))
+        digits = digits * d["pscale"][i].reshape(b, 1, 1)
+        pad_rem = pad
+        if _warps(data):
+            m = min(8, pad)          # warp the digit tile plus a margin, not the canvas
+            pad_rem = pad - m
+            flow = d["flow"][i] if data.elastic_px else None
+            digits = _shape_warp(torch.nn.functional.pad(digits, (m, m, m, m)), d["angle"][i],
+                                 flow, data.elastic_px)
+        canvas = torch.nn.functional.pad(digits, (pad_rem,) * 4)
+        phases.append(_augment(canvas, flips[i], d["shifts"][i])[:, None])
+    phase_s, phase_c = phases
+    amplitude = torch.full((b, 1, size, size), data.amplitude, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        style_holo = holo_forward(amplitude, phase_s, d_style, physics)
+        content_holo = holo_forward(amplitude, phase_c, d_content, physics)
+    out = {
+        "style_holo": torch.sqrt(style_holo),
+        "content_holo": torch.sqrt(content_holo),
+        "distance_style": d_style,
+        "distance_content": d_content,
+    }
+    if return_gt:
+        out.update(amplitude=amplitude, phase_style=phase_s, phase_content=phase_c)
+    return out
+
+
+def stream_generator(seed: int, iteration: int) -> torch.Generator:
+    """The host generator of batch ``iteration`` of the stream seeded
+    ``seed``."""
+    state = np.random.SeedSequence([seed, iteration]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+def synth_batch(iteration: int, bank: torch.Tensor, data: DataConfig, physics: PhysicsConfig,
+                *, return_gt: bool = False) -> Dict[str, torch.Tensor]:
+    """Batch ``iteration`` of the stream seeded ``data.seed``."""
+    draws = draw_batch(stream_generator(data.seed, iteration), bank.shape[0], data)
+    return render_batch(bank, draws, data, physics, return_gt=return_gt)
+
+
+class InfiniteHologramSampler:
+    """Endless reproducible batch stream: batch N comes from the generator
+    of ``(data.seed, N)``, the same across runs, devices and resumes."""
+
+    def __init__(self, bank, data: DataConfig, physics: PhysicsConfig, *,
+                 return_gt: bool = False, start_iteration: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.bank = torch.as_tensor(np.asarray(bank, np.float32), device=device)
+        self.data = data
+        self.physics = physics
+        self.return_gt = return_gt
+        self.iteration = start_iteration
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        batch = synth_batch(self.iteration, self.bank, self.data, self.physics,
+                            return_gt=self.return_gt)
+        self.iteration += 1
+        return batch
+
+
+def load_digit_bank(path: str, size: int = 64) -> np.ndarray:
+    """An offline digit bank from an ``.npz``: ``bank`` (N, H, W) in [0, 1],
+    or an MNIST export under ``x_train``/``train_images``/``images``/
+    ``arr_0`` (uint8 scaled to [0, 1]), cubic-resized to ``size``."""
+    with np.load(path) as z:
+        keys = ("bank", "x_train", "train_images", "images", "arr_0")
+        key = next((k for k in keys if k in z.files), None)
+        if key is None:
+            raise ValueError(f"{path}: no digit array found (expected one of {keys}; got {z.files})")
+        arr = np.asarray(z[key])
+    if arr.ndim == 4 and arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    if arr.ndim != 3:
+        raise ValueError(f"{path}[{key}]: expected (N, H, W), got {arr.shape}")
+    arr = arr.astype(np.float32)
+    if arr.max() > 1.5:
+        arr = arr / 255.0
+    if arr.shape[1:] != (size, size):
+        arr = resize_cubic(torch.from_numpy(arr), size, size).numpy()
+    return np.clip(arr, 0.0, 1.0)
+
+
+def sklearn_digit_bank(size: int = 64) -> np.ndarray:
+    """(1797, size, size) digits in [0, 1] from sklearn's 8x8 ``load_digits``,
+    cubic-resized. Raises where ``sklearn`` is not installed."""
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError as e:
+        raise ImportError(
+            "the sklearn digit bank needs scikit-learn, which is not installed; "
+            "use --bank golden or --digit-bank FILE.npz"
+        ) from e
+    imgs = load_digits().images.astype(np.float32) / 16.0
+    return np.clip(resize_cubic(torch.from_numpy(imgs), size, size).numpy(), 0.0, 1.0)
+
+
+def golden_digit_bank(goldens, size: int = 64, subset: Optional[slice] = None) -> np.ndarray:
+    """The golden suite's GT phases (100 digits at 128x128) centre-cropped to
+    their 64x64 active area; ``subset`` selects digits (``GOLDEN_TRAIN_DIGITS``
+    keeps the held-out half out of training)."""
+    ph = goldens.gt_phase.reshape((-1,) + goldens.gt_phase.shape[2:])[:, 0]
+    if subset is not None:
+        ph = ph[subset]
+    crop = np.ascontiguousarray(ph[:, 32:96, 32:96], dtype=np.float32)
+    if size != 64:
+        crop = resize_cubic(torch.from_numpy(crop), size, size).numpy()
+    return np.clip(crop, 0.0, 1.0).astype(np.float32)
+
+
+def mixed_digit_bank(goldens, *, oversample: int = 36, size: int = 64) -> np.ndarray:
+    """sklearn digits + the golden train-split digits oversampled to about
+    half the stream (``cli train --bank mixed``). Needs ``sklearn``."""
+    golden = golden_digit_bank(goldens, size=size, subset=GOLDEN_TRAIN_DIGITS)
+    return np.concatenate([sklearn_digit_bank(size), np.tile(golden, (oversample, 1, 1))], axis=0)

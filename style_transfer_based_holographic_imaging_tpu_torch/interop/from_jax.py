@@ -13,7 +13,15 @@ of an orbax restore of ``checkpoints/release``, with or without its outer
 * biases stay as they are.
 
 A ``decoder_ph`` subtree, when present, converts like ``decoder``; build the
-net with ``has_phase_decoder(tree)``.
+net with ``has_phase_decoder(tree)``. The ``PatchDiscriminator``'s tree
+converts the same way (its convs are HWIO kernels).
+
+``convert_train_state`` carries a JAX ``TrainState`` across (its fields as
+numpy arrays, the optax states as their namedtuples or as nested dicts), so
+that a JAX run resumes in the port: the step, the params, the optax Adam
+moments and count (under ``clip_by_global_norm``, and under
+``multi_transform`` with a frozen encoder, whose masked leaves carry no
+moments), the discriminator's params and Adam state, and the EMA.
 
 ``load_release_weights`` reads a release's state dict back from the numpy
 file that ``scripts/port_golden_eval.py --export-npz`` writes (one fp32
@@ -28,7 +36,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["convert_params", "load_release_weights", "load_style_vector"]
+__all__ = ["convert_params", "convert_train_state", "load_release_weights", "load_style_vector"]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -36,6 +44,8 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
         path = prefix + (str(key),)
         if isinstance(value, Mapping):
             yield from _flatten(value, path)
+        elif value is None or (isinstance(value, tuple) and not value):
+            continue                                  # optax's MaskedNode: no moment
         else:
             yield path, np.asarray(value)
 
@@ -65,6 +75,59 @@ def convert_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     for path, value in _flatten(inner):
         name, arr = _convert_leaf(path, value)
         state[name] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    return state
+
+
+def _adam_state(node):
+    """``(count, mu, nu)`` of the first optax ``ScaleByAdamState`` in an
+    optimizer state (namedtuples, tuples or dicts)."""
+    if isinstance(node, Mapping):
+        if "mu" in node and "nu" in node:
+            return node["count"], node["mu"], node["nu"]
+        children = node.values()
+    elif hasattr(node, "mu") and hasattr(node, "nu"):
+        return node.count, node.mu, node.nu
+    elif isinstance(node, (tuple, list)):
+        children = node
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _convert_adam(opt_state, device):
+    from style_transfer_based_holographic_imaging_tpu_torch.train.state import AdamState
+
+    found = _adam_state(opt_state)
+    if found is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+    count, mu, nu = found
+    to = lambda t: {k: v.to(device) for k, v in convert_params(t).items()}  # noqa: E731
+    return AdamState(int(np.asarray(count)), to(mu), to(nu))
+
+
+def convert_train_state(tree: Mapping, *, device: str | torch.device = "cuda"):
+    """A JAX ``TrainState`` (``step``, ``params``, ``opt_state`` and, where
+    the run had them, ``disc_params``, ``disc_opt_state``, ``ema_params``;
+    numpy leaves, e.g. ``jax.device_get`` of the state's fields) -> the
+    port's ``train.TrainState`` on ``device`` (the card unless asked for the
+    CPU, as ``train()``)."""
+    from style_transfer_based_holographic_imaging_tpu_torch.train.state import TrainState
+
+    def params(t):
+        return {k: v.to(device) for k, v in convert_params(t).items()}
+
+    get = tree.get if isinstance(tree, Mapping) else lambda k: getattr(tree, k, None)
+    state = TrainState(step=int(np.asarray(get("step"))), params=params(get("params")),
+                       opt_state=_convert_adam(get("opt_state"), device))
+    if get("disc_params") is not None:
+        state.disc_params = params(get("disc_params"))
+        state.disc_opt_state = _convert_adam(get("disc_opt_state"), device)
+    if get("ema_params") is not None:
+        state.ema_params = params(get("ema_params"))
     return state
 
 

@@ -23,6 +23,13 @@ rows; the corners equal the rows' values), in the input type.
 ``border_lines_einsum``; the wrapper takes it only for a tensor on the CPU.
 On a CUDA tensor it launches the kernel or raises, for any H (the JAX
 kernel's even-H restriction is a TPU block-layout limit).
+
+The gradient: ``BorderLines`` is a ``torch.autograd.Function`` whose forward
+is the wrapper and whose backward is the VJP of ``border_lines_plain``,
+the counterpart of the JAX package's ``_border_lines_cvjp`` (the Pallas
+forward paired with the einsum's VJP). The kernel is called through
+``ctypes`` and has no ``grad_fn`` of its own: ``ReflectConv`` reaches it
+only through the Function. Under ``torch.no_grad`` it saves nothing.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
 
-__all__ = ["border_lines", "border_lines_plain", "ring_taps", "LAUNCHES", "reset_launches"]
+__all__ = ["border_lines", "border_lines_plain", "BorderLines", "ring_taps", "LAUNCHES",
+           "reset_launches"]
 
 # Launches of the kernel by its wrapper.
 LAUNCHES = {"border_lines": 0}
@@ -129,3 +137,27 @@ def border_lines(x: torch.Tensor, k: torch.Tensor):
     _build.check_status(status, "border_lines")
     LAUNCHES["border_lines"] += 1
     return rows, cols
+
+
+class BorderLines(torch.autograd.Function):
+    """``border_lines`` with gradients for ``x`` and ``k``: ``apply(x, k)``.
+    The backward recomputes ``border_lines_plain`` under autograd and takes
+    its VJP, as the JAX ``custom_vjp`` takes ``jax.vjp`` of the einsum."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, k)
+        return border_lines(x, k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_rows, g_cols):
+        x, k = ctx.saved_tensors
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            kg = k.detach().requires_grad_(ctx.needs_input_grad[1])
+            rows, cols = border_lines_plain(xg, kg)
+            wrt = [t for t in (xg, kg) if t.requires_grad]
+            grads = iter(torch.autograd.grad((rows, cols), wrt, (g_rows, g_cols)))
+        return tuple(next(grads) if t.requires_grad else None for t in (xg, kg))

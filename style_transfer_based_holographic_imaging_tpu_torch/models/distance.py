@@ -1,9 +1,12 @@
 """Distance regressor (port of the JAX ``models/distance.py``): relu4_1
 feature statistics -> a normalized distance in (0, 1).
 
-Three Linear -> InstanceNorm -> ReLU blocks and a sigmoid head. This is the
-eval-mode network: the reference's Dropout(0.5) is off at inference, so the
-forward has none.
+Three Linear -> InstanceNorm -> ReLU blocks and a sigmoid head. With a
+``dropout`` generator the forward is the train-mode network of
+``TrainConfig.use_dropout``: Dropout(0.5) after each Linear, flax's
+(keep where a uniform draw is below 0.5, scaled by 2), its masks drawn from
+that generator on the host. Without one (inference, and training by
+default) there is none.
 
 The forward takes a compute ``dtype``, as the flax module does. In bf16 the
 input, weights and biases are cast to bf16 and every value rounds where XLA
@@ -25,7 +28,7 @@ The fp32 default is the fp32 network as it was.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +37,8 @@ from torch import nn
 from style_transfer_based_holographic_imaging_tpu_torch.models.layers import instance_norm_rows
 
 __all__ = ["DistanceMLP"]
+
+_KEEP = 0.5  # 1 - the reference's dropout rate
 
 
 class DistanceMLP(nn.Module):
@@ -51,13 +56,20 @@ class DistanceMLP(nn.Module):
         mean_std: Tuple[torch.Tensor, torch.Tensor],
         *,
         dtype: torch.dtype = torch.float32,
+        dropout: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         mean, std = mean_std
         b = mean.shape[0]
         x = torch.cat([mean.reshape(b, -1), std.reshape(b, -1)], dim=-1).to(dtype)
+        if dropout is not None and dtype != torch.float32:
+            raise ValueError("train-mode dropout runs in float32")
         if dtype == torch.float32:
             for layer in (self.l1, self.l2, self.l3):
-                x = F.relu(instance_norm_rows(layer(x)))
+                x = layer(x)
+                if dropout is not None:
+                    keep = torch.rand(x.shape, generator=dropout) < _KEEP
+                    x = torch.where(keep.to(x.device), x / _KEEP, 0.0)
+                x = F.relu(instance_norm_rows(x))
             return torch.sigmoid(self.out(x))
         for layer in (self.l1, self.l2, self.l3):
             x = _norm_relu(_dense(layer, x), dtype)

@@ -17,6 +17,16 @@ For the conv stacks, the halo tail and the border ring: 1e-5 in fp32
 1e-2 in bf16, where a value that the other summation order puts on a bf16
 rounding boundary rounds the other way (2^-8 relative) and carries into the
 next layer.
+Training: ``reflect_border.BorderLines`` (the ring kernel forward, the
+plain version's VJP backward) gives the gradients of ``border_lines_plain``
+autograd (1e-5 of max: the forward's fp32 summation order); one train
+step on the card against the same step on the CPU, width 0.25, 64^2, B = 2:
+aux terms 1e-4 relative; the generator's and discriminator's gradients of
+both within 2e-3 of each leaf's max of a float64 evaluation on the card;
+params, EMA and discriminator within 1e-4 of each leaf's max plus the
+spread of Adam's first step, lr g/(|g| + eps), over the gradients within
+the leaf's measured fp32 noise of the float64 one (up to 2 lr where the
+sign is free; ``chip_smoke.py`` says more).
 The served path: the HTTP service's answers equal the direct retrieval call
 on the same padded batches, bit for bit (same shapes, same kernels); the
 pinned prefetch gives the same batches, in order, as a blocking
@@ -24,6 +34,7 @@ pinned prefetch gives the same batches, in order, as a blocking
 when the consumer stops early.
 """
 
+import dataclasses
 import math
 import os
 import threading
@@ -45,7 +56,12 @@ from style_transfer_based_holographic_imaging_tpu_torch.interop import (
     load_release_weights,
     load_style_vector,
 )
-from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
+from style_transfer_based_holographic_imaging_tpu_torch.models import (
+    PatchDiscriminator,
+    StyleTransferNet,
+    init_net_params,
+    init_params,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.ops import asm as torch_asm
 from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (
@@ -55,7 +71,11 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (
     retrieve_remote,
     serve_forever,
 )
-from style_transfer_based_holographic_imaging_tpu_torch.train import tv_loss
+from style_transfer_based_holographic_imaging_tpu_torch.train import (
+    TrainStep,
+    create_train_state,
+    tv_loss,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -490,3 +510,100 @@ def test_pinned_prefetch_reraises_and_lets_the_producer_go(card):
         threading.Event().wait(0.1)
         deadline -= 1
     assert threading.active_count() <= before
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 128, 128, 64), (2, 512, 16, 16, 256), (2, 3, 9, 7, 5)])
+def test_border_lines_function_gradient(card, shape):
+    b, c, h, w, o = shape
+    g = torch.Generator().manual_seed(c + h)
+    x = torch.randn(b, c, h, w, generator=g).to(card).requires_grad_()
+    k = (torch.randn(o, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(card).requires_grad_()
+    up = [torch.randn(b, o, 2, w, generator=g).to(card), torch.randn(b, o, h, 2, generator=g).to(card)]
+    before = reflect_border.LAUNCHES["border_lines"]
+    got = reflect_border.BorderLines.apply(x, k)
+    assert reflect_border.LAUNCHES["border_lines"] == before + 1
+    want = reflect_border.border_lines_plain(x, k)
+    g_got = torch.autograd.grad(sum((t * u).sum() for t, u in zip(got, up)), (x, k))
+    g_want = torch.autograd.grad(sum((t * u).sum() for t, u in zip(want, up)), (x, k))
+    torch.cuda.synchronize()
+    for a, e in zip(got + g_got, want + g_want):
+        assert _rel(a, e) < CONV_BUDGETS[torch.float32]
+    with torch.no_grad():
+        rows, _ = reflect_border.BorderLines.apply(x, k)
+    assert rows.grad_fn is None
+
+
+def _step_gradients(cfg, params, disc_params, batch, device, dtype=torch.float32):
+    """One step's gradients (float64, on the CPU): the generator's under
+    "params", the discriminator's LSGAN loss on the style holograms and the
+    detached ``g_t`` under "disc_params"; net and discriminator in
+    ``dtype``, the distance head in fp32."""
+    from torch.func import functional_call
+
+    from style_transfer_based_holographic_imaging_tpu_torch.train import generator_loss_fn, lsgan_d_loss
+
+    net = StyleTransferNet(width=cfg.model.width).to(device, dtype)
+    net.distance_g.float()
+    disc = PatchDiscriminator(image_size=cfg.data.image_size).to(device, dtype)
+    p = {k: (v.float() if k.startswith("distance_g.") else v.to(dtype)).to(device).requires_grad_()
+         for k, v in params.items()}
+    b = {k: v.to(device, dtype) for k, v in batch.items()}
+    dp = {k: v.to(device, dtype) for k, v in disc_params.items()}
+    loss, aux = generator_loss_fn(p, b, net=net, physics=cfg.physics, cfg=cfg.train, disc=disc,
+                                  disc_params=dp)
+    grads = torch.autograd.grad(loss, list(p.values()))
+    dp = {k: v.requires_grad_() for k, v in dp.items()}
+    real, _ = functional_call(disc, dp, (b["style_holo"],))
+    fake, _ = functional_call(disc, dp, (aux["g_t"].detach(),))
+    dgrads = torch.autograd.grad(lsgan_d_loss(real, fake), list(dp.values()), allow_unused=True)
+    host = lambda g, like: (torch.zeros_like(like) if g is None else g).detach().double().cpu()  # noqa: E731
+    return {"params": {k: host(g, p[k]) for k, g in zip(p, grads)},
+            "disc_params": {k: host(g, dp[k]) for k, g in zip(dp, dgrads)}}
+
+
+def test_one_train_step_card_against_cpu(card):
+    from style_transfer_based_holographic_imaging_tpu_torch.data import synth
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "checkpoints", "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, width=0.25),
+                              data=dataclasses.replace(cfg.data, batch_size=2, image_size=64, digit_pad=16))
+    bank = torch.from_numpy(synth.golden_digit_bank(load_golden_suite(), size=32,
+                                                    subset=synth.GOLDEN_TRAIN_DIGITS))
+    batch = synth.synth_batch(0, bank, cfg.data, cfg.physics, return_gt=True)
+    params = init_net_params(torch.Generator().manual_seed(0), width=0.25)
+    disc_params = init_params(PatchDiscriminator(image_size=64), torch.Generator().manual_seed(1))
+    out, grads = {}, {}
+    for dev in ("cpu", card):
+        state = create_train_state(params, cfg.train, disc_params=disc_params, device=dev)
+        step = TrainStep(StyleTransferNet(width=0.25).to(dev), cfg.physics, cfg.train,
+                         disc=PatchDiscriminator(image_size=64).to(dev))
+        state, aux = step(state, {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = state, {k: float(v) for k, v in aux.items()}
+        grads[str(dev)] = _step_gradients(cfg, params, disc_params, batch, dev)
+    anchor = _step_gradients(cfg, params, disc_params, batch, card, torch.float64)
+    (cpu, cpu_aux), (gpu, gpu_aux) = out["cpu"], out[str(card)]
+    for k in cpu_aux:
+        assert abs(gpu_aux[k] - cpu_aux[k]) < 1e-4 * abs(cpu_aux[k]), k
+    for dev, got in grads.items():
+        for group, want in anchor.items():
+            for k, w in want.items():
+                assert float((got[group][k] - w).abs().max()) <= 2e-3 * float(w.abs().max()), (dev, k)
+    lr, eps = cfg.train.lr, 1e-8
+    clip = min(1.0, cfg.train.grad_clip_norm / math.sqrt(sum(float((g * g).sum())
+                                                              for g in anchor["params"].values())))
+    for group in ("params", "ema_params", "disc_params"):
+        a, e = getattr(gpu, group), getattr(cpu, group)
+        grad_group = "disc_params" if group == "disc_params" else "params"
+        c = clip if grad_group == "params" else 1.0
+        scale = 1.0 - cfg.train.ema_decay if group == "ema_params" else 1.0
+        for k in e:
+            w = anchor[grad_group][k]
+            noise = c * max(float((g[grad_group][k] - w).abs().max()) for g in grads.values())
+            hi, lo = c * w.abs() + noise, c * w.abs() - noise
+            spread = torch.where(lo > 0, lr * eps * (hi - lo) / ((hi + eps) * (lo + eps)),
+                                 torch.full_like(w, 2 * lr))
+            spread = scale * torch.where(w == 0, torch.zeros_like(w), spread)
+            diff = (a[k].cpu().double() - e[k].double()).abs()
+            assert bool((diff <= 1e-4 * float(e[k].abs().max()) + spread).all()), (group, k)
