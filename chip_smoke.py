@@ -117,7 +117,31 @@ line naming it and ends the run with exit code 3; nothing hangs):
    pinned prefetch in batches of 8 (the last batch of 4 padded and
    trimmed), equal bit for bit to the per-batch retrieval, one
    ``asm_const`` a batch; frames/s.
-13. ``train``  — training at the flagship's configuration
+13. ``eval``   — ``cli.main(["eval", ...])`` in process on the ``fast``
+   release, with ``--json`` and ``--profile``: the printed metrics within
+   0.005 dB (mean and held-out PSNR) and R² within 1e-4 of
+   ``golden_metrics.json``; ``asm_const`` launched exactly once a batch (20),
+   its 20 launches named in the ``torch.profiler`` Chrome trace on the host
+   and on the card, with their 4 x 20 device GEMMs; where PIL and matplotlib import, 100 montages,
+   the box plot and one ``metrics.jsonl`` line (else the phase runs with
+   ``--save-dir ''``, the JAX CLI's switch-off, and says so). Then
+   ``eval --refine 2``: ``asm_dynamic`` 20 x 3 times.
+14. ``mat``    — the committed measured RBC tree
+   (``tests/fixtures/rbc_mat_tree``) through the CLI: ``train --mat-root
+   --domain red_blood_cell`` for 2 steps at 64^2 (the supervised term
+   forced off), ``extract-style --mat-root`` and ``eval --mat-root`` from its
+   snapshot, ``stream --root``; the same snapshot's ``evaluate_mat_tree``
+   and style vector on the CPU: each batch's PSNR within 0.005 dB (the
+   golden phase's fp32 limit) and each distance within 0.05 µm, the style
+   vector within 1e-4 of max. The domain's band limit keeps every kernel off this path.
+15. ``domain`` — ``evaluate_synth_domain`` on the seeded width-1.0 net, one
+   batch of 32 of the rbc and bead streams (the records' protocol: the JAX
+   package's ``jax.random`` stream, seed 7777, bank seed 7919), card against
+   CPU with the same limits, no kernel launched (band-limited); the
+   band-limited refocus at B = 32 timed through ``torch.fft`` beside the
+   same refocus without the band limit, through ``torch.fft`` and
+   ``asm_const``.
+16. ``train``  — training at the flagship's configuration
    (``checkpoints/config.json``: width 1.0, 128², B = 32, adversarial 1.0,
    EMA 0.999, clip 1.0, the encoder trained) on the golden train-split
    digits: (a) ``train()`` from ``init_net_params`` seed 0, TRAIN_STEPS
@@ -169,8 +193,13 @@ import torch  # noqa: E402
 from torch.func import functional_call  # noqa: E402
 
 from style_transfer_based_holographic_imaging_tpu_torch import ExperimentConfig  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch import cli as port_cli  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.config import DOMAIN_PRESETS  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data import synth  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.data.mat_sampler import (  # noqa: E402
+    MeasuredHologramSampler,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.interop import (  # noqa: E402
     load_release_weights,
     load_style_vector,
@@ -196,7 +225,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.models import (  # noqa:
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models import quant  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward, unwrap_phase  # noqa: E402
-from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import propagate_torch  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import propagate, propagate_torch  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # noqa: E402
     adain_with_stats,
     calc_mean_std,
@@ -205,6 +234,8 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # no
     RetrievalService,
     StreamStats,
     evaluate_golden_suite,
+    evaluate_mat_tree,
+    evaluate_synth_domain,
     make_retrieval_fn,
     physics_refine,
     refine_retrieval,
@@ -213,10 +244,15 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # no
     serve_forever,
     stream_retrieval,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.style_vector import (  # noqa: E402
+    style_vector_from_holograms,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.train import (  # noqa: E402
     TrainStep,
     create_train_state,
     generator_loss_fn,
+    latest_snapshot,
+    load_train_params,
     lsgan_d_loss,
     train,
 )
@@ -250,7 +286,7 @@ TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
     "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
-    "stream": 30.0, "train": 90.0, "timing": 120.0,
+    "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "train": 90.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
 # (B, H, W) where the ASM kernels' tensor-core tiles are ragged: the card
@@ -333,6 +369,35 @@ SERVE_REFINE_STEPS = 10
 SERVE_TIMED = 10
 WIRE_TIMED = 3
 STREAM_BATCH = 8
+# The eval phase: `cli eval` on the fast release, its metrics within
+# EVAL_DB of the record (mean and held-out PSNR) and R² within EVAL_R2, one
+# asm_const a batch; then `eval --refine EVAL_REFINE_STEPS`, whose steps and
+# final residual are EVAL_REFINE_STEPS + 1 asm_dynamic a batch. The mat
+# phase: the committed RBC tree through train (MAT_TRAIN_STEPS at
+# MAT_IMAGE^2), extract-style, eval and stream; card against the port on the
+# CPU with the same weights, each batch's PSNR within GOLDEN_FP32_BATCH_DB
+# (fp32 paths: a net that ran in bf16 or TF32 would miss it) and each
+# distance within CARD_CPU_UM, the style vector within STYLE_TOL of max. The
+# domain phase: evaluate_synth_domain on the seeded width-1.0 net, one batch
+# of DOMAIN_BATCH of each domain's stream (seed 7777, bank seed 7919, the
+# records' protocol), card against CPU with the same limits; and the
+# band-limited refocus timed at that batch. CARD_CPU_UM is five times the
+# largest card-against-CPU distance either phase read, 0.0098 µm (PERF.md
+# section 6), as the golden phase's GOLDEN_UM is set against its record.
+# The eval phase's profiler trace holds each asm_const launch as a region on
+# the host and on the card and ASM_TC_GEMMS device GEMMs (asm_propagate.cu's
+# four tc_gemm_kernel launches a call).
+EVAL_DB = 0.005
+EVAL_R2 = 1e-4
+EVAL_REFINE_STEPS = 2
+CARD_CPU_UM = 0.05
+ASM_TC_GEMMS = 4
+MAT_TREE = os.path.join(REPO, "tests", "fixtures", "rbc_mat_tree", "red_blood_cell")
+MAT_IMAGE = 64
+MAT_TRAIN_STEPS = 2
+STYLE_TOL = 1e-4
+DOMAIN_BATCH = 32
+DOMAINS = {"rbc": ("red_blood_cell", synth.rbc_bank), "bead": ("polystyrene", synth.bead_bank)}
 # The train phase: steps of train() at the flagship's batch; the one-step
 # comparisons' batch; the fixed-batch run at TRAIN_LEARN_LR, its first
 # TRAIN_WARMUP steps untimed. Tolerances: aux terms 1e-4 relative. The
@@ -1761,6 +1826,192 @@ def learn_and_time(cfg, bank, device) -> dict:
             "max_memory_allocated_bytes": peak, "timed_steps": len(times["step"])}
 
 
+def run_cli(argv):
+    """``cli.main(argv)`` in process on the card: (stdout lines, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = port_cli.main(argv)
+    if rc != 0:
+        _die(f"cli {' '.join(argv)} returned {rc}: {err.getvalue()[-2000:]}", 1)
+    return out.getvalue().splitlines(), err.getvalue()
+
+
+def trace_counts(path: str) -> dict:
+    """Events of a Chrome trace: the asm_const regions on the host and on the
+    card, and the device kernels (any, and the ASM tensor-core GEMMs)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    count = collections.Counter()
+    for e in events:
+        name, cat = e.get("name", ""), e.get("cat", "")
+        if name == "asm_const":
+            count[f"asm_const_{cat}"] += 1
+        if cat == "kernel":
+            count["kernels"] += 1
+            count["asm_tc_gemm_kernels"] += "tc_gemm_kernel" in name
+    return dict(count)
+
+
+def drive_eval(records, smi):
+    """The eval phase (see the module docstring); returns its readings."""
+    reports = all(importlib.util.find_spec(m) is not None for m in ("PIL", "matplotlib"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        prof = os.path.join(tmp, "profile")
+        argv = ["eval", "--checkpoint", FAST, "--save-dir", tmp if reports else "",
+                "--exp-name", "chip", "--json", "--profile", prof]
+        asm_cuda.reset_launches()
+        t0 = time.monotonic()
+        lines, _ = run_cli(argv)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = dict(asm_cuda.LAUNCHES)
+        trace = trace_counts(os.path.join(prof, "trace.json"))
+        written = None
+        if reports:
+            out_dir = os.path.join(tmp, "chip")
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                jsonl = f.read().splitlines()
+            written = {"montages": len([n for n in os.listdir(out_dir) if n.endswith("_test.png")]),
+                       "boxplot": os.path.isfile(os.path.join(out_dir, "distance_prediction.png")),
+                       "metrics_jsonl_lines": len(jsonl)}
+        asm_cuda.reset_launches()
+        refine_lines, _ = run_cli(["eval", "--checkpoint", FAST, "--save-dir", "",
+                                   "--refine", str(EVAL_REFINE_STEPS), "--json"])
+        torch.cuda.synchronize()
+        refine_launches = dict(asm_cuda.LAUNCHES)
+    metrics, refined = json.loads(lines[-1]), json.loads(refine_lines[-1])
+    rec = records["fp32"]
+    diffs = {"mean_psnr_db": metrics["mean_psnr"] - rec["mean_psnr"],
+             "heldout_mean_psnr_db": metrics["heldout_mean_psnr"] - rec["heldout_mean_psnr"],
+             "r2": metrics["r2"] - rec["r2"]}
+    n = 20
+    want_refine = {"asm_const": n, "asm_dynamic": n * (EVAL_REFINE_STEPS + 1)}
+    misses = [k for k, v in diffs.items() if abs(v) >= (EVAL_R2 if k == "r2" else EVAL_DB)]
+    if launches != {"asm_const": n, "asm_dynamic": 0} or refine_launches != want_refine:
+        misses.append("launches")
+    want_trace = {"asm_const_user_annotation": n, "asm_const_gpu_user_annotation": n,
+                  "asm_tc_gemm_kernels": ASM_TC_GEMMS * n}
+    if {k: trace.get(k) for k in want_trace} != want_trace:
+        misses.append("trace")
+    if written is not None and written != {"montages": 100, "boxplot": True, "metrics_jsonl_lines": 1}:
+        misses.append("reports")
+    if not all(math.isfinite(v) for v in (refined["mean_psnr"], refined["r2"])):
+        misses.append("refined metrics")
+    info = {"nvidia_smi": smi, "printed": lines, "metrics_minus_record": diffs, "limits": [EVAL_DB, EVAL_R2],
+            "launches": launches, "refine_launches": refine_launches, "want_refine_launches": want_refine,
+            "trace": trace, "want_trace": want_trace, "reports": written if reports else
+            "PIL or matplotlib absent on this machine: eval ran with --save-dir ''",
+            "refined_printed": refine_lines, "seconds": seconds}
+    if misses:
+        emit({"eval_readings": info})
+        _die(f"the eval phase missed {misses}", 1)
+    return info
+
+
+def _max_diff(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def drive_mat(dev):
+    """The mat phase (see the module docstring); returns its readings."""
+    tree = ["--mat-root", MAT_TREE, "--domain", "red_blood_cell"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mat_") as tmp:
+        run_dir, sv = os.path.join(tmp, "run"), os.path.join(tmp, "sv.npz")
+        asm_cuda.reset_launches()
+        t0 = time.monotonic()
+        run_cli(["train", *tree, "--iterations", str(MAT_TRAIN_STEPS), "--batch-size", "2",
+                 "--image-size", str(MAT_IMAGE), "--checkpoint-every", str(MAT_TRAIN_STEPS),
+                 "--checkpoint-dir", run_dir, "--log-every", "1"])
+        run_cli(["extract-style", *tree, "--checkpoint", run_dir, "--n-batches", "2", "--out", sv])
+        lines, _ = run_cli(["eval", *tree, "--image-size", str(MAT_IMAGE), "--checkpoint", run_dir,
+                            "--style-vector", sv, "--batch-size", "4", "--save-dir", tmp,
+                            "--exp-name", "mat", "--json"])
+        stream_lines, _ = run_cli(["stream", "--root", MAT_TREE, "--domain", "red_blood_cell",
+                                   "--checkpoint", run_dir, "--style-vector", sv, "--batch-size", "4"])
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = dict(asm_cuda.LAUNCHES)
+        with open(os.path.join(tmp, "mat", "mat_eval_metrics.json")) as f:
+            card = json.load(f)
+        with open(os.path.join(run_dir, "train_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        card_style = load_style_vector(sv)
+        state = load_train_params(latest_snapshot(run_dir), ema=False)
+    # The port on the CPU with the same weights.
+    cfg = DOMAIN_PRESETS["red_blood_cell"]()
+    net_cpu = StyleTransferNet.from_state_dict(state, cfg.model.width)
+    sampler = MeasuredHologramSampler(MAT_TREE, cfg.data, cfg.physics, domain="red_blood_cell")
+    ms, ss = zip(*(style_vector_from_holograms(net_cpu, p) for p in sampler.style_batches(2)))
+    cpu_style = tuple(np.mean(np.concatenate(v), axis=0, keepdims=True) for v in (ms, ss))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, image_size=MAT_IMAGE))
+    cpu = evaluate_mat_tree(net_cpu, MAT_TREE, cfg, card_style, domain="red_blood_cell", batch_size=4,
+                            device="cpu")
+    stream = json.loads(stream_lines[-1])
+    readings = {
+        "psnr_db": _max_diff(card["psnr_per_batch"], cpu["psnr_per_batch"]),
+        "distance_um": _max_diff(card["distance_pred_um"], cpu["distance_pred_um"]),
+        "style_vector": max(_max_diff(a, b) / float(np.abs(b).max()) for a, b in zip(card_style, cpu_style)),
+    }
+    held = (readings["psnr_db"] < GOLDEN_FP32_BATCH_DB and readings["distance_um"] < CARD_CPU_UM
+            and readings["style_vector"] < STYLE_TOL and card["n_gt_scored"] == 9
+            and len(rows) == MAT_TRAIN_STEPS and "loss_supervised" not in rows[0]
+            and all(math.isfinite(v) for r in rows for v in r.values()) and stream["frames"] == 9)
+    info = {"card_minus_cpu": readings, "limits": [GOLDEN_FP32_BATCH_DB, CARD_CPU_UM, STYLE_TOL],
+            "printed": lines, "card": {k: card[k] for k in ("mean_psnr", "r2", "n_samples", "n_gt_scored")},
+            "cpu": {k: cpu[k] for k in ("mean_psnr", "r2")}, "train_last": rows[-1], "stream": stream,
+            "launches": launches, "seconds": seconds}
+    if not held:
+        emit({"mat_readings": info})
+        _die("the measured-tree chain on the card missed its checks", 1)
+    return info
+
+
+def drive_domain(dev, smi):
+    """The domain phase (see the module docstring); returns its readings."""
+    net = seeded_weights_(StyleTransferNet(width=1.0), seed=0).eval()
+    net_card = copy.deepcopy(net).to(dev)
+    rows = {}
+    for tag, (preset, make_bank) in DOMAINS.items():
+        cfg = DOMAIN_PRESETS[preset]()
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=DOMAIN_BATCH))
+        style = load_style_vector(os.path.join(REPO, "checkpoints", f"{tag}_style_vector.npz"))
+        bank = make_bank(n=512, seed=7919)
+        asm_cuda.reset_launches()
+        t0 = time.monotonic()
+        card = evaluate_synth_domain(net_card, cfg, bank, style, n_batches=1, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = dict(asm_cuda.LAUNCHES)
+        cpu = evaluate_synth_domain(net, cfg, bank, style, n_batches=1, device="cpu")
+        rows[tag] = {"psnr_db": _max_diff(card["psnr_per_batch"], cpu["psnr_per_batch"]),
+                     "distance_um": _max_diff(card["distance_pred_um"], cpu["distance_pred_um"]),
+                     "card_mean_psnr": card["mean_psnr"], "cpu_mean_psnr": cpu["mean_psnr"],
+                     "card_r2": card["r2"], "cpu_r2": cpu["r2"], "launches": launches,
+                     "card_seconds": seconds}
+    # The band-limited refocus of a retrieval at this batch (rbc's style
+    # plane, -6 mm): torch.fft, as neither kernel takes a band limit; beside
+    # the same refocus without it through torch.fft and through asm_const.
+    physics = DOMAIN_PRESETS["red_blood_cell"]().physics
+    kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
+    d_m = -float(physics.to_metres(physics.to_network_units(6.0)))
+    xre, xim = random_planes(DOMAIN_BATCH, seed=2, device=dev)
+    field = torch.complex(xre, xim)
+    timing = {
+        "B": DOMAIN_BATCH, "distance_m": d_m,
+        "band_limited_torch_fft_ms": median_ms(lambda: propagate(field, d_m, band_limit=True, **kw)),
+        "torch_fft_ms": median_ms(lambda: propagate_torch(field, d_m, **kw)),
+        "asm_const_ms": median_ms(lambda: asm_cuda.asm_const(xre, xim, d_m, **kw)),
+    }
+    held = all(r["psnr_db"] < GOLDEN_FP32_BATCH_DB and r["distance_um"] < CARD_CPU_UM
+               and r["launches"] == {"asm_const": 0, "asm_dynamic": 0} for r in rows.values())
+    info = {"nvidia_smi": smi, "card_vs_cpu": rows, "limits": [GOLDEN_FP32_BATCH_DB, CARD_CPU_UM],
+            "band_limited_refocus": timing}
+    if not held:
+        emit({"domain_readings": info})
+        _die("the domain phase: card and CPU disagree, or a band-limited path launched a kernel", 1)
+    return info
+
+
 def main() -> int:
     with Phase("device") as phase:
         smi = phase_device()
@@ -1939,6 +2190,18 @@ def main() -> int:
     with Phase("stream") as phase:
         stream_info = drive_stream(fast_net, fast_cfg, fast_style, goldens, dev, smi)
         phase.info = stream_info
+
+    with Phase("eval") as phase:
+        eval_info = drive_eval(fast_records, smi)
+        phase.info = eval_info
+
+    with Phase("mat") as phase:
+        mat_info = drive_mat(dev)
+        phase.info = mat_info
+
+    with Phase("domain") as phase:
+        domain_info = drive_domain(dev, smi)
+        phase.info = domain_info
 
     with Phase("train") as phase:
         train_bank = synth.golden_digit_bank(goldens, subset=synth.GOLDEN_TRAIN_DIGITS)
@@ -2152,6 +2415,10 @@ def main() -> int:
             "launches_by_path": {"slice": launches[k], "refine": refine_launches[k],
                                  "golden": golden_launches[k], "serve": serve_info["launches"][k],
                                  "stream": stream_info["launches"][k],
+                                 "eval": eval_info["launches"][k],
+                                 "eval_refine": eval_info["refine_launches"][k],
+                                 "mat": mat_info["launches"][k],
+                                 "domain": sum(r["launches"][k] for r in domain_info["card_vs_cpu"].values()),
                                  "train": train_run["launches"][k]},
             **({"refine_step_ms": refine_timing["step_ms"],
                 "refine_step_ms_torch_backend": refine_timing["torch_backend_step_ms"],

@@ -16,14 +16,19 @@ Subpackages mirror the JAX package's layout:
                   the PatchGAN discriminator.
 - ``pipelines`` — eager end-to-end field retrieval, the golden-suite eval,
                   physics refinement, autofocus, the HTTP server and the
-                  stream.
-- ``data``      — the golden suite, hologram synthesis and the digit banks,
-                  the host -> card prefetch.
+                  stream, the measured-tree and synthetic-domain evals,
+                  style vectors.
+- ``data``      — the golden suite, hologram synthesis and the object banks,
+                  the measured ``.mat`` tree and its sampler, the host ->
+                  card prefetch.
+- ``eval``      — the metrics and the reports (montages, box plot, jsonl).
+- ``utils``     — ``jax.random``'s threefry stream in numpy, profiling.
 - ``train``     — the generator's and discriminator's losses, the optax-faithful
                   train state (Adam, clip, EMA, checkpoints) and the loop.
 - ``interop``   — carrying JAX parameter trees (as numpy) across, and a
                   release's weights from its numpy file.
-- ``cli``       — ``python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve|train``.
+- ``cli``       — ``python -m style_transfer_based_holographic_imaging_tpu_torch.cli
+                  eval|train|extract-style|stream|autofocus|serve``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 
@@ -37,6 +42,7 @@ fp32 JAX package, and of each kernel with its plain version, needs full fp32.
 import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.config import (
+    DOMAIN_PRESETS,
     DataConfig,
     EvalConfig,
     ExperimentConfig,
@@ -57,5 +63,6 @@ __all__ = [
     "EvalConfig",
     "ExperimentConfig",
     "TrainConfig",
+    "DOMAIN_PRESETS",
     "__version__",
 ]

@@ -1,22 +1,37 @@
-"""Command-line interface of the port (the JAX package's ``cli.py``, its
-``serve`` and ``train`` subcommands so far):
+"""Command-line interface of the port (the JAX package's ``cli.py``):
 
-  python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve \\
-      --checkpoint checkpoints/fast [--quant] [--refine STEPS] [--fp32] [--cpu]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli eval \\
+      --checkpoint checkpoints/fast [--save-dir output --exp-name MNIST_test] [--json]
+      [--profile LOGDIR] [--refine STEPS [--refine-distance]] [--quant] [--cpu]
+      golden-suite field retrieval: metrics, montages, box plot, metrics.jsonl;
+      with --mat-root DIR [--domain D] [--batch-size B] a measured .mat test tree
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli train \\
       --iterations 6000 --bank golden --adv-weight 1 --ema-decay 0.999 --train-encoder [--cpu]
+      [--domain D] [--bank bead|rbc] [--mat-root DIR]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli extract-style \\
+      --checkpoint RUN [--bank sklearn|bead|rbc] [--domain D] [--mat-root DIR] --out sv.npz
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli stream \\
+      --checkpoint RUN --root DIR [--domain D] [--batch-size B] [--refine STEPS]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli autofocus \\
+      --golden | --input holos.npz --d-min A --d-max B [--domain D]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve \\
+      --checkpoint checkpoints/fast [--quant] [--refine STEPS] [--fp32] [--cpu]
 
-The weights come from the release's ``torch_weights.npz`` (written by
-``scripts/port_golden_eval.py --export-npz``), in the checkpoint directory or
-its parent; the run config, style vector and int8 scales are looked up
-beside the checkpoint in the JAX package's order. Without ``--cpu`` it runs
-on the card, and raises when there is none.
+The weights: a release's ``torch_weights.npz`` (written by
+``scripts/port_golden_eval.py --export-npz``) in the checkpoint directory,
+else the newest ``iter_<n>/state.pt`` snapshot of a training directory (its
+params, as the JAX package takes a train state's), else the release's file
+in the parent directory. The run config, style vector and int8 scales are
+looked up beside the checkpoint in the JAX package's order. Without
+``--cpu`` every command runs on the card, and raises when there is none.
 
-``train`` takes the JAX package's flags that the port implements; argparse
-refuses the others (mixed precision, the measured-tree sampler, the domain
-presets and their banks, the device mesh, TensorBoard) with a message and
-exit code 2. Its snapshots are the port's ``iter_<n>/state.pt``
-(``train/state.py``).
+Each command takes the JAX package's flags that the port implements and
+prints its lines. argparse refuses the rest with a message and exit code 2:
+mixed-precision training (``--dtype``), TensorBoard (``--tensorboard-dir``),
+the device mesh (``train --devices/--partition/--model-devices``, ``stream
+--devices`` over 1), ``extract-style --pt-out`` (the reference's ``.pt``
+layout), ``serve --devices/--artifact``, and the ``synth-bench``, ``sweep``,
+``export`` and ``doctor`` commands.
 """
 
 from __future__ import annotations
@@ -29,11 +44,13 @@ import sys
 import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.config import (
+    DOMAIN_PRESETS,
     ExperimentConfig,
     ModelConfig,
 )
 
 _NPZ = "torch_weights.npz"
+_DOMAINS = sorted(set(DOMAIN_PRESETS))
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -102,30 +119,50 @@ def _default_ckpt() -> str | None:
 
 
 def _load_params(args):
-    """The release's state dict from ``torch_weights.npz`` in the checkpoint
-    directory or its parent. A checkpoint directory without one raises (its
+    """The weights as a state dict: ``torch_weights.npz`` in the checkpoint
+    directory; else, for a training directory (or one snapshot), the params
+    of its newest ``iter_<n>/state.pt``; else ``torch_weights.npz`` in the
+    parent directory. A checkpoint directory with none of them raises (its
     orbax weights cannot be read here); no checkpoint at all gives the random
     init of width 1.0 from ``torch.manual_seed(0)``."""
     from style_transfer_based_holographic_imaging_tpu_torch.interop import load_release_weights
     from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
+    from style_transfer_based_holographic_imaging_tpu_torch.train import (
+        latest_snapshot,
+        load_train_params,
+    )
 
     ckpt = args.checkpoint or _default_ckpt()
     if ckpt and os.path.isdir(ckpt):
-        parent = os.path.dirname(os.path.abspath(ckpt))
-        for cand in (os.path.join(ckpt, _NPZ), os.path.join(parent, _NPZ)):
+        own = os.path.join(ckpt, _NPZ)
+        snap = ckpt if os.path.isfile(os.path.join(ckpt, "state.pt")) else latest_snapshot(ckpt)
+        parent = os.path.join(os.path.dirname(os.path.abspath(ckpt)), _NPZ)
+        if not os.path.isfile(own) and snap:
+            state = load_train_params(snap, ema=False)
+            print(f"loaded checkpoint {snap}", file=sys.stderr)
+            return state
+        for cand in (own, parent):
             if os.path.isfile(cand):
                 state = load_release_weights(cand)
                 print(f"loaded weights {cand}", file=sys.stderr)
                 return state
         raise FileNotFoundError(
-            f"{ckpt} holds no {_NPZ} (nor does its parent): the port cannot read orbax "
-            f"weights. Write it where JAX runs: python scripts/port_golden_eval.py "
-            f"--release <orbax dir> --export-npz {os.path.join(ckpt, _NPZ)}"
+            f"{ckpt} holds no {_NPZ} and no iter_<n>/state.pt (nor does its parent hold "
+            f"{_NPZ}): the port cannot read orbax weights. Write it where JAX runs: "
+            f"python scripts/port_golden_eval.py --release <orbax dir> "
+            f"--export-npz {os.path.join(ckpt, _NPZ)}"
         )
     print("no checkpoint found; using random init", file=sys.stderr)
     with torch.random.fork_rng():
         torch.manual_seed(0)
         return StyleTransferNet().state_dict()
+
+
+def _net(state, cfg: ExperimentConfig, device: torch.device):
+    """The net of ``state`` at the config's width, in eval mode on ``device``."""
+    from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
+
+    return StyleTransferNet.from_state_dict(state, cfg.model.width).to(device)
 
 
 def _load_config(args):
@@ -182,6 +219,98 @@ def _load_style(args):
     return None
 
 
+def cmd_eval(args):
+    """The golden suite (or, with ``--mat-root``, a measured test tree)
+    through field retrieval, with the JAX package's printed lines."""
+    import contextlib
+    import dataclasses
+
+    device = _setup_backend(args)
+    state = _load_params(args)
+    style = _load_style(args)
+    cfg = _load_config(args) or ExperimentConfig()
+    save_dir = os.path.join(args.save_dir, args.exp_name) if args.save_dir else None
+
+    if args.mat_root:
+        # The measured test-split protocol.
+        from style_transfer_based_holographic_imaging_tpu_torch.pipelines.mat_eval import (
+            evaluate_mat_tree,
+        )
+
+        if args.domain:
+            cfg = DOMAIN_PRESETS[args.domain]()
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, image_size=args.image_size))
+        metrics = evaluate_mat_tree(
+            _net(state, cfg, device),
+            args.mat_root,
+            cfg,
+            style,
+            domain=args.domain,
+            batch_size=args.batch_size,
+            refine_steps=args.refine,
+            refine_distance=args.refine_distance,
+            quant_scales=_load_quant_scales(args),
+            device=device,
+        )
+        if "mean_psnr" in metrics:
+            print(f"Mean PSNR: {metrics['mean_psnr']:.4f}")
+            print(f"Mean MAE: {metrics['mean_mae']:.6f}")
+        print(f"R2 score: {metrics['r2']:.6f}")
+        print(f"Samples: {metrics['n_samples']} ({metrics['n_gt_scored']} GT-scored)")
+        if save_dir:
+            os.makedirs(save_dir, exist_ok=True)
+            with open(os.path.join(save_dir, "mat_eval_metrics.json"), "w") as f:
+                json.dump(metrics, f, indent=2)
+        if args.json:
+            keys = ("mean_psnr", "mean_mae", "r2", "n_samples", "n_gt_scored")
+            print(json.dumps({k: metrics[k] for k in keys if k in metrics}))
+        return metrics
+
+    from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite
+    from style_transfer_based_holographic_imaging_tpu_torch.pipelines import evaluate_golden_suite
+
+    goldens = load_golden_suite()
+    net = _net(state, cfg, device)
+    profile_cm = contextlib.nullcontext()
+    if args.profile:
+        from style_transfer_based_holographic_imaging_tpu_torch.utils.profiling import trace
+
+        profile_cm = trace(args.profile)
+        print(f"writing profiler trace to {args.profile}", file=sys.stderr)
+    if args.refine_distance and not args.refine:
+        print("warning: --refine-distance has no effect without --refine N", file=sys.stderr)
+    with profile_cm:
+        metrics = evaluate_golden_suite(
+            net,
+            goldens,
+            cfg,
+            save_dir=save_dir,
+            style_override=style,
+            refine_steps=args.refine,
+            refine_distance=args.refine_distance,
+            quant_scales=_load_quant_scales(args),
+            device=device,
+        )
+    print(f"Mean PSNR: {metrics['mean_psnr']:.4f}")
+    print(f"Mean MAE: {metrics['mean_mae']:.6f}")
+    print(f"R2 score: {metrics['r2']:.6f}")
+    if "heldout_mean_psnr" in metrics:
+        print(
+            f"Held-out (uncontaminated) PSNR: {metrics['heldout_mean_psnr']:.4f} "
+            f"R2: {metrics['heldout_r2']:.6f}"
+        )
+    if metrics.get("distance_outlier_batches"):
+        print(
+            f"WARNING: distance outlier batches {metrics['distance_outlier_batches']}"
+            f" (max |err| {metrics['distance_max_abs_err_um']:.1f} um)"
+        )
+    if args.json:
+        keys = ("mean_psnr", "mean_mae", "r2",
+                "heldout_mean_psnr", "heldout_r2", "distance_outlier_batches")
+        print(json.dumps({k: metrics[k] for k in keys if k in metrics}))
+    return metrics
+
+
 def cmd_serve(args):
     """Long-lived retrieval server (pipelines/server.py): the weights on the
     card, npz requests over HTTP."""
@@ -221,7 +350,10 @@ def cmd_serve(args):
 
 
 def cmd_train(args):
-    """Train on synthesized holograms on the card (``train/loop.py``)."""
+    """Train on synthesized holograms, or on a measured ``.mat`` train tree
+    (``--mat-root``), on the card (``train/loop.py``)."""
+    import dataclasses
+
     from style_transfer_based_holographic_imaging_tpu_torch.config import DataConfig, TrainConfig
     from style_transfer_based_holographic_imaging_tpu_torch.data import synth
     from style_transfer_based_holographic_imaging_tpu_torch.models import set_reflect_backend
@@ -234,33 +366,70 @@ def cmd_train(args):
 
     device = _setup_backend(args)
     set_reflect_backend(args.reflect_backend)
-    cfg = ExperimentConfig(
-        model=ModelConfig(with_phase_decoder=args.phase_decoder),
-        data=DataConfig(batch_size=args.batch_size, image_size=args.image_size, seed=args.seed,
-                        rotate_deg=args.rotate_deg, elastic_px=args.elastic_px),
-        train=TrainConfig(
-            iterations=args.iterations, lr=args.lr, checkpoint_every=args.checkpoint_every,
-            checkpoint_dir=args.checkpoint_dir, freeze_encoder=not args.train_encoder,
-            supervised_weight=args.supervised_weight, physics_weight=args.physics_weight,
-            adv_weight=args.adv_weight, perceptual_weight=args.perceptual_weight,
-            distance_weight=args.distance_weight, content_weight=args.content_weight,
-            style_weight=args.style_weight, log_every=args.log_every,
-            grad_accum=args.grad_accum, ema_decay=args.ema_decay,
-        ),
+    model_cfg = ModelConfig(with_phase_decoder=args.phase_decoder)
+    train_cfg = TrainConfig(
+        iterations=args.iterations, lr=args.lr, checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=args.checkpoint_dir, freeze_encoder=not args.train_encoder,
+        supervised_weight=args.supervised_weight, physics_weight=args.physics_weight,
+        adv_weight=args.adv_weight, perceptual_weight=args.perceptual_weight,
+        distance_weight=args.distance_weight, content_weight=args.content_weight,
+        style_weight=args.style_weight, log_every=args.log_every,
+        grad_accum=args.grad_accum, ema_decay=args.ema_decay,
     )
+    data_kw = dict(batch_size=args.batch_size, image_size=args.image_size, seed=args.seed,
+                   rotate_deg=args.rotate_deg, elastic_px=args.elastic_px)
+    if args.domain:
+        # Inside an experimental domain's preset: its physics and distances.
+        preset = DOMAIN_PRESETS[args.domain]()
+        cfg = ExperimentConfig(name=preset.name, physics=preset.physics, model=model_cfg,
+                               data=dataclasses.replace(preset.data, **data_kw), train=train_cfg)
+    else:
+        cfg = ExperimentConfig(model=model_cfg, data=DataConfig(**data_kw), train=train_cfg)
+
+    sampler = None
+    if args.mat_root:
+        from style_transfer_based_holographic_imaging_tpu_torch.data.mat_sampler import (
+            MeasuredHologramSampler,
+        )
+
+        if args.digit_bank:
+            print("--digit-bank and --mat-root are mutually exclusive "
+                  "(measured-tree training draws no synthetic objects)", file=sys.stderr)
+            return 1
+        if args.rotate_deg or args.elastic_px:
+            print("--rotate-deg/--elastic-px apply to synthetic-object warps "
+                  "and are not implemented by the measured-tree sampler; drop "
+                  "them (measured training augments by crop+flip only)", file=sys.stderr)
+            return 1
+        if cfg.train.supervised_weight:
+            # A measured tree has no complex ground truth to supervise on.
+            print("note: --mat-root training has no ground truth; forcing "
+                  "supervised_weight=0 (physics cycle + style + content + "
+                  "distance)", file=sys.stderr)
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, supervised_weight=0.0))
+        sampler = MeasuredHologramSampler(args.mat_root, cfg.data, cfg.physics, domain=args.domain)
+        print(f"measured train tree: {len(sampler.ds)} frames "
+              f"({sampler.n_content} content / {sampler.n_style} style candidates)", file=sys.stderr)
+
+    bank = None
     if args.digit_bank:
         if not os.path.isfile(args.digit_bank):
             print(f"--digit-bank {args.digit_bank}: file not found", file=sys.stderr)
             return 1
         bank = synth.load_digit_bank(args.digit_bank)
-    elif args.bank == "sklearn":
-        bank = synth.sklearn_digit_bank()
-    else:
-        from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite
+    elif sampler is None:
+        if args.bank == "sklearn":
+            bank = synth.sklearn_digit_bank()
+        elif args.bank == "bead":
+            bank = synth.bead_bank()
+        elif args.bank == "rbc":
+            bank = synth.rbc_bank()
+        else:
+            from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite
 
-        goldens = load_golden_suite()
-        bank = (synth.golden_digit_bank(goldens, subset=synth.GOLDEN_TRAIN_DIGITS)
-                if args.bank == "golden" else synth.mixed_digit_bank(goldens))
+            goldens = load_golden_suite()
+            bank = (synth.golden_digit_bank(goldens, subset=synth.GOLDEN_TRAIN_DIGITS)
+                    if args.bank == "golden" else synth.mixed_digit_bank(goldens))
 
     state = None
     if args.resume:
@@ -287,29 +456,209 @@ def cmd_train(args):
         else:
             print("no iter_* snapshot found; training from scratch", file=sys.stderr)
 
-    state = train(cfg, bank=bank, state=state, device=device)
+    state = train(cfg, bank=bank, sampler=sampler, state=state, device=device)
     path = save_checkpoint(state, cfg.train.checkpoint_dir)
     print(f"final checkpoint: {path}")
     return 0
 
 
-def main(argv=None):
+def cmd_extract_style(args):
+    """A style vector for the checkpoint's encoder: from synthesized
+    style-plane holograms of a bank, or from measured style-plane patches
+    (``--mat-root``)."""
+    import numpy as np
+
+    from style_transfer_based_holographic_imaging_tpu_torch.data import synth
+    from style_transfer_based_holographic_imaging_tpu_torch.pipelines.style_vector import (
+        extract_style_vector,
+        save_style_vector,
+        style_vector_from_holograms,
+    )
+
+    device = _setup_backend(args)
+    state = _load_params(args)
+    cfg = DOMAIN_PRESETS[args.domain]() if args.domain else ExperimentConfig()
+    net = _net(state, cfg, device)
+    if args.mat_root:
+        # Encoder statistics averaged over measured style-plane patches.
+        from style_transfer_based_holographic_imaging_tpu_torch.data.mat_sampler import (
+            MeasuredHologramSampler,
+        )
+
+        sampler = MeasuredHologramSampler(args.mat_root, cfg.data, cfg.physics, domain=args.domain)
+        ms, ss = zip(*(style_vector_from_holograms(net, patches)
+                       for patches in sampler.style_batches(args.n_batches)))
+        mean = np.mean(np.concatenate(ms), axis=0, keepdims=True)
+        std = np.mean(np.concatenate(ss), axis=0, keepdims=True)
+    else:
+        bank = {"bead": synth.bead_bank, "rbc": synth.rbc_bank}.get(
+            args.bank, synth.sklearn_digit_bank)()
+        mean, std = extract_style_vector(net, cfg, bank, n_batches=args.n_batches)
+    save_style_vector(mean, std, args.out)
+    print(f"style vector written to {args.out}")
+    return 0
+
+
+def cmd_stream(args):
+    """Streaming inference over a ``.mat`` hologram tree (the RBC mode): one
+    JSON line with the steady-state frames/s."""
+    import time
+
+    from style_transfer_based_holographic_imaging_tpu_torch.data.mat_loader import HoloMatDataset
+    from style_transfer_based_holographic_imaging_tpu_torch.pipelines.streaming import (
+        stream_retrieval,
+    )
+
+    device = _setup_backend(args)
+    state = _load_params(args)
+    style = _load_style(args)
+    if style is None:
+        print("no style vector found — required for streaming", file=sys.stderr)
+        return 1
+    cfg = ExperimentConfig()
+    preset = DOMAIN_PRESETS.get(args.domain)
+    if preset is not None:
+        cfg = preset()
+    distances = ([float(x) for x in args.distances.split(",")] if args.distances
+                 else list(cfg.data.content_distances))
+    ds = HoloMatDataset(args.root, args.image_set, distances, domain=args.domain)
+    if not len(ds):
+        print(f"no .mat records under {args.root}", file=sys.stderr)
+        return 1
+    print(f"streaming {len(ds)} frames from {args.root}", file=sys.stderr)
+
+    n, n_steady, t_steady, last = 0, 0, None, None
+    t_start = time.perf_counter()
+    for out in stream_retrieval(
+        _net(state, cfg, device),
+        ds.batches(args.batch_size),
+        style,
+        cfg,
+        style_distance=args.style_distance,
+        refine_steps=args.refine,
+        quant_scales=_load_quant_scales(args),
+        device=device,
+    ):
+        b = int(out["amp_field"].shape[0])
+        n += b
+        last = out
+        if t_steady is None:
+            # the first batch pays the warm-up: sync on it, then start the clock
+            float(out["amp_field"].sum())
+            t_steady = time.perf_counter()
+        else:
+            n_steady += b
+    if last is None:
+        return 1
+    float(last["amp_field"].sum())  # the stream's work is ordered: the last output bounds it
+    if n_steady:
+        fps = n_steady / max(time.perf_counter() - t_steady, 1e-9)
+    else:
+        fps = n / max(t_steady - t_start, 1e-9)
+    print(json.dumps({
+        "metric": f"{args.domain or 'mat'} streaming retrieval",
+        "frames": n,
+        "value": round(fps, 1),
+        "unit": "frames/sec/chip",
+        "note": "steady-state (first batch excluded)" if n_steady
+        else "single batch (includes jit compile)",
+    }))
+    return 0
+
+
+def cmd_autofocus(args):
+    """Network-free distance estimation by refocus sharpness search
+    (``pipelines/autofocus.py``) over the golden suite (``--golden``, with R²
+    against the true distances) or an ``.npz``/``.npy`` of ``(N, 1, H, W)``
+    intensity holograms."""
+    import numpy as np
+
+    from style_transfer_based_holographic_imaging_tpu_torch.pipelines.autofocus import autofocus
+
+    device = _setup_backend(args)
+    cfg = ExperimentConfig()
+    if args.domain:
+        preset = DOMAIN_PRESETS.get(args.domain)
+        if preset is None:
+            print(f"unknown domain {args.domain!r}", file=sys.stderr)
+            return 1
+        cfg = preset()
+    physics = cfg.physics
+
+    d_true = None
+    if args.golden:
+        from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite
+
+        g = load_golden_suite()
+        holo = g.content_holo.reshape((-1,) + g.content_holo.shape[2:])
+        d_true = g.distance_content.reshape(-1)
+        lo, hi = args.d_min if args.d_min is not None else 0.2, args.d_max or 1.0
+    else:
+        if not args.input:
+            print("need --golden or --input FILE.npz", file=sys.stderr)
+            return 1
+        z = np.load(args.input)
+        holo = z[args.key] if hasattr(z, "files") else z
+        if holo.ndim == 3:
+            holo = holo[:, None]
+        if args.d_min is None or args.d_max is None:
+            print("--d-min/--d-max required with --input", file=sys.stderr)
+            return 1
+        lo, hi = args.d_min, args.d_max
+
+    d_all = []
+    for i in range(0, len(holo), args.batch_size):
+        d_found, _, _ = autofocus(holo[i : i + args.batch_size], lo, hi, physics,
+                                  n_coarse=args.n_coarse, n_fine=args.n_fine, metric=args.metric,
+                                  device=device)
+        d_all.append(d_found.cpu().numpy())
+    d_all = np.concatenate(d_all)
+
+    out = {
+        "metric": f"autofocus ({args.metric})",
+        "n": int(len(d_all)),
+        "d_mean": float(np.mean(d_all)),
+        "unit": "network distance units (mm by default)",
+    }
+    if d_true is not None:
+        from style_transfer_based_holographic_imaging_tpu_torch.eval.metrics import r2_score
+
+        out["r2_vs_true"] = float(r2_score(np.asarray(d_true), d_all))
+        out["mae_mm"] = float(np.mean(np.abs(d_all - d_true)))
+    print(json.dumps(out))
+    if args.print_distances:
+        for v in d_all.tolist():
+            print(f"{v:.4f}")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """Every command with the flags it takes."""
     parser = argparse.ArgumentParser(prog="style_transfer_based_holographic_imaging_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("serve", help="HTTP retrieval server (fixed batch shape; npz in/out)")
+    p = sub.add_parser("eval", help="golden-suite field retrieval evaluation")
     _add_common(p)
-    p.add_argument("--host", type=str, default="127.0.0.1")
-    p.add_argument("--port", type=int, default=8100)
-    p.add_argument("--batch-size", type=int, default=32,
-                   help="batch shape of the net; requests are padded/chunked")
-    p.add_argument("--bf16", action="store_true", default=True,
-                   help="bf16 conv path (default on)")
-    p.add_argument("--fp32", dest="bf16", action="store_false")
-    p.add_argument("--refine", type=int, default=0, metavar="STEPS")
-    p.set_defaults(fn=cmd_serve)
+    p.add_argument("--save-dir", type=str, default="output",
+                   help="reports under SAVE_DIR/EXP_NAME ('' writes none)")
+    p.add_argument("--exp-name", type=str, default="MNIST_test")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
+                   help="write a torch.profiler Chrome trace of the evaluation into LOGDIR")
+    p.add_argument("--refine", type=int, default=0, metavar="STEPS",
+                   help="physics-consistent refinement steps per batch (0 = network only)")
+    p.add_argument("--refine-distance", action="store_true",
+                   help="also refine the predicted distance during refinement")
+    p.add_argument("--mat-root", type=str, default=None,
+                   help="score a measured .mat test tree (with gt_amplitude/gt_phase) "
+                        "instead of the golden suite; --domain picks its layout and physics")
+    p.add_argument("--domain", default=None, choices=_DOMAINS,
+                   help="experimental-domain preset for --mat-root")
+    p.add_argument("--batch-size", type=int, default=4,
+                   help="--mat-root batch size (the last batch is padded by repetition)")
+    p.set_defaults(fn=cmd_eval)
 
-    p = sub.add_parser("train", help="train on synthesized holograms")
+    p = sub.add_parser("train", help="train on synthesized or measured holograms")
     _add_common(p)
     p.add_argument("--iterations", type=int, default=20000)
     p.add_argument("--batch-size", type=int, default=32)
@@ -340,14 +689,85 @@ def main(argv=None):
     p.add_argument("--style-weight", type=float, default=0.1)
     p.add_argument("--digit-bank", type=str, default=None,
                    help=".npz with a (N,64,64) 'bank' array or an MNIST export (overrides --bank)")
-    p.add_argument("--bank", default="mixed", choices=("sklearn", "golden", "mixed"),
-                   help="phase-object bank (sklearn and mixed need scikit-learn)")
+    p.add_argument("--bank", default="mixed", choices=("sklearn", "golden", "mixed", "bead", "rbc"),
+                   help="phase-object bank: digits (sklearn and mixed need scikit-learn) or "
+                        "the synthetic experimental domains (bead, rbc)")
+    p.add_argument("--domain", default=None, choices=_DOMAINS,
+                   help="experimental-domain preset (physics + distances)")
+    p.add_argument("--mat-root", type=str, default=None,
+                   help="train from a measured .mat tree (root/train/holography/<distance>/*.mat) "
+                        "instead of synthesized holograms; it has no complex ground truth, so "
+                        "the supervised loss is forced off")
     p.add_argument("--reflect-backend", choices=("auto", "matpad", "einsum", "cuda"), default="auto",
                    help="border handling of the reflect convs (cuda: the ring kernel)")
     p.set_defaults(fn=cmd_train)
 
-    args = parser.parse_args(argv)
-    return args.fn(args)
+    p = sub.add_parser("extract-style", help="mint a representative style vector")
+    _add_common(p)
+    p.add_argument("--out", type=str, default="checkpoints/style_vector.npz")
+    p.add_argument("--n-batches", type=int, default=32)
+    p.add_argument("--bank", default="sklearn", choices=("sklearn", "bead", "rbc"))
+    p.add_argument("--domain", default=None, choices=("mnist", "polystyrene", "red_blood_cell"))
+    p.add_argument("--mat-root", type=str, default=None,
+                   help="average the encoder statistics over measured style-plane patches of "
+                        "this .mat train tree instead of synthesized holograms (overrides --bank)")
+    p.set_defaults(fn=cmd_extract_style)
+
+    p = sub.add_parser("autofocus", help="network-free refocus-sharpness distance search")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--asm-backend", choices=("auto", "torch", "cuda"), default="auto")
+    p.add_argument("--golden", action="store_true",
+                   help="run on the golden suite and report R² against the true distances")
+    p.add_argument("--input", type=str, default=None,
+                   help=".npz/.npy of (N, 1, H, W) intensity holograms")
+    p.add_argument("--key", type=str, default="holo", help="array key inside the .npz")
+    p.add_argument("--domain", type=str, default=None,
+                   help="physics preset (mnist/polystyrene/red_blood_cell)")
+    p.add_argument("--d-min", type=float, default=None)
+    p.add_argument("--d-max", type=float, default=None)
+    p.add_argument("--n-coarse", type=int, default=33)
+    p.add_argument("--n-fine", type=int, default=17)
+    p.add_argument("--metric", choices=("tamura", "grad", "sparsity"), default="tamura")
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--print-distances", action="store_true")
+    p.set_defaults(fn=cmd_autofocus)
+
+    p = sub.add_parser("stream", help="streaming .mat-tree inference (RBC mode)")
+    _add_common(p)
+    p.add_argument("--root", type=str, required=True, help=".mat dataset root")
+    p.add_argument("--domain", type=str, default=None,
+                   help="generic|polystyrene|tissue|red_blood_cell")
+    p.add_argument("--image-set", type=str, default="test")
+    p.add_argument("--distances", type=str, default=None, help="comma list, mm")
+    p.add_argument("--style-distance", type=float, default=None,
+                   help="style-plane distance in mm (default: the domain config's)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--refine", type=int, default=0, metavar="STEPS",
+                   help="physics-consistent refinement steps per frame batch")
+    p.add_argument("--devices", type=int, default=0, choices=(0, 1),
+                   help="devices to stream over (one card; more is not ported)")
+    p.set_defaults(fn=cmd_stream)
+
+    p = sub.add_parser("serve", help="HTTP retrieval server (fixed batch shape; npz in/out)")
+    _add_common(p)
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8100)
+    p.add_argument("--batch-size", type=int, default=32,
+                   help="batch shape of the net; requests are padded/chunked")
+    p.add_argument("--bf16", action="store_true", default=True,
+                   help="bf16 conv path (default on)")
+    p.add_argument("--fp32", dest="bf16", action="store_false")
+    p.add_argument("--refine", type=int, default=0, metavar="STEPS")
+    p.set_defaults(fn=cmd_serve)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    rc = args.fn(args)
+    # eval returns its metrics for a caller in process; only an int is an
+    # exit status
+    return rc if isinstance(rc, int) else 0
 
 
 if __name__ == "__main__":

@@ -157,3 +157,49 @@ class ExperimentConfig:
     @classmethod
     def from_json(cls, s: str) -> "ExperimentConfig":
         return cls.from_dict(json.loads(s))
+
+
+# ---------------------------------------------------------------------------
+# The experimental domains' presets (the JAX package's, field for field).
+# ---------------------------------------------------------------------------
+
+def mnist_config() -> ExperimentConfig:
+    """The bundled MNIST demo."""
+    return ExperimentConfig(name="mnist")
+
+
+def polystyrene_config() -> ExperimentConfig:
+    """The polystyrene-bead domain: 5-20 mm recording distances, mapped into
+    the distance head's (0, 1) by ``distance_normalize`` 25; band-limited,
+    since that range lies far past the sampled transfer function's alias-free
+    one (about 1.1 mm here)."""
+    return ExperimentConfig(
+        name="polystyrene_bead",
+        physics=PhysicsConfig(distance_normalize=25.0, band_limit=True),
+        data=DataConfig(
+            style_distances=(8.0,),
+            content_distances=tuple(float(d) for d in range(5, 21)),
+        ),
+    )
+
+
+def red_blood_cell_config() -> ExperimentConfig:
+    """The red-blood-cell streaming domain: 4-8 mm, band-limited."""
+    return ExperimentConfig(
+        name="red_blood_cell",
+        physics=PhysicsConfig(distance_normalize=10.0, band_limit=True),
+        data=DataConfig(
+            style_distances=(6.0,),
+            content_distances=(4.0, 5.0, 6.0, 7.0, 8.0),
+        ),
+    )
+
+
+DOMAIN_PRESETS = {
+    "mnist": mnist_config,
+    "polystyrene": polystyrene_config,
+    "polystyrene_bead": polystyrene_config,
+    "tissue": polystyrene_config,
+    "red_blood_cell": red_blood_cell_config,
+    "rbc": red_blood_cell_config,
+}

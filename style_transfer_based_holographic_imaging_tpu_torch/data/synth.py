@@ -18,9 +18,17 @@ A batch is made in two parts:
   and content), as the JAX package's synthesis takes its Pallas kernel on
   the TPU.
 
-Digit banks: ``golden_digit_bank`` (the golden suite's GT digits),
-``load_digit_bank`` (an ``.npz``), and ``sklearn_digit_bank`` /
-``mixed_digit_bank``, which need ``sklearn`` and raise where it is absent.
+The JAX package's evaluation streams (the domain records,
+``extract_style_vector``) key ``synth_batch`` with ``jax.random``:
+``jax_key_draws`` takes the same draws from a numpy reproduction of that
+stream (``utils/jax_random.py``), and ``synth_batch_from_key`` renders them,
+so those batches are the JAX package's. The training stream keeps its
+``torch.Generator``.
+
+Banks: ``golden_digit_bank`` (the golden suite's GT digits),
+``load_digit_bank`` (an ``.npz``), ``sklearn_digit_bank`` /
+``mixed_digit_bank``, which need ``sklearn`` and raise where it is absent,
+and the experimental domains' ``bead_bank`` and ``rbc_bank`` (numpy, seeded).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 from style_transfer_based_holographic_imaging_tpu_torch.config import DataConfig, PhysicsConfig
 from style_transfer_based_holographic_imaging_tpu_torch.data.goldens import GOLDEN_HELDOUT_BATCHES
 from style_transfer_based_holographic_imaging_tpu_torch.ops.holo import holo_forward
+from style_transfer_based_holographic_imaging_tpu_torch.utils import jax_random
 
 __all__ = [
     "load_digit_bank",
@@ -41,10 +50,14 @@ __all__ = [
     "mixed_digit_bank",
     "GOLDEN_TRAIN_DIGITS",
     "GOLDEN_HELDOUT_BATCHES",
+    "bead_bank",
+    "rbc_bank",
     "resize_cubic",
     "draw_batch",
+    "jax_key_draws",
     "render_batch",
     "synth_batch",
+    "synth_batch_from_key",
     "stream_generator",
     "InfiniteHologramSampler",
 ]
@@ -196,6 +209,40 @@ def draw_batch(generator: torch.Generator, n_bank: int, data: DataConfig) -> Dic
     return draws
 
 
+def jax_key_draws(key: np.ndarray, n_bank: int, data: DataConfig) -> Dict[str, torch.Tensor]:
+    """The draws of the JAX package's ``synth_batch(key, ...)``, as the dict
+    ``draw_batch`` returns: ``key`` (``jax_random.key`` data) split in 8,
+    sub-keys 0 and 1 the style and content digit indices, 2 the flips, 3 the
+    shifts, 4 and 5 the style and content distance indices, 6 the phase
+    scale and 7 the gamma. A warp config raises: the warp draws ``normal``
+    per sample, which ``utils/jax_random.py`` does not reproduce."""
+    if _warps(data):
+        raise NotImplementedError(
+            "jax_key_draws: the warp (rotate_deg / elastic_px) draws jax.random.normal per "
+            "sample, which the port does not reproduce (ROADMAP A.4)")
+    b = data.batch_size
+    max_shift = int(round(data.translate_frac * data.image_size))
+    ks = jax_random.split(key, 8)
+    lo_s, hi_s = data.phase_scale_range
+    lo_g, hi_g = data.gamma_range
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    return {
+        "idx": t(np.stack([jax_random.randint(ks[0], (b,), 0, n_bank),
+                           jax_random.randint(ks[1], (b,), 0, n_bank)]).astype(np.int64)),
+        "flips": t(jax_random.bernoulli(ks[2], 0.5, (2, b, 2))),
+        "shifts": t(jax_random.randint(ks[3], (2, b, 2), -max_shift, max_shift + 1).astype(np.int64)),
+        "pscale": t(jax_random.uniform(ks[6], (2, b), lo_s, hi_s)),
+        "pgamma": t(jax_random.uniform(ks[7], (2, b), lo_g, hi_g)),
+        "d_idx": t(np.stack([
+            jax_random.randint(ks[4], (b,), 0, len(data.style_distances)),
+            jax_random.randint(ks[5], (b,), 0, len(data.content_distances)),
+        ]).astype(np.int64)),
+    }
+
+
 def render_batch(bank: torch.Tensor, draws: Dict[str, torch.Tensor], data: DataConfig,
                  physics: PhysicsConfig, *, return_gt: bool = False) -> Dict[str, torch.Tensor]:
     """One batch of (style, content) hologram pairs from ``draws``, on
@@ -257,6 +304,14 @@ def synth_batch(iteration: int, bank: torch.Tensor, data: DataConfig, physics: P
     """Batch ``iteration`` of the stream seeded ``data.seed``."""
     draws = draw_batch(stream_generator(data.seed, iteration), bank.shape[0], data)
     return render_batch(bank, draws, data, physics, return_gt=return_gt)
+
+
+def synth_batch_from_key(key: np.ndarray, bank: torch.Tensor, data: DataConfig,
+                         physics: PhysicsConfig, *, return_gt: bool = False) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``synth_batch(key, bank, ...)``: its ``jax.random``
+    draws (``jax_key_draws``) rendered on ``bank``'s device."""
+    return render_batch(bank, jax_key_draws(key, bank.shape[0], data), data, physics,
+                        return_gt=return_gt)
 
 
 class InfiniteHologramSampler:
@@ -336,3 +391,40 @@ def mixed_digit_bank(goldens, *, oversample: int = 36, size: int = 64) -> np.nda
     half the stream (``cli train --bank mixed``). Needs ``sklearn``."""
     golden = golden_digit_bank(goldens, size=size, subset=GOLDEN_TRAIN_DIGITS)
     return np.concatenate([sklearn_digit_bank(size), np.tile(golden, (oversample, 1, 1))], axis=0)
+
+
+def bead_bank(n: int = 512, size: int = 64, *, radius_range=(0.12, 0.3), phase_peak: float = 1.0,
+              seed: int = 0) -> np.ndarray:
+    """Synthetic polystyrene-bead phase objects: 1-3 spherical caps a field,
+    ``peak * sqrt(1 - (r/R)^2)``, from numpy's ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1) - 0.5
+    out = np.zeros((n, size, size), np.float32)
+    for i in range(n):
+        for _ in range(rng.integers(1, 4)):
+            r = rng.uniform(*radius_range)
+            cy, cx = rng.uniform(-0.3, 0.3, 2)
+            rho2 = ((yy - cy) ** 2 + (xx - cx) ** 2) / (r * r)
+            cap = np.sqrt(np.clip(1.0 - rho2, 0.0, 1.0))
+            out[i] = np.maximum(out[i], phase_peak * cap)
+    return out
+
+
+def rbc_bank(n: int = 512, size: int = 64, *, radius_range=(0.15, 0.28), seed: int = 0) -> np.ndarray:
+    """Synthetic red-blood-cell phase objects: 1-4 biconcave discs a field,
+    the Evans-Fung thickness ``sqrt(1 - (r/R)^2) (c0 + c2 (r/R)^2 + c4
+    (r/R)^4)``, each field scaled to a peak of 1; numpy's
+    ``default_rng(seed)``."""
+    c0, c2, c4 = 0.21, 2.0, -1.13
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1) - 0.5
+    out = np.zeros((n, size, size), np.float32)
+    for i in range(n):
+        for _ in range(rng.integers(1, 5)):
+            r = rng.uniform(*radius_range)
+            cy, cx = rng.uniform(-0.32, 0.32, 2)
+            rho2 = np.clip(((yy - cy) ** 2 + (xx - cx) ** 2) / (r * r), 0.0, 1.0)
+            t = np.sqrt(1.0 - rho2) * (c0 + c2 * rho2 + c4 * rho2 * rho2)
+            out[i] = np.maximum(out[i], np.clip(t, 0.0, None))
+    peak = out.reshape(n, -1).max(axis=1, keepdims=True)
+    return (out.reshape(n, -1) / np.maximum(peak, 1e-6)).reshape(n, size, size)

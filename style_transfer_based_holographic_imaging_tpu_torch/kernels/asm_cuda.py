@@ -47,6 +47,7 @@ default) and ``"bf16"`` (one bf16 product).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -355,6 +356,15 @@ def _factors_for(precision: str, h: int, w: int, device: torch.device):
     return _block_factor_tensors(h, w, device)
 
 
+def _named(kernel: str):
+    """A profiler region named after the kernel while a profiler records (a
+    ctypes launch is otherwise unnamed in its trace); nothing otherwise, so
+    that an unprofiled launch pays no host time for it."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(kernel)
+    return contextlib.nullcontext()
+
+
 def _device_of(xre: torch.Tensor) -> str:
     kind = xre.device.type
     if kind not in ("cpu", "cuda"):
@@ -381,7 +391,7 @@ def asm_const(xre, xim, distance: float, *, wavelength, pixel_size, precision=No
     )
     scratch, yre, yim = _launch_buffers(xre)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _named("asm_const"):
         status = _lib().asm_const(
             _PRECISIONS.index(precision),
             xre.data_ptr(), xim.data_ptr(), b, h, w, 2 * h, 2 * w,
@@ -417,7 +427,7 @@ def asm_dynamic(xre, xim, dist, *, wavelength, pixel_size, precision=None):
     kz = _kz_tensor(2 * h, 2 * w, pixel_size, wavelength, dev)
     scratch, yre, yim = _launch_buffers(xre)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _named("asm_dynamic"):
         status = _lib().asm_dynamic(
             _PRECISIONS.index(precision),
             xre.data_ptr(), xim.data_ptr(), b, h, w, 2 * h, 2 * w,

@@ -13,6 +13,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (
     adain,
     adain_with_stats,
     calc_mean_std,
+    coral,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.ops.unwrap import unwrap_phase, wrap_phase
 
@@ -28,6 +29,7 @@ __all__ = [
     "calc_mean_std",
     "adain",
     "adain_with_stats",
+    "coral",
     "unwrap_phase",
     "wrap_phase",
 ]

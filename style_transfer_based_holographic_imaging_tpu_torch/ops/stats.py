@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["calc_mean_std", "adain", "adain_with_stats"]
+__all__ = ["calc_mean_std", "adain", "adain_with_stats", "coral"]
 
 
 def _spatial_axes(ndim: int, channel_axis: int) -> Tuple[int, ...]:
@@ -80,3 +80,38 @@ def adain_with_stats(
     out_dtype = torch.promote_types(content_feat.dtype, style_mean.dtype)
     normalized = (content_feat - content_mean).float() / content_std.float()
     return torch.addcmul(style_mean.float(), normalized, style_std.float()).to(out_dtype)
+
+
+def _flatten_mean_std(feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(C, H, W) -> the flattened features and their per-channel mean and std
+    (unbiased, no eps)."""
+    c = feat.shape[0]
+    flat = feat.reshape(c, -1)
+    mean = flat.mean(dim=-1, keepdim=True)
+    n = flat.shape[-1]
+    var = ((flat - mean) ** 2).sum(dim=-1, keepdim=True) / max(n - 1, 1)
+    return flat, mean, torch.sqrt(var)
+
+
+def _mat_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Symmetric matrix square root through the SVD, ``U sqrt(S) V^T``."""
+    u, s, vt = torch.linalg.svd(x)
+    return (u * torch.sqrt(s)[None, :]) @ vt
+
+
+def coral(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """CORAL: whiten the (C, H, W) ``source`` features with their channel
+    covariance (plus the identity) and colour them with ``target``'s, then
+    restore ``target``'s per-channel std and mean. Off the retrieval path,
+    as in the JAX package."""
+    c = source.shape[0]
+    eye = torch.eye(c, dtype=source.dtype, device=source.device)
+    src_f, src_mean, src_std = _flatten_mean_std(source)
+    src_norm = (src_f - src_mean) / src_std
+    src_cov = src_norm @ src_norm.T + eye
+    tgt_f, tgt_mean, tgt_std = _flatten_mean_std(target)
+    tgt_norm = (tgt_f - tgt_mean) / tgt_std
+    tgt_cov = tgt_norm @ tgt_norm.T + eye
+    transfer = _mat_sqrt(tgt_cov) @ (torch.linalg.inv(_mat_sqrt(src_cov)) @ src_norm)
+    out = transfer * tgt_std + tgt_mean
+    return out.reshape(source.shape)

@@ -190,6 +190,7 @@ def evaluate_golden_suite(
     goldens,
     config: Optional[ExperimentConfig] = None,
     *,
+    save_dir: Optional[str] = None,
     style_override: Optional[Tuple[Any, Any]] = None,
     dtype: Optional[torch.dtype] = None,
     quant_scales: Optional[Dict[str, float]] = None,
@@ -213,6 +214,11 @@ def evaluate_golden_suite(
     ``distance_pred``); with ``refine_distance`` the distance too, and the
     refined distances are the ones reported. 0 keeps the network-only
     inference.
+
+    With ``save_dir`` it also writes the reports of ``eval/report.py`` there:
+    the per-sample montages, the distance box plot and one ``metrics.jsonl``
+    line. The montage planes stay on the device with the metrics and come to
+    the host in one go after the loop.
     """
     config = config or ExperimentConfig()
     physics = config.physics
@@ -231,7 +237,7 @@ def evaluate_golden_suite(
     sm = torch.as_tensor(np.asarray(sm), dtype=torch.float32, device=device)
     ss = torch.as_tensor(np.asarray(ss), dtype=torch.float32, device=device)
 
-    psnr_list, mae_list, preds = [], [], []
+    psnr_list, mae_list, preds, planes = [], [], [], []
     for i in range(goldens.n_batches):
         holo = torch.as_tensor(goldens.content_holo[i], device=device)
         # Host numpy on purpose: an all-equal style distance is hoisted to
@@ -259,6 +265,15 @@ def evaluate_golden_suite(
         psnr_list.append(metrics_mod.psnr(ph_foc, gt_phase))
         mae_list.append(metrics_mod.mae(ph_foc, gt_phase))
         preds.append(out["distance_pred"].reshape(-1))
+        if save_dir is not None:
+            planes.append({
+                "content": torch.sqrt(holo),
+                "amp_field": out["amp_field"],
+                "amp_foc": out["amp_foc"],
+                "ph_field": metrics_mod.zero_mean(out["ph_field"]),
+                "gt_phase": gt_phase,
+                "ph_foc": ph_foc,
+            })
 
     psnr_list = torch.stack(psnr_list).cpu().tolist()
     mae_list = torch.stack(mae_list).cpu().tolist()
@@ -290,4 +305,15 @@ def evaluate_golden_suite(
         metrics["heldout_r2"] = float(
             metrics_mod.r2_score(um[held_samples, 0], um[held_samples, 1])
         )
+
+    if save_dir is not None:
+        from style_transfer_based_holographic_imaging_tpu_torch.eval import report
+
+        montage_batches = [
+            {**{k: v.cpu().numpy() for k, v in p.items()}, "gt_amplitude": goldens.gt_amplitude[i]}
+            for i, p in enumerate(planes)
+        ]
+        report.save_montages(montage_batches, save_dir)
+        report.save_distance_boxplot(um[:, 0], um[:, 1], save_dir)
+        report.save_metrics_jsonl(metrics, save_dir)
     return metrics

@@ -50,6 +50,7 @@ def stream_retrieval(
     style_vector: Tuple[np.ndarray, np.ndarray],
     config: Optional[ExperimentConfig] = None,
     *,
+    style_distance: Optional[float] = None,
     dtype: Optional[torch.dtype] = None,
     stats: Optional[StreamStats] = None,
     refine_steps: int = 0,
@@ -65,8 +66,10 @@ def stream_retrieval(
     size, so the net sees one shape, and the outputs are trimmed back; a
     batch larger than the first yields several dicts.
 
-    ``dtype`` is the fp net's compute dtype (fp32 when None);
-    ``quant_scales`` serves the int8 path in ``dtype`` (bf16 when None). ``refine_steps > 0`` refines each chunk's
+    ``style_distance`` is the style plane in millimetres (the config's first
+    style distance when None). ``dtype`` is the fp net's compute dtype (fp32
+    when None); ``quant_scales`` serves the int8 path in ``dtype`` (bf16 when
+    None). ``refine_steps > 0`` refines each chunk's
     refocused field against its frames (amplitude and phase jointly: the
     experimental domains have no known-amplitude prior).
     """
@@ -84,7 +87,8 @@ def stream_retrieval(
     ss = style_stats_nchw(torch.as_tensor(np.asarray(style_vector[1]), **f32))
     # The style distance in millimetres -> network units, a host float: the
     # refocus takes the constant-distance kernel.
-    d_s = float(config.physics.to_network_units(config.data.style_distances[0]))
+    d_s_mm = config.data.style_distances[0] if style_distance is None else style_distance
+    d_s = float(config.physics.to_network_units(d_s_mm))
 
     # Every batch to the FIRST batch's size, on the host: smaller ones (the
     # ragged tail) padded with their last frame, larger ones chunked.

@@ -226,6 +226,7 @@ def train(
     config: ExperimentConfig,
     *,
     bank: Optional[np.ndarray] = None,
+    sampler=None,
     state: Optional[TrainState] = None,
     iterations: Optional[int] = None,
     device: str | torch.device = "cuda",
@@ -235,7 +236,11 @@ def train(
     CPU); returns the final state, which the step updated in place.
 
     The stream is ``InfiniteHologramSampler`` over ``bank`` (default:
-    ``sklearn_digit_bank``), aligned to the state's step.
+    ``sklearn_digit_bank``), aligned to the state's step. ``sampler``, a
+    ``data.mat_sampler.MeasuredHologramSampler`` over a measured tree, takes
+    its place, its ``iteration`` aligned to the state's step.
+    Measured batches carry no ground truth, so the supervised term stays
+    out of the loss: pass ``supervised_weight=0`` to say so.
     Logs every ``log_every`` steps, to ``log_fn`` and as one JSON line in
     ``<checkpoint_dir>/train_metrics.jsonl``; saves ``iter_<n>`` snapshots
     every ``checkpoint_every`` steps. ``iterations`` defaults to the rest of
@@ -270,15 +275,19 @@ def train(
     if state.disc_params is not None and disc is None:
         disc = make_disc()
 
-    sampler = InfiniteHologramSampler(
-        sklearn_digit_bank() if bank is None else bank, config.data, physics,
-        return_gt=bool(cfg.supervised_weight), start_iteration=state.step, device=device)
+    if sampler is None:
+        sampler = InfiniteHologramSampler(
+            sklearn_digit_bank() if bank is None else bank, config.data, physics,
+            return_gt=bool(cfg.supervised_weight), start_iteration=state.step, device=device)
+    else:
+        sampler.iteration = state.step
     step_fn = TrainStep(net, physics, cfg, disc=disc)
     n_iter = max(cfg.iterations - state.step, 0) if iterations is None else iterations
 
     start = state.step
     t0 = time.time()
     for i, batch in zip(range(n_iter), sampler):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         dropout = stream_generator(config.data.seed + 2, state.step) if cfg.use_dropout else None
         state, aux = step_fn(state, batch, dropout)
         step = start + i + 1

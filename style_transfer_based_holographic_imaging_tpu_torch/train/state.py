@@ -258,8 +258,9 @@ def latest_snapshot(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, iters[-1]) if iters else None
 
 
-def load_train_params(path: str) -> Params:
-    """The generator's state dict of a snapshot, the EMA where the run kept
-    one, for ``StyleTransferNet.from_state_dict`` (serving a trained run)."""
+def load_train_params(path: str, *, ema: bool = True) -> Params:
+    """The generator's state dict of a snapshot, for
+    ``StyleTransferNet.from_state_dict``: the EMA where the run kept one and
+    ``ema`` is set, else the params."""
     tree = torch.load(os.path.join(path, "state.pt"), map_location="cpu", weights_only=True)
-    return dict(tree.get("ema_params", tree["params"]))
+    return dict(tree["ema_params"] if ema and "ema_params" in tree else tree["params"])

@@ -15,7 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(port.__file__)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "style_transfer_based_holographic_imaging_tpu")
 # Scripts of the port that run where JAX is absent.
-SCRIPTS = ("chip_smoke.py", os.path.join("scripts", "port_exp_halo_conv.py"))
+SCRIPTS = ("chip_smoke.py", os.path.join("scripts", "port_exp_halo_conv.py"),
+           os.path.join("scripts", "port_exp_asm_host.py"))
 
 
 def _port_modules():

@@ -617,12 +617,14 @@ def test_cli_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--dtype", "bfloat16"], ["--tensorboard-dir", "tb"], ["--domain", "rbc"], ["--mat-root", "m"],
-    ["--devices", "2"], ["--partition", "zero1"], ["--model-devices", "2"], ["--bank", "bead"],
+    ["--dtype", "bfloat16"], ["--tensorboard-dir", "tb"], ["--domain", "mars"], ["--bank", "mnist"],
+    ["--devices", "2"], ["--partition", "zero1"], ["--model-devices", "2"], ["--dtype", "float16"],
 ])
 def test_cli_train_rejects_flags_it_does_not_implement(flag, capsys):
-    """The JAX package's flags that the port does not implement are refused
-    by argparse with a message and exit code 2, never silently accepted."""
+    """The JAX package's flags that the port does not implement, and values
+    outside a flag's choices, are refused by argparse with a message and
+    exit code 2, never silently accepted. (``--domain``, ``--mat-root`` and
+    ``--bank bead|rbc`` are implemented: ``tests/test_torch_eval_cli.py``.)"""
     with pytest.raises(SystemExit) as exit_:
         cli.main(["train", "--cpu", "--iterations", "1", *flag])
     assert exit_.value.code == 2

@@ -13,6 +13,7 @@ itself at 1e-4 of max and bit for bit, so such a chunk would fail them.
 that sequence until two rounds in a row agree with numpy, then leaves
 torch's thread count as it found it: the comparisons run multi-threaded,
 the port's handler threads and prefetch included.
+``warm_few_torch_threads`` does the same at fewer threads.
 """
 
 import numpy as np
@@ -46,3 +47,21 @@ def warm_thread_pool() -> int:
 def warm_torch_threads():
     warm_thread_pool()
     yield
+
+
+#: torch's CPU threads in a module that uses ``warm_few_torch_threads``.
+FEW_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def warm_few_torch_threads():
+    """``warm_torch_threads`` at FEW_THREADS threads, the count restored
+    after the module. The suite runs in parallel workers on a host with as
+    many cores as torch takes threads by default, and a small model's ops
+    then wait on threads that other workers hold: at two threads such a
+    test takes a fraction of its time under that load."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(FEW_THREADS)
+    warm_thread_pool()
+    yield
+    torch.set_num_threads(n)
