@@ -35,7 +35,7 @@ line naming it and ends the run with exit code 3; nothing hangs):
    both ASM kernels must have launched. Then one golden batch on the card
    against the same port on the CPU.
 5. ``refine``  — physics refinement, whose steps differentiate the
-   propagator: the gradients of ``asm_cuda.AsmConst`` and ``AsmDynamic``
+   propagator: the gradients of the ops ``asm_const`` and ``asm_dynamic``
    (the kernels forward, the composition's adjoint in ``torch.fft``
    backward) against
    ``propagate_torch`` autograd at B = 5 and 256, in ``high`` and
@@ -151,12 +151,33 @@ line naming it and ends the run with exit code 3; nothing hangs):
    and batch (aux, the gradients of both against a float64 evaluation on
    the card, the optimizer given the same gradients, the states); (c) the
    same draws rendered through ``asm_dynamic`` and ``torch.fft``; (d) the
-   ``cuda`` ring's gradients (``BorderLines``) at each of a step's reflect
+   ``cuda`` ring's gradients (the op ``border_lines``) at each of a step's reflect
    convs against ``matpad`` and ``einsum``, and one train step with the
    ring against ``matpad`` (38 ring launches); (e) TRAIN_LEARN_STEPS steps
    on a fixed batch at lr 1e-4, the total loss must fall, timed with CUDA
    events and split into synthesis, generator forward+backward,
    optimizer+EMA and the discriminator's step, with the peak memory.
+17. ``export`` — (after ``domain``) the frozen serving artifact: ``fast``
+   exported with ``torch.export`` from ``torch_weights.npz`` (fp32, batch
+   32, the refocus as the op ``holostyle::asm_const``, ``("cuda",)``) into
+   a temp directory, its seconds and bytes; the file loaded in a fresh
+   process and ``RetrievalService`` built from the checkpoint in another,
+   beside this process's exports and checks below, each timed from
+   the process's start to its imports, its program and its first answer
+   (the artifact's process must import no model code and no JAX); the
+   artifact against
+   the live ``RetrievalService`` (fp32, the ``cuda`` refocus) on golden
+   batch 10 (``ARTIFACT_TOL``); the whole suite through
+   ``evaluate_golden_suite(retrieval_fn=...)`` over the artifact within the
+   ``golden`` phase's limits of ``golden_metrics.json``, ``asm_const``
+   counted at exactly 20 launches; the int8 export with the stacks on (its
+   graph holds the head and tail ops) against the live int8 stacks-on
+   path; one HTTP round trip through ``ArtifactService``; CUDA-event
+   medians of the artifact's call and the live call at batch 32.
+18. ``commands`` — ``cli synth-bench`` at batch 256 (its line, 51
+   ``asm_dynamic`` launches); ``cli sweep`` on ``fast`` (3 ``asm_dynamic``
+   launches), its functions card against CPU and its montage against the
+   CPU's; ``cli doctor`` lists the card; ``stylize`` card against CPU.
 
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -194,7 +215,11 @@ from torch.func import functional_call  # noqa: E402
 
 from style_transfer_based_holographic_imaging_tpu_torch import ExperimentConfig  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch import cli as port_cli  # noqa: E402
-from style_transfer_based_holographic_imaging_tpu_torch.config import DOMAIN_PRESETS  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.config import (  # noqa: E402
+    DOMAIN_PRESETS,
+    DataConfig,
+    PhysicsConfig,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data import synth  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.data.mat_sampler import (  # noqa: E402
@@ -211,6 +236,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.kernels import (  # noqa
     asm_cuda,
     conv_stack,
     halo_conv,
+    library,
     reflect_border,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models import (  # noqa: E402
@@ -231,6 +257,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # no
     calc_mean_std,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # noqa: E402
+    ArtifactService,
     RetrievalService,
     StreamStats,
     evaluate_golden_suite,
@@ -243,6 +270,12 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # no
     retrieve_remote,
     serve_forever,
     stream_retrieval,
+    stylize,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.export_artifact import (  # noqa: E402
+    export_retrieval,
+    load_artifact,
+    save_artifact,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines.style_vector import (  # noqa: E402
     style_vector_from_holograms,
@@ -262,10 +295,12 @@ from style_transfer_based_holographic_imaging_tpu_torch.train.state import (  # 
     make_disc_optimizer,
     make_optimizer,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.utils import jax_random  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.utils.bench import (  # noqa: E402
     head_library,
     median_ms,
     recording_ring_layers,
+    ring_inputs,
     seeded_stack,
     time_ring_layers,
 )
@@ -286,7 +321,8 @@ TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
     "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
-    "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "train": 90.0, "timing": 120.0,
+    "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "export": 45.0, "commands": 30.0,
+    "train": 90.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
 # (B, H, W) where the ASM kernels' tensor-core tiles are ragged: the card
@@ -333,7 +369,7 @@ REFLECT_CONVS = 20
 # positions with output channels off a multiple of 64; the first is timed.
 RING_LAYERS = ((64, 128, 128, 64), (3, 128, 128, 64), (64, 64, 64, 128), (512, 16, 16, 256),
                (64, 127, 128, 64), (64, 16, 16, 40), (256, 32, 32, 96))
-# Physics refinement: the Functions' gradients against propagate_torch
+# Physics refinement: the ASM ops' gradients against propagate_torch
 # autograd, max|err| / max|ref| (the JAX package's gradient budget, rtol
 # 1e-3); the refine of golden batch 10 from its GT phase plus REFINE_NOISE_RAD
 # of noise, on the card against the CPU, PSNR within REFINE_DB_TOL.
@@ -342,7 +378,7 @@ REFINE_STEPS = 100
 REFINE_BATCH = 10
 REFINE_NOISE_RAD = 0.3
 REFINE_DB_TOL = 0.05
-REFINE_PAIRS = 10  # timed refines through each backend at B_TIMING
+REFINE_PAIRS = 4  # timed refines through each backend at B_TIMING
 B_TIMING = 256
 IMAGE = 128
 SERVING_REFOCUS_M = -2e-4  # -d_style = -0.2 mm, the golden suite's style plane
@@ -366,8 +402,8 @@ SUITE_R2 = 1e-4
 SERVE_REQUESTS = (1, 5, 37)
 SERVE_BATCH = 32
 SERVE_REFINE_STEPS = 10
-SERVE_TIMED = 10
-WIRE_TIMED = 3
+SERVE_TIMED = 5
+WIRE_TIMED = 2
 STREAM_BATCH = 8
 # The eval phase: `cli eval` on the fast release, its metrics within
 # EVAL_DB of the record (mean and held-out PSNR) and R² within EVAL_R2, one
@@ -398,6 +434,72 @@ MAT_TRAIN_STEPS = 2
 STYLE_TOL = 1e-4
 DOMAIN_BATCH = 32
 DOMAINS = {"rbc": ("red_blood_cell", synth.rbc_bank), "bead": ("polystyrene", synth.bead_bank)}
+# The export phase: `fast` frozen at EXPORT_BATCH through the asm_const op;
+# the artifact against the live RetrievalService on one golden batch within
+# ARTIFACT_TOL of max (bit for bit expected: the same aten graph on the
+# same card), the suite through it within the golden phase's limits with
+# one asm_const a batch, the int8 export with the stacks on against the
+# live int8 path alike, one HTTP round trip; cold starts in fresh processes
+# (COLD_TIMEOUT_S each); EXPORT_TIMED calls of each path timed. The
+# commands phase: `synth-bench` at SYNTH_BENCH_BATCH (SYNTH_BENCH_REPS + 1
+# asm_dynamic launches: the warm-up and the timed calls), `sweep` on `fast`
+# (two asm_dynamic for the synthesis, one for the per-plane refocus), card
+# against CPU: holograms within SYNTH_TOL, each plane's PSNR within
+# GOLDEN_FP32_BATCH_DB, distances within GOLDEN_UM, the written montage
+# within one grey level of the CPU's on all but GREY_SHARE of its pixels;
+# `doctor`; `stylize` card against CPU within SLICE_AMP_TOL.
+EXPORT_BATCH = 32
+ARTIFACT_TOL = 1e-6
+COLD_TIMEOUT_S = 60.0
+EXPORT_TIMED = 10
+SYNTH_BENCH_BATCH = 256
+SYNTH_BENCH_REPS = 50
+SWEEP_DISTANCES = (0.2, 0.4, 0.6, 0.8)
+SWEEP_LAUNCHES = {"asm_const": 0, "asm_dynamic": 3}
+GREY_SHARE = 1e-3
+# A fresh process's first answer: argv is the repo, what to load, the
+# holograms' .npy. It prints when (time.time()) its imports were done, its
+# program was loaded and it answered, the port's modules it imported, and
+# whether JAX is among them.
+_COLD_TAIL = r"""
+torch.cuda.synchronize()
+answered_at = time.time()
+port = "style_transfer_based_holographic_imaging_tpu_torch."
+mods = sorted(m[len(port):] for m in sys.modules if m.startswith(port))
+print(json.dumps({"imported_at": imported_at, "loaded_at": loaded_at, "answered_at": answered_at,
+                  "ph_foc_sum": float(out["ph_foc"].sum()),
+                  "model_code": [m for m in mods
+                                 if m.startswith("models") or m == "pipelines.field_retrieval"],
+                  "jax": "jax" in sys.modules}))
+"""
+COLD_ARTIFACT = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.export_artifact import load_artifact
+imported_at = time.time()
+art = load_artifact(sys.argv[2])
+loaded_at = time.time()
+out = art.retrieve(np.load(sys.argv[3]))
+""" + _COLD_TAIL
+COLD_LIVE = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from style_transfer_based_holographic_imaging_tpu_torch.config import ExperimentConfig
+from style_transfer_based_holographic_imaging_tpu_torch.interop import load_release_weights, load_style_vector
+from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.server import RetrievalService
+imported_at = time.time()
+with open(os.path.join(sys.argv[2], "config.json")) as f:
+    cfg = ExperimentConfig.from_json(f.read())
+net = StyleTransferNet.from_state_dict(
+    load_release_weights(os.path.join(sys.argv[2], "torch_weights.npz")), cfg.model.width)
+style = load_style_vector(os.path.join(sys.argv[2], "style_vector.npz"))
+service = RetrievalService(net, style, cfg, batch_size=32)
+loaded_at = time.time()
+out = service.retrieve(np.load(sys.argv[3]))
+""" + _COLD_TAIL
 # The train phase: steps of train() at the flagship's batch; the one-step
 # comparisons' batch; the fixed-batch run at TRAIN_LEARN_LR, its first
 # TRAIN_WARMUP steps untimed. Tolerances: aux terms 1e-4 relative. The
@@ -450,10 +552,17 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# Subprocesses of the run (the export phase's cold starts), stopped on the
+# way out.
+_CHILDREN: list = []
+
+
 def _die(message: str, code: int) -> None:
     print(message, file=sys.stderr, flush=True)
     emit({"error": message})
     _build.kill_build()
+    for child in _CHILDREN:
+        child.kill()
     os._exit(code)
 
 
@@ -653,8 +762,8 @@ def _grads_of(fn, xre, xim, dist, weights):
 
 
 def check_function_grads(physics, device, batches=(5, 256)):
-    """AsmConst's field gradient and AsmDynamic's field and distance
-    gradients against propagate_torch autograd on the card."""
+    """The asm_const op's field gradient and the asm_dynamic op's field and
+    distance gradients against propagate_torch autograd on the card."""
     kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
     rows = []
     for b in batches:
@@ -670,10 +779,10 @@ def check_function_grads(physics, device, batches=(5, 256)):
 
         for prec in ("high", "highest"):
             for name, fn, d in (
-                ("asm_const", lambda xr, xi, p=prec: asm_cuda.AsmConst.apply(
-                    xr, xi, SERVING_REFOCUS_M, kw["wavelength"], kw["pixel_size"], p), None),
-                ("asm_dynamic", lambda xr, xi, dd, p=prec: asm_cuda.AsmDynamic.apply(
-                    xr, xi, dd, kw["wavelength"], kw["pixel_size"], p), dist),
+                ("asm_const", lambda xr, xi, p=prec: asm_cuda.asm_const(
+                    xr, xi, SERVING_REFOCUS_M, precision=p, **kw), None),
+                ("asm_dynamic", lambda xr, xi, dd, p=prec: asm_cuda.asm_dynamic(
+                    xr, xi, dd, precision=p, **kw), dist),
             ):
                 got = _grads_of(fn, xre, xim, d, weights)
                 ref = _grads_of(fft, xre, xim, d, weights)
@@ -747,7 +856,7 @@ def time_refine(goldens, physics, device, b: int = B_TIMING):
     CUDA events, through the kernels (``auto``) and through torch.fft alone
     (``torch``): REFINE_PAIRS pairs, which path runs first alternating, each
     path's median and quartiles, and the pairs the kernel path won; then at
-    the same shapes the forward kernel (asm_dynamic) and the Function's
+    the same shapes the forward kernel (asm_dynamic) and the op's
     backward (the adjoint) alone, and torch autograd's backward of
     ``propagate_torch``, each a median of CUDA-event times; the rest of a
     step is what neither takes."""
@@ -775,7 +884,7 @@ def time_refine(goldens, physics, device, b: int = B_TIMING):
     okw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
     fwd_ms = median_ms(lambda: asm_cuda.asm_dynamic(xre, xim, dist, **okw))
     xr, xi = xre.clone().requires_grad_(), xim.clone().requires_grad_()
-    yre, yim = asm_cuda.AsmDynamic.apply(xr, xi, dist, okw["wavelength"], okw["pixel_size"], None)
+    yre, yim = asm_cuda.asm_dynamic(xr, xi, dist, **okw)
     gre, gim = torch.randn_like(yre), torch.randn_like(yim)
     bwd_ms = median_ms(lambda: torch.autograd.grad((yre, yim), (xr, xi), (gre, gim), retain_graph=True))
     y = propagate_torch(torch.complex(xr, xi), dist.reshape(b, 1, 1), **okw)
@@ -810,6 +919,7 @@ HALO_KERNELS = {"halo_conv_tail": halo_conv.halo_conv_tail,
                 "halo_conv_tail_static": halo_conv.halo_conv_tail_static}
 # Each kernel's row in scripts/port_exp_halo_conv.py.
 HALO_ROWS = {"halo_conv_tail": "halo", "halo_conv_tail_static": "halo_static"}
+HALO_OPS = {"halo_conv_tail": "halo_interior", "halo_conv_tail_static": "halo_interior_static"}
 # bf16 ulps of max|ref| allowed where the strips' conv differs by device.
 HALO_EDGE_ULPS = 4
 # Ragged shapes (B, C, H, W) of the tail's tensor-core tiles: the widths of
@@ -826,14 +936,6 @@ HEAD_ODD_SHAPES = ((2, 1, 16, 20, 34), (2, 3, 24, 34, 20), (2, 1, 32, 36, 40), (
 # The halo tail's: ((B, C, H, W), bh), W off the 16-column tile, the row
 # tiles 12 and 16 rows high.
 HALO_ODD_SHAPES = (((2, 24, 56, 34), 24), ((2, 48, 40, 20), 16))
-
-
-def ring_args(b: int, dtype, layer, seed: int, device):
-    c, h, w, o = layer
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn(b, c, h, w, generator=g).to(device, dtype)
-    k = (torch.randn(o, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5).to(device, dtype)
-    return x, k
 
 
 def check_conv_kernels(device, batches=(5, 256)):
@@ -863,7 +965,7 @@ def check_conv_kernels(device, batches=(5, 256)):
                           conv_stack.fused_conv_tail, conv_stack.conv_tail_plain))
             for layer in RING_LAYERS:
                 cases.append(("border_lines", b, dtype, layer,
-                              lambda b=b, dt=dtype, layer=layer: ring_args(b, dt, layer, b, device),
+                              lambda b=b, dt=dtype, layer=layer: ring_inputs(b, layer, b, device, dt),
                               reflect_border.border_lines, reflect_border.border_lines_plain))
     for name, b, dtype, layer, make, run, plain in cases:
         args = make()
@@ -1017,9 +1119,10 @@ def time_halo(device):
             for row, static in (("halo", False), ("halo_static", True)):
                 t[f"{row}_interior_bh{bh}"] = median_ms(lambda: halo_conv.halo_interior(
                     *a, bh=bh, static=static), reps=7)
-            t[f"plain_bh{bh}"] = median_ms(lambda: halo_conv.halo_conv_tail_plain(*a, bh=bh), reps=5)
+            t[f"plain_bh{bh}"] = median_ms(lambda: halo_conv.halo_conv_tail_plain(*a, bh=bh),
+                                           reps=3, warmup=1)
             t[f"plain_interior_bh{bh}"] = median_ms(
-                lambda: halo_conv.halo_interior_plain(*a, bh=bh), reps=5)
+                lambda: halo_conv.halo_interior_plain(*a, bh=bh), reps=3, warmup=1)
         out[_dt(dtype)] = t
         del a
     return out
@@ -1725,7 +1828,7 @@ def synthesis_card_vs_cpu(cfg, bank, device):
 
 def ring_gradients(layers, device, b: int = RING_GRAD_BATCH) -> list:
     """(d) The gradients of a ReflectConv through the ``cuda`` ring (the
-    kernel forward, ``BorderLines``' plain VJP backward) against ``matpad``
+    kernel forward, the plain version's VJP backward) against ``matpad``
     and ``einsum`` autograd, x, weight and bias, at each distinct layer
     ``(C, H, W, O)`` of a step, on the card."""
     rows = []
@@ -2012,6 +2115,238 @@ def drive_domain(dev, smi):
     return info
 
 
+def start_cold(script: str, *args: str):
+    """Start ``script`` in a fresh Python process on the card: (the
+    process, when it was started)."""
+    t0 = time.time()
+    child = subprocess.Popen([sys.executable, "-c", script, REPO, *args],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(child)
+    return child, t0
+
+
+def finish_cold(child, t0: float) -> dict:
+    """The reading of a ``start_cold`` process, with the seconds from its
+    start to its first answer and to each step before it."""
+    try:
+        out, err = child.communicate(timeout=COLD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        _die(f"a cold start took over {COLD_TIMEOUT_S} s", 3)
+    _CHILDREN.remove(child)
+    if child.returncode != 0:
+        _die(f"a cold start failed: {err[-2000:]}", 1)
+    reading = json.loads(out.strip().splitlines()[-1])
+    for step in ("imported", "loaded", "answered"):
+        reading[f"seconds_to_{step}"] = reading.pop(f"{step}_at") - t0
+    return reading
+
+
+def artifact_vs(got: dict, want: dict) -> dict:
+    """max|got - want| / max|want| by key; fails the run past ARTIFACT_TOL."""
+    diffs = {k: float(np.abs(got[k] - want[k]).max() / max(float(np.abs(want[k]).max()), 1e-30))
+             for k in want}
+    if set(got) != set(want) or not all(v <= ARTIFACT_TOL for v in diffs.values()):
+        _die(f"the artifact and the live path disagree: {diffs}", 1)
+    return {"rel_err": diffs, "bit_equal": not any(diffs.values())}
+
+
+def drive_export(fast_net, fast_cfg, fast_style, fast_scales, records, goldens, dev, smi):
+    """The export phase (see the module docstring); returns its readings."""
+    physics = fast_cfg.physics
+    d_style = float(physics.to_network_units(fast_cfg.data.style_distances[0]))
+    holo = goldens.content_holo[10]
+    all_holo = goldens.content_holo.reshape(-1, 1, IMAGE, IMAGE)
+    kw = dict(batch_size=EXPORT_BATCH, asm_backend="cuda")
+    t0, stages = time.monotonic(), {}
+
+    def mark(stage):
+        # where the phase's time went, on stderr as it goes (an overrun shows it)
+        stages[stage] = time.monotonic() - t0
+        print(json.dumps({"export_stage": stage, "seconds": stages[stage]}), file=sys.stderr, flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        path, holo_path = os.path.join(tmp, "fast.hstx"), os.path.join(tmp, "holo.npy")
+        np.save(holo_path, holo)
+        # The two cold starts run beside this process's export and checks
+        # (the service's from the start, the artifact's once it is written);
+        # the timings wait for them.
+        children = {"retrieval_service": start_cold(COLD_LIVE, FAST, holo_path)}
+        blob, meta = export_retrieval(fast_net, fast_style, fast_cfg, **kw)
+        save_artifact(path, blob, meta)
+        mark("export")
+        file_bytes = os.path.getsize(path)
+        children["artifact"] = start_cold(COLD_ARTIFACT, path, holo_path)
+        art = load_artifact(path, dev)
+        graph_ops = library.graph_ops(art._module.graph)
+        live = RetrievalService(fast_net, fast_style, fast_cfg, batch_size=EXPORT_BATCH, device=dev)
+        vs_live = artifact_vs(art.retrieve(holo), live.retrieve(holo))
+        mark("vs_live")
+
+        # The suite through the frozen file, one asm_const a batch.
+        asm_cuda.reset_launches()
+        suite = evaluate_golden_suite(
+            None, goldens, fast_cfg, style_override=fast_style, device=dev,
+            retrieval_fn=lambda net, h, sm, ss, d: art.retrieve(h.cpu().numpy()))
+        torch.cuda.synchronize()
+        launches = dict(asm_cuda.LAUNCHES)
+        rec = records["fp32"]
+        batch_db = max(abs(a - b) for a, b in zip(suite["psnr_per_batch"], rec["psnr_per_batch"]))
+        um = max(abs(a - b) for a, b in zip(suite["distance_pred_um"], rec["distance_pred_um"]))
+        mark("suite")
+
+        # int8 with the stacks on: the head and tail ops in the graph.
+        quant.set_fused_stacks("on")
+        try:
+            qpath = os.path.join(tmp, "fast_int8.hstx")
+            save_artifact(qpath, *export_retrieval(
+                fast_net, fast_style, fast_cfg, quant_scales=fast_scales, **kw))
+            qart = load_artifact(qpath, dev)
+            conv_stack.reset_launches()
+            q_got = qart.retrieve(holo)
+            torch.cuda.synchronize()
+            q_launches = dict(conv_stack.LAUNCHES)
+            q_want = direct_answer(make_retrieval_fn(physics, quant_scales=fast_scales, device=dev),
+                                   fast_net, holo, fast_style, d_style, EXPORT_BATCH, dev)
+        finally:
+            quant.set_fused_stacks("auto")
+        q_ops = library.graph_ops(qart._module.graph)
+        int8_vs_live = artifact_vs(q_got, q_want)
+        mark("int8")
+
+        service = ArtifactService(path, dev)
+        service.warmup()
+        with serving(service) as url:
+            answer = retrieve_remote(url, holo)
+            with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+        check_equal(answer, service.retrieve(holo), "the artifact served over HTTP")
+        mark("http")
+        cold = {k: finish_cold(*v) for k, v in children.items()}
+        mark("cold_starts")
+
+        x = torch.from_numpy(all_holo[:EXPORT_BATCH]).to(dev)
+        fn = make_retrieval_fn(physics, device=dev)
+        style_dev = tuple(torch.as_tensor(v, device=dev) for v in fast_style)
+        ms = {"artifact": median_ms(lambda: art(x), reps=EXPORT_TIMED, warmup=2),
+              "live": median_ms(lambda: fn(fast_net, x, *style_dev, d_style), reps=EXPORT_TIMED, warmup=2)}
+        mark("timed")
+    want_ops = ["holostyle.asm_const.default"]
+    misses = []
+    if graph_ops != want_ops or meta["ops"] != want_ops:
+        misses.append("the fp32 graph's ops")
+    if sorted(set(q_ops)) != sorted(["holostyle.asm_const.default", "holostyle.fused_conv_tail.default",
+                                     "holostyle.fused_encoder_head.default"]):
+        misses.append("the int8 graph's ops")
+    if launches != {"asm_const": goldens.n_batches, "asm_dynamic": 0}:
+        misses.append("the suite's launches")
+    if not (batch_db < GOLDEN_BATCH_DB and batch_db < GOLDEN_FP32_BATCH_DB and um < GOLDEN_UM):
+        misses.append("the suite against its record")
+    if q_launches != {"fused_encoder_head": 1, "fused_conv_tail": 1}:
+        misses.append("the int8 stacks' launches")
+    if cold["artifact"]["model_code"] or cold["artifact"]["jax"]:
+        misses.append("the artifact's process imported model code or JAX")
+    want_health = {"status", "device", "artifact", "platforms", "batch_size", "image_size", "width",
+                   "quantized", "refine_steps", "n_served"}
+    if set(health) != want_health or health["artifact"] != path or health["platforms"] != ["cuda"]:
+        misses.append("/healthz")
+    info = {"nvidia_smi": smi, "batch": EXPORT_BATCH, "export_seconds": stages["export"],
+            "stage_seconds": stages, "file_bytes": file_bytes,
+            "graph_ops": graph_ops, "int8_graph_ops": sorted(set(q_ops)), "cold_start": cold,
+            "vs_live_service": vs_live, "int8_vs_live": int8_vs_live, "tol": ARTIFACT_TOL,
+            "suite": {"mean_psnr": suite["mean_psnr"], "record_mean_psnr": rec["mean_psnr"],
+                      "r2": suite["r2"], "max_batch_psnr_diff_db": batch_db,
+                      "max_distance_diff_um": um,
+                      "limits": [GOLDEN_BATCH_DB, GOLDEN_FP32_BATCH_DB, GOLDEN_UM]},
+            "launches": launches, "int8_launches": q_launches, "health": health, "call_ms": ms,
+            "holograms_per_s": {k: EXPORT_BATCH / v * 1e3 for k, v in ms.items()}}
+    if misses:
+        emit({"export_readings": info})
+        _die(f"the export phase missed {misses}", 1)
+    return info
+
+
+def _sweep(net, style, goldens, device):
+    """What ``cli sweep`` computes (seed 0), on ``device``: the batch and
+    the retrieval."""
+    physics = PhysicsConfig()
+    bank = torch.from_numpy(synth.golden_digit_bank(goldens)).to(device)
+    batch = synth.synth_interpolation_batch(
+        jax_random.key(0), bank, data=DataConfig(style_distances=SWEEP_DISTANCES), physics=physics)
+    out = retrieval_step(net, batch["content_holo"] ** 2, style[0], style[1],
+                         batch["distance_style"], physics, device=device)
+    return {k: v.float().cpu() for k, v in {**batch, **out}.items()}
+
+
+def drive_commands(fast_net, fast_cfg, fast_style, goldens, dev, card_name, smi):
+    """The commands phase (see the module docstring); returns its readings."""
+    from PIL import Image
+
+    from style_transfer_based_holographic_imaging_tpu_torch.eval.report import to_image
+
+    misses = []
+    asm_cuda.reset_launches()
+    lines, _ = run_cli(["synth-bench", "--batch-size", str(SYNTH_BENCH_BATCH)])
+    torch.cuda.synchronize()
+    bench = {"line": json.loads(lines[-1]), "launches": dict(asm_cuda.LAUNCHES)}
+    if bench["launches"] != {"asm_const": 0, "asm_dynamic": SYNTH_BENCH_REPS + 1}:
+        misses.append("synth-bench's launches")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        asm_cuda.reset_launches()
+        sweep_lines, _ = run_cli(["sweep", "--checkpoint", FAST, "--save-dir", tmp])
+        torch.cuda.synchronize()
+        sweep_launches = dict(asm_cuda.LAUNCHES)
+        montage = np.asarray(Image.open(os.path.join(tmp, "interpolation_sweep.png")))
+    net_cpu = copy.deepcopy(fast_net).cpu()
+    card, cpu = _sweep(fast_net, fast_style, goldens, dev), _sweep(net_cpu, fast_style, goldens, "cpu")
+    planes = ("content_holo", "amp_field", "amp_foc", "ph_foc")
+    grid = to_image(np.concatenate([np.concatenate([cpu[k][i, 0].numpy() for k in planes], axis=1)
+                                    for i in range(len(SWEEP_DISTANCES))], axis=0))
+    grey = np.abs(montage.astype(np.int32) - grid.astype(np.int32))
+
+    def plane_psnr(out):
+        return [float(psnr(zero_mean(out["ph_foc"][i]), zero_mean(out["phase_content"][i])))
+                for i in range(len(SWEEP_DISTANCES))]
+
+    sweep = {
+        "printed": sweep_lines, "launches": sweep_launches,
+        "holo_rel_err": max(rel_err(card[k], cpu[k]) for k in ("style_holo", "content_holo")),
+        "psnr_db": _max_diff(plane_psnr(card), plane_psnr(cpu)),
+        "card_psnr": plane_psnr(card),
+        "distance_um": 1e3 * PhysicsConfig().distance_normalize
+        * _max_diff(card["distance_pred"], cpu["distance_pred"]),
+        "montage_grey_max": int(grey.max()), "montage_grey_share_over_1": float((grey > 1).mean()),
+        "limits": [SYNTH_TOL, GOLDEN_FP32_BATCH_DB, GOLDEN_UM, GREY_SHARE],
+    }
+    if not (sweep_launches == SWEEP_LAUNCHES and sweep["holo_rel_err"] < SYNTH_TOL
+            and sweep["psnr_db"] < GOLDEN_FP32_BATCH_DB and sweep["distance_um"] < GOLDEN_UM
+            and sweep["montage_grey_share_over_1"] <= GREY_SHARE and montage.shape == grid.shape):
+        misses.append("sweep")
+
+    doctor_lines, _ = run_cli(["doctor"])
+    doctor = json.loads("\n".join(doctor_lines))
+    # A copy without the orbax directories lists no release; where `fast`
+    # is listed, its numpy weights are beside it.
+    if card_name not in doctor["devices"] or not doctor["releases"].get(
+            "fast", {"torch_weights": True})["torch_weights"]:
+        misses.append("doctor")
+
+    content, style = np.sqrt(goldens.content_holo[10]), np.sqrt(goldens.content_holo[0])
+    s_card = stylize(fast_net, content, style)
+    s_cpu = stylize(net_cpu, content, style)
+    styl = {k: rel_err(s_card[k].cpu(), s_cpu[k]) for k in s_cpu}
+    if not all(v < SLICE_AMP_TOL for v in styl.values()):
+        misses.append("stylize")
+    info = {"nvidia_smi": smi, "synth_bench": bench, "sweep": sweep,
+            "doctor_devices": doctor["devices"], "doctor_releases": sorted(doctor["releases"]),
+            "stylize_rel_err": styl, "stylize_tol": SLICE_AMP_TOL}
+    if misses:
+        emit({"commands_readings": info})
+        _die(f"the commands phase missed {misses}", 1)
+    return info
+
+
 def main() -> int:
     with Phase("device") as phase:
         smi = phase_device()
@@ -2203,6 +2538,15 @@ def main() -> int:
         domain_info = drive_domain(dev, smi)
         phase.info = domain_info
 
+    with Phase("export") as phase:
+        export_info = drive_export(fast_net, fast_cfg, fast_style, fast_scales, fast_records, goldens,
+                                   dev, smi)
+        phase.info = export_info
+
+    with Phase("commands") as phase:
+        commands_info = drive_commands(fast_net, fast_cfg, fast_style, goldens, dev, name, smi)
+        phase.info = commands_info
+
     with Phase("train") as phase:
         train_bank = synth.golden_digit_bank(goldens, subset=synth.GOLDEN_TRAIN_DIGITS)
         train_run = drive_train(cfg, train_bank, dev)
@@ -2287,13 +2631,13 @@ def main() -> int:
                     median_ms(lambda: run(*a), reps=7), median_ms(lambda: plain(*a), reps=5),
                     median_ms(lambda: lib(*a), reps=7))
                 del a
-            x, k = ring_args(b, dtype, RING_LAYERS[0], 2, dev)
+            x, k = ring_inputs(b, RING_LAYERS[0], 2, dev, dtype)
             conv_timings["border_lines", dtype] = (
                 median_ms(lambda: reflect_border.border_lines(x, k)),
                 median_ms(lambda: reflect_border.border_lines_plain(x, k), reps=7), None)
         ring_layers_ms = {}
         for layer in RING_LAYERS:
-            x, k = ring_args(b, torch.float32, layer, 2, dev)
+            x, k = ring_inputs(b, layer, 2, dev)
             ring_layers_ms["x".join(map(str, layer))] = median_ms(lambda: reflect_border.border_lines(x, k))
         del x, k
         ring_step = time_ring_step(ring_layers_of_step, peak_flops, peak_bytes, b, dev)
@@ -2398,6 +2742,7 @@ def main() -> int:
         at_default = [r for r in mine if r["shape"] == [b, IMAGE, IMAGE] and r["precision"] == "high"][0]
         kernels.append({
             "name": k, "route": "cuda", "source": sources, "replaces": replaces[k],
+            "op": f"{library.NAMESPACE}::{k}",
             "launches": launches[k],
             "max_abs_err": at_default["max_abs_err"],
             "max_rel_err": max(r["rel_err_vs_plain"] for r in mine if r["precision"] == "high"),
@@ -2419,6 +2764,9 @@ def main() -> int:
                                  "eval_refine": eval_info["refine_launches"][k],
                                  "mat": mat_info["launches"][k],
                                  "domain": sum(r["launches"][k] for r in domain_info["card_vs_cpu"].values()),
+                                 "export": export_info["launches"][k],
+                                 "synth_bench": commands_info["synth_bench"]["launches"][k],
+                                 "sweep": commands_info["sweep"]["launches"][k],
                                  "train": train_run["launches"][k]},
             **({"refine_step_ms": refine_timing["step_ms"],
                 "refine_step_ms_torch_backend": refine_timing["torch_backend_step_ms"],
@@ -2447,6 +2795,7 @@ def main() -> int:
               and r["layer"] in (None, RING_LAYERS[0])][0]
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": where,
+            "op": f"{library.NAMESPACE}::{k}",
             "launches": launches[k], "dtype": _dt(dt),
             "max_abs_err": at["max_abs_err"],
             "max_rel_err": max(r["rel_err_vs_plain"] for r in mine if r["dtype"] == _dt(dt)),
@@ -2463,7 +2812,8 @@ def main() -> int:
             "bound_ms_by_dtype": {_dt(d): conv_b[k, d][0] for d in CONV_TOLERANCES},
             "library_ms": conv_timings[k, dt][2],
             "library_ms_by_dtype": {_dt(d): conv_timings[k, d][2] for d in CONV_TOLERANCES},
-            **({"launches_by_path": {"quant": launches[k], "golden": golden_launches[k]}}
+            **({"launches_by_path": {"quant": launches[k], "golden": golden_launches[k],
+                                     "export_int8": export_info["int8_launches"][k]}}
                if k in golden_launches else {}),
             **extras.get(k, {}),
         })
@@ -2476,6 +2826,7 @@ def main() -> int:
               and r["bh"] == bh][0]
         kernels.append({
             "name": k, "route": "cuda", "source": csrc + "halo_conv.cu", "replaces": where,
+            "op": f"{library.NAMESPACE}::{HALO_OPS[k]}",
             "launches": launches[k], "dtype": _dt(bf16), "bh": bh, "C": 64,
             "max_abs_err": at["max_abs_err"],
             "max_rel_err": max(r["rel_err_vs_plain"] for r in mine if r["dtype"] == _dt(bf16)),

@@ -3,21 +3,23 @@
 A second package beside the JAX one (``style_transfer_based_holographic_imaging_tpu``),
 written in PyTorch, with the JAX package's Pallas TPU kernels rewritten by hand
 for NVIDIA Hopper (CUDA C++ under ``kernels/csrc``, built with ``nvcc`` at first
-use and loaded with ``ctypes``). It imports ``torch`` and ``numpy`` only: never
-``jax`` and nothing of the JAX package.
+use, loaded with ``ctypes`` and registered as ``torch.library`` custom ops,
+``holostyle::*``). It imports ``torch`` and ``numpy`` only: never ``jax`` and
+nothing of the JAX package.
 
 Subpackages mirror the JAX package's layout:
 
 - ``ops``       — angular-spectrum propagation, hologram formation, phase
                   unwrap, AdaIN statistics.
-- ``kernels``   — the hand-written CUDA kernels, their wrappers and plain
-                  PyTorch versions.
+- ``kernels``   — the hand-written CUDA kernels as custom ops, their
+                  wrappers and plain PyTorch versions.
 - ``models``    — ``nn.Module`` networks: VGG encoder, decoder, distance MLP,
                   the PatchGAN discriminator.
 - ``pipelines`` — eager end-to-end field retrieval, the golden-suite eval,
                   physics refinement, autofocus, the HTTP server and the
-                  stream, the measured-tree and synthetic-domain evals,
-                  style vectors.
+                  stream, the frozen ``torch.export`` artifact and its
+                  service, the measured-tree and synthetic-domain evals,
+                  style vectors, stylize.
 - ``data``      — the golden suite, hologram synthesis and the object banks,
                   the measured ``.mat`` tree and its sampler, the host ->
                   card prefetch.
@@ -28,7 +30,8 @@ Subpackages mirror the JAX package's layout:
 - ``interop``   — carrying JAX parameter trees (as numpy) across, and a
                   release's weights from its numpy file.
 - ``cli``       — ``python -m style_transfer_based_holographic_imaging_tpu_torch.cli
-                  eval|train|extract-style|stream|autofocus|serve``.
+                  eval|train|extract-style|stream|autofocus|serve|export|
+                  sweep|synth-bench|doctor``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 

@@ -16,6 +16,14 @@
       --golden | --input holos.npz --d-min A --d-max B [--domain D]
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve \\
       --checkpoint checkpoints/fast [--quant] [--refine STEPS] [--fp32] [--cpu]
+      | --artifact model.hstx [--cpu]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli export \\
+      --checkpoint checkpoints/fast --out model.hstx [--platforms cpu,cuda] [--bf16] [--quant]
+      [--asm-backend cuda] [--batch-size B] [--check] [--cpu]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli sweep \\
+      --checkpoint checkpoints/fast [--style-distances 0.2,0.4,0.6,0.8] [--save-dir DIR] [--seed S]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli synth-bench [--batch-size 512]
+  python -m style_transfer_based_holographic_imaging_tpu_torch.cli doctor [--cpu]
 
 The weights: a release's ``torch_weights.npz`` (written by
 ``scripts/port_golden_eval.py --export-npz``) in the checkpoint directory,
@@ -23,15 +31,20 @@ else the newest ``iter_<n>/state.pt`` snapshot of a training directory (its
 params, as the JAX package takes a train state's), else the release's file
 in the parent directory. The run config, style vector and int8 scales are
 looked up beside the checkpoint in the JAX package's order. Without
-``--cpu`` every command runs on the card, and raises when there is none.
+``--cpu`` every command runs on the card, and raises when there is none
+(``doctor`` reports that there is none instead).
+
+``export`` writes a ``torch.export`` artifact (pipelines/export_artifact.py);
+``--asm-backend auto`` exports the portable ``torch.fft`` refocus, ``cuda``
+the ``asm_const`` kernel (a card-only file), as the JAX command maps
+``auto`` to ``xla``. ``serve --artifact`` serves such a file.
 
 Each command takes the JAX package's flags that the port implements and
 prints its lines. argparse refuses the rest with a message and exit code 2:
 mixed-precision training (``--dtype``), TensorBoard (``--tensorboard-dir``),
 the device mesh (``train --devices/--partition/--model-devices``, ``stream
---devices`` over 1), ``extract-style --pt-out`` (the reference's ``.pt``
-layout), ``serve --devices/--artifact``, and the ``synth-bench``, ``sweep``,
-``export`` and ``doctor`` commands.
+--devices`` over 1, ``serve --devices``) and ``extract-style --pt-out`` (the
+reference's ``.pt`` layout).
 """
 
 from __future__ import annotations
@@ -311,15 +324,48 @@ def cmd_eval(args):
     return metrics
 
 
+def _ready(service):
+    """serve_forever's ``ready``: the bound address and the health line."""
+    def ready(httpd):
+        host, port = httpd.server_address[:2]
+        print(f"serving on http://{host}:{port}  " + json.dumps(service.health()),
+              file=sys.stderr, flush=True)
+    return ready
+
+
 def cmd_serve(args):
     """Long-lived retrieval server (pipelines/server.py): the weights on the
-    card, npz requests over HTTP."""
+    card, npz requests over HTTP; with ``--artifact`` a frozen export file
+    instead of a checkpoint."""
     device = _setup_backend(args)
-    from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
     from style_transfer_based_holographic_imaging_tpu_torch.pipelines.server import (
+        ArtifactService,
         RetrievalService,
         serve_forever,
     )
+
+    if args.artifact:
+        # Everything comes from the one file.
+        if args.refine:
+            print("--artifact serving is network-only (--refine needs the live program)",
+                  file=sys.stderr)
+            return 1
+        if args.quant or args.checkpoint or args.style_vector:
+            print("--artifact serving takes the program, weights, style vector and "
+                  "quantization from the file: drop --quant/--checkpoint/--style-vector "
+                  "(use 'export' to change them)", file=sys.stderr)
+            return 1
+        service = ArtifactService(args.artifact, device)
+        if args.batch_size is not None and args.batch_size != service.batch_size:
+            print(f"note: --batch-size {args.batch_size} ignored: the artifact was exported "
+                  f"at batch {service.batch_size}; requests are padded/chunked to that",
+                  file=sys.stderr)
+        print("warming up ...", file=sys.stderr)
+        service.warmup()
+        serve_forever(service, args.host, args.port, ready=_ready(service))
+        return 0
+
+    from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
 
     state = _load_params(args)
     style = _load_style(args)
@@ -331,7 +377,7 @@ def cmd_serve(args):
         StyleTransferNet.from_state_dict(state, cfg.model.width),
         style,
         cfg,
-        batch_size=args.batch_size,
+        batch_size=args.batch_size or 32,
         dtype=torch.bfloat16 if args.bf16 else None,
         quant_scales=_load_quant_scales(args),
         refine_steps=args.refine,
@@ -339,13 +385,223 @@ def cmd_serve(args):
     )
     print("warming up ...", file=sys.stderr)
     service.warmup()
+    serve_forever(service, args.host, args.port, ready=_ready(service))
+    return 0
 
-    def ready(httpd):
-        host, port = httpd.server_address[:2]
-        print(f"serving on http://{host}:{port}  " + json.dumps(service.health()),
-              file=sys.stderr, flush=True)
 
-    serve_forever(service, args.host, args.port, ready=ready)
+def cmd_export(args):
+    """Freeze the retrieval program into one ``torch.export`` file
+    (pipelines/export_artifact.py): weights, style vector and refocus
+    distance baked in; it runs with ``torch`` alone on every exported
+    device."""
+    import numpy as np
+
+    from style_transfer_based_holographic_imaging_tpu_torch.pipelines.export_artifact import (
+        export_retrieval,
+        load_artifact,
+        save_artifact,
+    )
+
+    device = _setup_backend(args)
+    state = _load_params(args)
+    style = _load_style(args)
+    if style is None:
+        print("no style vector found — required for export", file=sys.stderr)
+        return 1
+    cfg = _load_config(args) or ExperimentConfig(model=ModelConfig(image_size=args.image_size))
+    # '' exports for the command's own device.
+    platforms = tuple(p.strip() for p in args.platforms.split(",") if p.strip()) or (device.type,)
+    blob, meta = export_retrieval(
+        _net(state, cfg, device),
+        style,
+        cfg,
+        batch_size=args.batch_size,
+        dtype=torch.bfloat16 if args.bf16 else None,
+        quant_scales=_load_quant_scales(args),
+        style_distance=args.style_distance,
+        platforms=platforms,
+        # "auto" exports the portable torch.fft refocus; an explicit "cuda"
+        # the asm_const kernel (a card-only artifact).
+        asm_backend="cuda" if args.asm_backend == "cuda" else "torch",
+    )
+    save_artifact(args.out, blob, meta)
+    summary = {k: meta[k] for k in meta if k != "config"}
+    summary["bytes"] = os.path.getsize(args.out)
+    print(f"wrote {args.out}  " + json.dumps(summary))
+
+    if args.check:
+        if device.type not in meta["platforms"]:
+            print(f"--check skipped: artifact targets {meta['platforms']} but this command "
+                  f"runs on {device.type!r}", file=sys.stderr)
+            return 0
+        from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite
+        from style_transfer_based_holographic_imaging_tpu_torch.pipelines import evaluate_golden_suite
+
+        suite = load_golden_suite()
+        # The artifact bakes one refocus plane and drops the per-batch style
+        # distance the suite passes: on another plane the scores would not
+        # be comparable, so none are given.
+        golden_mm = np.unique(np.round(suite.distance_style, 6))
+        if len(golden_mm) != 1 or abs(float(golden_mm[0]) - meta["style_distance_mm"]) > 1e-6:
+            print(f"--check skipped: artifact bakes a {meta['style_distance_mm']} mm refocus "
+                  f"plane but the golden suite is recorded at "
+                  f"{[round(float(v), 6) for v in golden_mm]} mm: the scores would not be "
+                  f"comparable", file=sys.stderr)
+            return 0
+        # The written file, not the program in memory.
+        art = load_artifact(args.out, device)
+        m = evaluate_golden_suite(
+            None, suite, cfg, style_override=style, device=device,
+            retrieval_fn=lambda net, holo, sm, ss, d: art.retrieve(holo.cpu().numpy()),
+        )
+        print(json.dumps({k: round(m[k], 4) for k in ("mean_psnr", "mean_mae", "r2")}))
+    return 0
+
+
+def cmd_synth_bench(args):
+    """Hologram synthesis throughput: ``holo_forward`` with one distance a
+    sample (``asm_dynamic`` on the card), one JSON line."""
+    import time
+
+    import numpy as np
+
+    from style_transfer_based_holographic_imaging_tpu_torch.config import PhysicsConfig
+    from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward
+
+    device = _setup_backend(args)
+    physics = PhysicsConfig()
+    b, n = args.batch_size, args.image_size
+    rng = np.random.default_rng(0)
+    amp = torch.full((b, 1, n, n), 0.6, dtype=torch.float32, device=device)
+    ph = torch.from_numpy(rng.random((b, 1, n, n), np.float32)).to(device)
+    # distance sweep: one distance per sample
+    d = torch.linspace(0.2, 0.8, b, device=device).reshape(b, 1, 1, 1)
+    with torch.no_grad():
+        float(holo_forward(amp, ph, d, physics).sum())
+        reps = 50
+        t0 = time.perf_counter()
+        acc = None
+        for _ in range(reps):
+            s = holo_forward(amp, ph, d, physics).sum()
+            acc = s if acc is None else acc + s
+        float(acc)
+    dt = time.perf_counter() - t0
+    print(json.dumps({"metric": "hologram synthesis (distance sweep)",
+                      "value": round(b * reps / dt, 1), "unit": "holograms/sec/chip"}))
+    return 0
+
+
+def cmd_sweep(args):
+    """Distance-interpolation sweep (the reference's test_interpolation
+    mode): one golden digit re-rendered at every style distance, retrieved,
+    and saved as a montage with one row a plane."""
+    import numpy as np
+    from PIL import Image
+
+    from style_transfer_based_holographic_imaging_tpu_torch.config import DataConfig, PhysicsConfig
+    from style_transfer_based_holographic_imaging_tpu_torch.data import load_golden_suite, synth
+    from style_transfer_based_holographic_imaging_tpu_torch.eval.report import to_image
+    from style_transfer_based_holographic_imaging_tpu_torch.pipelines import retrieval_step
+    from style_transfer_based_holographic_imaging_tpu_torch.utils import jax_random
+
+    device = _setup_backend(args)
+    style = _load_style(args)
+    if style is None:
+        print("no style vector found — required for sweep", file=sys.stderr)
+        return 1
+    state = _load_params(args)
+    cfg = _load_config(args) or ExperimentConfig()
+    physics = PhysicsConfig()
+    distances = tuple(float(x) for x in args.style_distances.split(","))
+    bank = torch.from_numpy(synth.golden_digit_bank(load_golden_suite())).to(device)
+    batch = synth.synth_interpolation_batch(
+        jax_random.key(args.seed), bank, data=DataConfig(style_distances=distances), physics=physics)
+    out = retrieval_step(
+        _net(state, cfg, device),
+        batch["content_holo"] ** 2,  # retrieval_step takes intensity
+        style[0], style[1], batch["distance_style"], physics, device=device,
+    )
+    planes = [batch["content_holo"], out["amp_field"], out["amp_foc"], out["ph_foc"]]
+    planes = [p[:, 0].cpu().numpy() for p in planes]
+    grid = np.concatenate([np.concatenate([p[i] for p in planes], axis=1)
+                           for i in range(len(distances))], axis=0)
+    os.makedirs(args.save_dir, exist_ok=True)
+    path = os.path.join(args.save_dir, "interpolation_sweep.png")
+    Image.fromarray(to_image(grid)).save(path)
+    print(f"sweep montage ({len(distances)} planes): {path}")
+    return 0
+
+
+def _repo_root() -> str:
+    """The repository root: the port package's parent."""
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _release_inventory(root: str) -> dict:
+    """The JAX doctor's release inventory of ``root`` (``checkpoints/``),
+    each release also saying whether the port's weights file, which the
+    port loads (``_load_params``), is beside it."""
+    def scores(path, keys=("mean_psnr", "r2", "refined_mean_psnr")):
+        with open(path) as f:
+            m = json.load(f)
+        return {k: round(m[k], 4) for k in keys if k in m}
+
+    def torch_weights(release):
+        return any(os.path.isfile(os.path.join(d, _NPZ))
+                   for d in (release, os.path.dirname(release.rstrip("/"))))
+
+    tiers = {}
+    cands = [("flagship", root)] + [
+        (n, os.path.join(root, n)) for n in sorted(os.listdir(root))
+        if os.path.isdir(os.path.join(root, n, "release"))
+    ]
+    for name, d in cands:
+        if not os.path.isdir(os.path.join(d, "release")):
+            continue
+        t = {"path": os.path.join(d, "release")}
+        gm = os.path.join(d, "golden_metrics.json")
+        if os.path.isfile(gm):
+            t["golden"] = scores(gm)
+        t["int8_scales"] = os.path.isfile(os.path.join(d, "quant_scales.json"))
+        t["torch_weights"] = torch_weights(t["path"])
+        tiers[name] = t
+    for tag in ("rbc", "bead"):
+        rel = os.path.join(root, f"{tag}_release")
+        if os.path.isdir(rel):
+            t = {"path": rel}
+            dm = os.path.join(root, f"{tag}_domain_metrics.json")
+            if os.path.isfile(dm):
+                t["domain"] = scores(dm)
+            t["int8_scales"] = os.path.isfile(os.path.join(root, f"{tag}_quant_scales.json"))
+            t["torch_weights"] = torch_weights(rel)
+            tiers[tag] = t
+    return tiers
+
+
+def cmd_doctor(args):
+    """Environment and release diagnostic, one JSON report: the devices,
+    the release inventory with its recorded quality, the native libraries
+    and the kernels' build cache. Without a card (and without ``--cpu``) it
+    says so and computes nothing."""
+    from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
+
+    if args.cpu:
+        devices = ["cpu"]
+    elif torch.cuda.is_available():
+        devices = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = "none: no CUDA card (--cpu runs on the CPU)"
+    rep = {"devices": devices, "torch": torch.__version__, "cuda": torch.version.cuda}
+    root = os.path.join(_repo_root(), "checkpoints")
+    rep["scanned"] = root
+    rep["releases"] = _release_inventory(root) if os.path.isdir(root) else {}
+    native_dir = os.path.join(_repo_root(), "native")
+    rep["native_libs"] = sorted(
+        f for f in (os.listdir(native_dir) if os.path.isdir(native_dir) else []) if f.endswith(".so"))
+    build_dir = _build.BUILD_DIR
+    rep["kernel_build"] = {"dir": build_dir, "libs": sorted(
+        f for f in (os.listdir(build_dir) if os.path.isdir(build_dir) else []) if f.endswith(".so"))}
+    print(json.dumps(rep, indent=2))
     return 0
 
 
@@ -713,6 +969,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "this .mat train tree instead of synthesized holograms (overrides --bank)")
     p.set_defaults(fn=cmd_extract_style)
 
+    p = sub.add_parser("synth-bench", help="hologram-synthesis throughput")
+    _add_common(p)
+    p.add_argument("--batch-size", type=int, default=512)
+    p.set_defaults(fn=cmd_synth_bench)
+
+    p = sub.add_parser("sweep", help="distance-interpolation sweep montage")
+    _add_common(p)
+    p.add_argument("--style-distances", type=str, default="0.2,0.4,0.6,0.8")
+    p.add_argument("--save-dir", type=str, default="output/sweep")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_sweep)
+
     p = sub.add_parser("autofocus", help="network-free refocus-sharpness distance search")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("--asm-backend", choices=("auto", "torch", "cuda"), default="auto")
@@ -752,13 +1020,36 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8100)
-    p.add_argument("--batch-size", type=int, default=32,
-                   help="batch shape of the net; requests are padded/chunked")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="batch shape of the net; requests are padded/chunked "
+                        "(default 32; fixed by the file with --artifact)")
     p.add_argument("--bf16", action="store_true", default=True,
                    help="bf16 conv path (default on)")
     p.add_argument("--fp32", dest="bf16", action="store_false")
     p.add_argument("--refine", type=int, default=0, metavar="STEPS")
+    p.add_argument("--artifact", type=str, default=None, metavar="HSTX",
+                   help="serve a frozen export artifact instead of a checkpoint "
+                        "(see the 'export' command)")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("export", help="freeze the retrieval program into one torch.export "
+                                      "file (runs with torch alone, no model code)")
+    _add_common(p)
+    p.add_argument("--out", type=str, default="model.hstx")
+    p.add_argument("--batch-size", type=int, default=32,
+                   help="batch shape baked into the artifact")
+    p.add_argument("--bf16", action="store_true", default=False, help="bf16 conv path")
+    p.add_argument("--platforms", type=str, default="cpu,cuda",
+                   help="comma-separated devices to export for (empty: this command's own)")
+    p.add_argument("--style-distance", type=float, default=None,
+                   help="refocus style plane in mm (default: the config's)")
+    p.add_argument("--check", action="store_true",
+                   help="re-load the written file and score it on the golden suite")
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("doctor", help="devices and release inventory (JSON)")
+    p.add_argument("--cpu", action="store_true", help="report the CPU as the device")
+    p.set_defaults(fn=cmd_doctor)
     return parser
 
 

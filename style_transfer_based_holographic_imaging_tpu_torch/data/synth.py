@@ -22,8 +22,9 @@ The JAX package's evaluation streams (the domain records,
 ``extract_style_vector``) key ``synth_batch`` with ``jax.random``:
 ``jax_key_draws`` takes the same draws from a numpy reproduction of that
 stream (``utils/jax_random.py``), and ``synth_batch_from_key`` renders them,
-so those batches are the JAX package's. The training stream keeps its
-``torch.Generator``.
+so those batches are the JAX package's; ``synth_interpolation_batch`` (the
+``sweep`` command's) draws its digit and distance from that stream too. The
+training stream keeps its ``torch.Generator``.
 
 Banks: ``golden_digit_bank`` (the golden suite's GT digits),
 ``load_digit_bank`` (an ``.npz``), ``sklearn_digit_bank`` /
@@ -58,6 +59,7 @@ __all__ = [
     "render_batch",
     "synth_batch",
     "synth_batch_from_key",
+    "synth_interpolation_batch",
     "stream_generator",
     "InfiniteHologramSampler",
 ]
@@ -312,6 +314,45 @@ def synth_batch_from_key(key: np.ndarray, bank: torch.Tensor, data: DataConfig,
     draws (``jax_key_draws``) rendered on ``bank``'s device."""
     return render_batch(bank, jax_key_draws(key, bank.shape[0], data), data, physics,
                         return_gt=return_gt)
+
+
+def synth_interpolation_batch(key: np.ndarray, bank: torch.Tensor, *, data: DataConfig,
+                              physics: PhysicsConfig) -> Dict[str, torch.Tensor]:
+    """Distance-interpolation sweep: one content object at every style
+    distance (the JAX package's ``synth_interpolation_batch``, the
+    reference's ``test_interpolation`` mode), on ``bank``'s device.
+
+    ``key`` (``jax_random.key`` data) split in 3: sub-key 0 draws the digit,
+    1 the content distance, as ``jax.random`` draws them. The batch axis
+    enumerates ``data.style_distances``: ``B`` of them. Returns
+    ``synth_batch``'s keys (sqrt-intensity holograms, distances in network
+    units ``(B, 1, 1, 1)``) plus ``amplitude`` and ``phase_content``; the
+    holograms are ``holo_forward`` with per-sample distances, on a CUDA
+    tensor the ``asm_dynamic`` kernel."""
+    dev = bank.device
+    size, pad = data.image_size, data.digit_pad
+    ks = jax_random.split(key, 3)
+    idx = int(jax_random.randint(ks[0], (), 0, bank.shape[0]))
+    d_c = torch.tensor(data.content_distances, dtype=torch.float32, device=dev)[
+        int(jax_random.randint(ks[1], (), 0, len(data.content_distances)))]
+    b = len(data.style_distances)
+    d_style = physics.to_network_units(
+        torch.tensor(data.style_distances, dtype=torch.float32, device=dev)).reshape(b, 1, 1, 1)
+    d_content = physics.to_network_units(d_c).expand(b, 1, 1, 1)
+    digit = bank[idx].clamp(0.0, 1.0)
+    phase = torch.nn.functional.pad(digit, (pad, pad, pad, pad)).expand(b, 1, size, size)
+    amplitude = torch.full((b, 1, size, size), data.amplitude, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        style_holo = holo_forward(amplitude, phase, d_style, physics)
+        content_holo = holo_forward(amplitude, phase, d_content, physics)
+    return {
+        "style_holo": torch.sqrt(style_holo),
+        "content_holo": torch.sqrt(content_holo),
+        "distance_style": d_style,
+        "distance_content": d_content,
+        "amplitude": amplitude,
+        "phase_content": phase,
+    }
 
 
 class InfiniteHologramSampler:

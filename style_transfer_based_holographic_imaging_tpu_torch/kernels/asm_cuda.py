@@ -1,7 +1,8 @@
 """The fused angular-spectrum propagator: Hopper kernels, wrappers, plain versions.
 
-Two kernels of ``csrc/asm_propagate.cu``, built by ``_build`` with ``nvcc``
-and called through ``ctypes``:
+Two kernels of ``csrc/asm_propagate.cu``, built by ``_build`` with ``nvcc``,
+called through ``ctypes`` and registered as the custom ops
+``holostyle::asm_const`` and ``holostyle::asm_dynamic`` (``library``):
 
 * ``asm_const``   replaces ``_make_kernel_const`` (kernels/asm_pallas.py of
   the JAX package), the serving refocus by one host-scalar distance. The
@@ -23,22 +24,21 @@ hi/lo planes (``split_hi_lo``) once per (h, w) and passes them in place of
 the fp32 factor planes that ``highest`` takes.
 
 Beside each kernel: its plain PyTorch version (the same four complex products
-with the same bf16 roundings), which the wrapper takes only for a tensor on
-the CPU, and a launch count. For a CUDA tensor the wrapper launches the
-kernel or raises; it never falls back.
+with the same bf16 roundings), the op's implementation for a tensor on the
+CPU, and a launch count. For a CUDA tensor the op launches the kernel or
+raises; it never falls back.
 
-The gradient: ``AsmConst`` and ``AsmDynamic`` are ``torch.autograd.Function``s
-around the two wrappers, the counterparts of the JAX package's
-``_propagate_const_cvjp`` and ``_propagate_cvjp``. Their forward is the
-kernel, unchanged; their backward is the VJP of the ``torch.fft``
+The gradient: each op's registered backward, the counterpart of the JAX
+package's ``_propagate_const_cvjp`` and ``_propagate_cvjp``. The forward is
+the kernel, unchanged; the backward is the VJP of the ``torch.fft``
 composition (``ops.asm.propagate_torch``), as the JAX ``custom_vjp`` takes
 ``jax.vjp`` of its XLA composition, written as the composition's adjoint
 (``_adjoint``) so that no part of the forward runs twice: two FFTs for the
 field's gradient, one more for the distance's. The JAX package has no
 backward kernel, and neither has the port. Every input and output of the
-Functions is real, so the gradients of a real loss need no convention for
-complex cotangents. ``propagate_cuda`` calls the Functions; under
-``torch.no_grad`` they save nothing.
+ops is real, so the gradients of a real loss need no convention for
+complex cotangents. ``propagate_cuda`` calls the wrappers; under
+``torch.no_grad`` the ops save nothing.
 
 Precision modes keep the JAX package's ``set_dft_precision`` names:
 ``"highest"`` (fp32), ``"high"`` (bf16 hi/lo three-product split, the
@@ -55,7 +55,7 @@ import math
 import numpy as np
 import torch
 
-from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build, library
 from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import kz_rel_grid, pad_replicate
 from style_transfer_based_holographic_imaging_tpu_torch.utils.misc import static_scalar
 
@@ -64,8 +64,6 @@ __all__ = [
     "asm_dynamic",
     "asm_const_plain",
     "asm_dynamic_plain",
-    "AsmConst",
-    "AsmDynamic",
     "propagate_cuda",
     "folded_factors",
     "block_factors",
@@ -365,24 +363,21 @@ def _named(kernel: str):
     return contextlib.nullcontext()
 
 
-def _device_of(xre: torch.Tensor) -> str:
-    kind = xre.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"asm kernels take CPU or CUDA tensors, got {xre.device}")
-    return kind
-
-
-def asm_const(xre, xim, distance: float, *, wavelength, pixel_size, precision=None):
-    """Propagate ``(B, H, W)`` fp32 re/im planes by one static distance
-    (metres), replicate-padded 2x. Returns ``(yre, yim)``."""
+def _precision(precision) -> str:
     precision = precision or _DFT_PRECISION
     if precision not in _PRECISIONS:
         raise ValueError(f"unknown dft precision {precision!r}")
-    _check_planes(xre, xim)
-    if _device_of(xre) == "cpu":
-        return asm_const_plain(
-            xre, xim, distance, wavelength=wavelength, pixel_size=pixel_size, precision=precision
-        )
+    return precision
+
+
+def _asm_const_cpu(xre: torch.Tensor, xim: torch.Tensor, distance: float, wavelength: float,
+                   pixel_size: float, precision: str) -> tuple[torch.Tensor, torch.Tensor]:
+    return asm_const_plain(
+        xre, xim, distance, wavelength=wavelength, pixel_size=pixel_size, precision=precision)
+
+
+def _asm_const_cuda(xre, xim, distance, wavelength, pixel_size, precision):
+    xre, xim = xre.contiguous(), xim.contiguous()
     b, h, w = xre.shape
     dev = xre.device
     factors = _factors_for(precision, h, w, dev)
@@ -406,22 +401,15 @@ def asm_const(xre, xim, distance: float, *, wavelength, pixel_size, precision=No
     return yre, yim
 
 
-def asm_dynamic(xre, xim, dist, *, wavelength, pixel_size, precision=None):
-    """Propagate ``(B, H, W)`` fp32 re/im planes, image ``i`` by ``dist[i]``
-    metres (``dist`` a ``(B,)`` fp32 tensor). Returns ``(yre, yim)``."""
-    precision = precision or _DFT_PRECISION
-    if precision not in _PRECISIONS:
-        raise ValueError(f"unknown dft precision {precision!r}")
-    _check_planes(xre, xim)
+def _asm_dynamic_cpu(xre: torch.Tensor, xim: torch.Tensor, dist: torch.Tensor, wavelength: float,
+                     pixel_size: float, precision: str) -> tuple[torch.Tensor, torch.Tensor]:
+    return asm_dynamic_plain(
+        xre, xim, dist, wavelength=wavelength, pixel_size=pixel_size, precision=precision)
+
+
+def _asm_dynamic_cuda(xre, xim, dist, wavelength, pixel_size, precision):
+    xre, xim, dist = xre.contiguous(), xim.contiguous(), dist.contiguous()
     b, h, w = xre.shape
-    if dist.dtype != torch.float32 or tuple(dist.shape) != (b,) or not dist.is_contiguous():
-        raise ValueError(f"dist must be a contiguous float32 ({b},) tensor")
-    if dist.device != xre.device:
-        raise ValueError("dist must lie on the field's device")
-    if _device_of(xre) == "cpu":
-        return asm_dynamic_plain(
-            xre, xim, dist, wavelength=wavelength, pixel_size=pixel_size, precision=precision
-        )
     dev = xre.device
     factors = _factors_for(precision, h, w, dev)
     kz = _kz_tensor(2 * h, 2 * w, pixel_size, wavelength, dev)
@@ -440,6 +428,35 @@ def asm_dynamic(xre, xim, dist, *, wavelength, pixel_size, precision=None):
     _build.check_status(status, "asm_dynamic")
     LAUNCHES["asm_dynamic"] += 1
     return yre, yim
+
+
+def _planes_like(xre, xim, *_):
+    return torch.empty_like(xre), torch.empty_like(xim)
+
+
+def asm_const(xre, xim, distance: float, *, wavelength, pixel_size, precision=None):
+    """Propagate ``(B, H, W)`` fp32 re/im planes by one static distance
+    (metres), replicate-padded 2x. Returns ``(yre, yim)``; differentiable in
+    the planes. The op ``holostyle::asm_const``: the kernel on a card, the
+    plain version on the CPU."""
+    precision = _precision(precision)
+    _check_planes(xre, xim)
+    return _ASM_CONST(xre, xim, float(distance), float(wavelength), float(pixel_size), precision)
+
+
+def asm_dynamic(xre, xim, dist, *, wavelength, pixel_size, precision=None):
+    """Propagate ``(B, H, W)`` fp32 re/im planes, image ``i`` by ``dist[i]``
+    metres (``dist`` a ``(B,)`` fp32 tensor). Returns ``(yre, yim)``;
+    differentiable in the planes and ``dist``. The op
+    ``holostyle::asm_dynamic``."""
+    precision = _precision(precision)
+    _check_planes(xre, xim)
+    b = xre.shape[0]
+    if dist.dtype != torch.float32 or tuple(dist.shape) != (b,) or not dist.is_contiguous():
+        raise ValueError(f"dist must be a contiguous float32 ({b},) tensor")
+    if dist.device != xre.device:
+        raise ValueError("dist must lie on the field's device")
+    return _ASM_DYNAMIC(xre, xim, dist, float(wavelength), float(pixel_size), precision)
 
 
 # --------------------------------------------------------------------------
@@ -471,7 +488,14 @@ def _adjoint(ctx, gre, gim, dist, x=None):
     Returns ``(gxre or None, gxim or None, gdist or None)``."""
     b, h, w = gre.shape
     dev = gre.device
-    kz = _kz_tensor(2 * h, 2 * w, ctx.pixel_size, ctx.wavelength, dev)
+    if type(gre) is torch.Tensor:
+        kz = _kz_tensor(2 * h, 2 * w, ctx.pixel_size, ctx.wavelength, dev)
+    else:
+        # A tracing subclass (a fake or functional tensor, while a graph of
+        # the backward is captured): a fresh constant, never a cached one,
+        # at the traced shape (the grid is host data of that shape).
+        kz = torch.tensor(kz_rel_grid(2 * int(h), 2 * int(w), pixel_size=ctx.pixel_size,
+                                      wavelength=ctx.wavelength), device=dev)
     k0 = float(np.float32(2.0 * math.pi / ctx.wavelength))
     d = torch.as_tensor(dist, dtype=torch.float32, device=dev)
     d = d.reshape(b, 1, 1) if d.dim() else d
@@ -494,62 +518,52 @@ def _adjoint(ctx, gre, gim, dist, x=None):
     return gxre, gxim, gdist
 
 
-class AsmConst(torch.autograd.Function):
-    """``asm_const`` with a gradient for the field: ``apply(xre, xim,
-    distance, wavelength, pixel_size, precision)``, the distance a host
-    float with no gradient. Counterpart of ``_propagate_const_cvjp``."""
-
-    @staticmethod
-    def forward(ctx, xre, xim, distance, wavelength, pixel_size, precision):
-        ctx.distance, ctx.wavelength, ctx.pixel_size = distance, wavelength, pixel_size
-        return asm_const(
-            xre, xim, distance, wavelength=wavelength, pixel_size=pixel_size, precision=precision
-        )
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, gre, gim):
-        gxre, gxim, _ = _adjoint(ctx, gre, gim, ctx.distance)
-        return gxre, gxim, None, None, None, None
+def _const_setup(ctx, inputs, output):
+    _, _, ctx.distance, ctx.wavelength, ctx.pixel_size, _ = inputs
 
 
-class AsmDynamic(torch.autograd.Function):
-    """``asm_dynamic`` with gradients for the field and the ``(B,)``
-    distance in metres: ``apply(xre, xim, dist, wavelength, pixel_size,
-    precision)``. Counterpart of ``_propagate_cvjp``."""
+def _const_backward(ctx, gre, gim):
+    gxre, gxim, _ = _adjoint(ctx, gre, gim, ctx.distance)
+    return gxre, gxim, None, None, None, None
 
-    @staticmethod
-    def forward(ctx, xre, xim, dist, wavelength, pixel_size, precision):
-        # The field is needed only for the distance's gradient.
-        ctx.save_for_backward(*((xre, xim, dist) if ctx.needs_input_grad[2] else (dist,)))
-        ctx.wavelength, ctx.pixel_size = wavelength, pixel_size
-        return asm_dynamic(
-            xre, xim, dist, wavelength=wavelength, pixel_size=pixel_size, precision=precision
-        )
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, gre, gim):
-        *x, dist = ctx.saved_tensors
-        return _adjoint(ctx, gre, gim, dist, tuple(x) or None) + (None, None, None)
+def _dynamic_setup(ctx, inputs, output):
+    xre, xim, dist, ctx.wavelength, ctx.pixel_size, _ = inputs
+    # The field is needed only for the distance's gradient.
+    ctx.save_for_backward(*((xre, xim, dist) if ctx.needs_input_grad[2] else (dist,)))
+
+
+def _dynamic_backward(ctx, gre, gim):
+    *x, dist = ctx.saved_tensors
+    return _adjoint(ctx, gre, gim, dist, tuple(x) or None) + (None, None, None)
+
+
+# The ops: the kernel forward on a card, the plain version on the CPU, the
+# adjoint backward on both (the counterparts of the JAX package's
+# ``_propagate_const_cvjp`` and ``_propagate_cvjp``).
+_ASM_CONST = library.kernel_op("asm_const", _asm_const_cpu, _asm_const_cuda, _planes_like,
+                               backward=_const_backward, setup_context=_const_setup)
+_ASM_DYNAMIC = library.kernel_op("asm_dynamic", _asm_dynamic_cpu, _asm_dynamic_cuda, _planes_like,
+                                 backward=_dynamic_backward, setup_context=_dynamic_setup)
 
 
 def propagate_cuda(field: torch.Tensor, distance, *, wavelength, pixel_size, precision=None):
     """Complex ``(..., H, W)`` field through the kernels: a host-scalar
     distance takes ``asm_const``, anything else ``asm_dynamic`` with the
     distance broadcast to the leading axes. Differentiable in the field and
-    a tensor distance, through ``AsmConst`` and ``AsmDynamic``."""
+    a tensor distance, through the ops' backward."""
     lead = tuple(field.shape[:-2])
     h, w = field.shape[-2], field.shape[-1]
     b = int(np.prod(lead)) if lead else 1
     flat = field.reshape(b, h, w)
     xre = flat.real.float().contiguous()
     xim = flat.imag.float().contiguous()
+    kw = dict(wavelength=wavelength, pixel_size=pixel_size, precision=precision)
     static_d = static_scalar(distance)
     if static_d is not None:
-        yre, yim = AsmConst.apply(xre, xim, static_d, wavelength, pixel_size, precision)
+        yre, yim = asm_const(xre, xim, static_d, **kw)
     else:
         dist = torch.as_tensor(distance, dtype=torch.float32, device=field.device)
         dist = dist.broadcast_to(lead + (1, 1)).reshape(b).contiguous()
-        yre, yim = AsmDynamic.apply(xre, xim, dist, wavelength, pixel_size, precision)
+        yre, yim = asm_dynamic(xre, xim, dist, **kw)
     return torch.complex(yre, yim).reshape(field.shape)

@@ -30,9 +30,10 @@ counts the launches that ran on the tensor cores.
 
 Inputs are NCHW in fp32 or bf16, kernels OIHW in the input type, biases
 fp32; H and W even and >= 4, as the JAX package's ``_use_fused`` admits.
-Beside each kernel: its plain PyTorch version, which the wrapper takes only
-for a tensor on the CPU, and a launch count. For a CUDA tensor the wrapper
-launches the kernel or raises; it never falls back.
+Each kernel is a custom op (``holostyle::fused_encoder_head``,
+``holostyle::fused_conv_tail``; ``library``) whose CPU implementation is
+its plain PyTorch version; beside it a launch count. For a CUDA tensor the
+op launches the kernel or raises; it never falls back.
 
 ``conv_tail_reference`` is the JAX package's function of that name: the
 tail as three separate library convs, each rounding twice (see there). The
@@ -47,7 +48,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build, library
 
 __all__ = [
     "fused_encoder_head",
@@ -299,6 +300,7 @@ def launch(counts: dict, name: str, fn, x: torch.Tensor, layers, out: torch.Tens
     tail's entry points, ``HEAD_TC_TILES`` for the head's), or None where
     the layer takes the ``_tap_major`` fp32 copy, as every layer does on
     the SIMT body (without ``tc_tiles`` or in fp32)."""
+    x = x.contiguous()
     if tc_tiles is None or x.dtype != torch.bfloat16:
         body, tc_tiles = _SIMT[x.dtype], (None,) * len(layers)
     else:
@@ -316,35 +318,63 @@ def launch(counts: dict, name: str, fn, x: torch.Tensor, layers, out: torch.Tens
     return out
 
 
-def fused_encoder_head(x, k1, b1, k2, b2):
-    """conv1_1/relu/conv1_2/relu/2x2 pool of ``x`` ``(B, C, H, W)`` in one
-    kernel: ``(B, O2, H/2, W/2)`` in ``x``'s dtype."""
-    layers = ((k1, b1), (k2, b2))
-    _check(x, layers)
-    if x.device.type == "cpu":
-        return encoder_head_plain(x, k1, b1, k2, b2)
+def _head_cpu(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    return encoder_head_plain(x, k1, b1, k2, b2)
+
+
+def _head_cuda(x, k1, b1, k2, b2):
     b, c, h, w = x.shape
     tc = x.dtype == torch.bfloat16 and _on_tensor_cores(
         "conv_head_tc", x.device.index, c, k1.shape[0], k2.shape[0])
     out = torch.empty(b, k2.shape[0], h // 2, w // 2, dtype=x.dtype, device=x.device)
-    launch(LAUNCHES, "fused_encoder_head", _lib().conv_head, x, layers, out,
+    launch(LAUNCHES, "fused_encoder_head", _lib().conv_head, x, ((k1, b1), (k2, b2)), out,
            tc_tiles=HEAD_TC_TILES if tc else None)
     TC_LAUNCHES["fused_encoder_head"] += tc
     return out
 
 
-def fused_conv_tail(x, k8, b8, k9, b9, k10, b10):
-    """conv8/relu/conv9/relu/conv10 of ``x`` ``(B, C, H, W)`` in one kernel:
-    ``(B, O10, H, W)`` in ``x``'s dtype."""
-    layers = ((k8, b8), (k9, b9), (k10, b10))
-    _check(x, layers)
-    if x.device.type == "cpu":
-        return conv_tail_plain(x, k8, b8, k9, b9, k10, b10)
+def _head_fake(x, k1, b1, k2, b2):
+    b, _, h, w = x.shape
+    return x.new_empty(b, k2.shape[0], h // 2, w // 2)
+
+
+def _tail_cpu(x: torch.Tensor, k8: torch.Tensor, b8: torch.Tensor, k9: torch.Tensor,
+              b9: torch.Tensor, k10: torch.Tensor, b10: torch.Tensor) -> torch.Tensor:
+    return conv_tail_plain(x, k8, b8, k9, b9, k10, b10)
+
+
+def _tail_cuda(x, k8, b8, k9, b9, k10, b10):
     b, c, h, w = x.shape
     tc = x.dtype == torch.bfloat16 and _on_tensor_cores(
         "conv_tail_tc", x.device.index, c, k8.shape[0], k9.shape[0], k10.shape[0])
     out = torch.empty(b, k10.shape[0], h, w, dtype=x.dtype, device=x.device)
-    launch(LAUNCHES, "fused_conv_tail", _lib().conv_tail, x, layers, out,
-           tc_tiles=TC_N_TILES if tc else None)
+    launch(LAUNCHES, "fused_conv_tail", _lib().conv_tail, x, ((k8, b8), (k9, b9), (k10, b10)),
+           out, tc_tiles=TC_N_TILES if tc else None)
     TC_LAUNCHES["fused_conv_tail"] += tc
     return out
+
+
+def _tail_fake(x, k8, b8, k9, b9, k10, b10):
+    b, _, h, w = x.shape
+    return x.new_empty(b, k10.shape[0], h, w)
+
+
+_HEAD = library.kernel_op("fused_encoder_head", _head_cpu, _head_cuda, _head_fake)
+_TAIL = library.kernel_op("fused_conv_tail", _tail_cpu, _tail_cuda, _tail_fake)
+
+
+def fused_encoder_head(x, k1, b1, k2, b2):
+    """conv1_1/relu/conv1_2/relu/2x2 pool of ``x`` ``(B, C, H, W)`` in one
+    kernel: ``(B, O2, H/2, W/2)`` in ``x``'s dtype. The op
+    ``holostyle::fused_encoder_head``."""
+    _check(x, ((k1, b1), (k2, b2)))
+    return _HEAD(x, k1, b1, k2, b2)
+
+
+def fused_conv_tail(x, k8, b8, k9, b9, k10, b10):
+    """conv8/relu/conv9/relu/conv10 of ``x`` ``(B, C, H, W)`` in one kernel:
+    ``(B, O10, H, W)`` in ``x``'s dtype. The op
+    ``holostyle::fused_conv_tail``."""
+    _check(x, ((k8, b8), (k9, b9), (k10, b10)))
+    return _TAIL(x, k8, b8, k9, b9, k10, b10)

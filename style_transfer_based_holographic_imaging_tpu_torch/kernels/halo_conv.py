@@ -28,9 +28,11 @@ Inputs are NCHW in fp32 or bf16, kernels OIHW in x's dtype, biases fp32, as
 ``conv_stack.fused_conv_tail`` takes them. The kernels run the fused tail's
 tile body: on the tensor cores in bf16 (weights packed by
 ``conv_stack.pack_tc_weights``), on the CUDA cores in fp32. Arguments are
-checked before any launch. For a tensor on the CPU the wrappers take the
-plain version; for a CUDA tensor they launch the kernel for the interior or
-raise, never falling back. The strips run the same on both devices.
+checked before any launch. Each kernel's interior is a custom op
+(``holostyle::halo_interior``, ``holostyle::halo_interior_static``;
+``library``): for a tensor on the CPU its plain version; for a CUDA tensor
+the kernel's launch or an error, never a fallback. The strips run the same
+on both devices.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build, conv_stack
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build, conv_stack, library
 
 __all__ = [
     "halo_conv_tail",
@@ -135,21 +137,43 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def halo_interior(x, k8, b8, k9, b9, k10, b10, *, bh: int = 30, static: bool = False):
-    """The interior rows 4..H-5 of the tail, ``(B, O10, H - 8, W)``: one
-    launch of the dynamic (or, with ``static``, the static) kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
-    layers = ((k8, b8), (k9, b9), (k10, b10))
-    _check(x, layers, bh, static)
-    if x.device.type == "cpu":
-        return halo_interior_plain(x, k8, b8, k9, b9, k10, b10, bh=bh)
+def _interior_cpu(x: torch.Tensor, k8: torch.Tensor, b8: torch.Tensor, k9: torch.Tensor,
+                  b9: torch.Tensor, k10: torch.Tensor, b10: torch.Tensor, bh: int) -> torch.Tensor:
+    return halo_interior_plain(x, k8, b8, k9, b9, k10, b10, bh=bh)
+
+
+def _interior_cuda(name: str, entry: str):
+    def run(x, k8, b8, k9, b9, k10, b10, bh):
+        b, _, h, w = x.shape
+        out = torch.empty(b, k10.shape[0], h - 2 * EDGE, w, dtype=x.dtype, device=x.device)
+        return conv_stack.launch(LAUNCHES, name, getattr(_lib(), entry), x,
+                                 ((k8, b8), (k9, b9), (k10, b10)), out, bh,
+                                 tc_tiles=conv_stack.TC_N_TILES)
+    return run
+
+
+def _interior_fake(x, k8, b8, k9, b9, k10, b10, bh):
     b, _, h, w = x.shape
-    out = torch.empty(b, k10.shape[0], h - 2 * EDGE, w, dtype=x.dtype, device=x.device)
-    if static:
-        return conv_stack.launch(LAUNCHES, "halo_conv_tail_static", _lib().halo_tail_static,
-                                 x, layers, out, bh, tc_tiles=conv_stack.TC_N_TILES)
-    return conv_stack.launch(LAUNCHES, "halo_conv_tail", _lib().halo_tail, x, layers, out, bh,
-                             tc_tiles=conv_stack.TC_N_TILES)
+    return x.new_empty(b, k10.shape[0], h - 2 * EDGE, w)
+
+
+# The interior rows, the part of the tail each kernel computes.
+_INTERIOR = {
+    False: library.kernel_op("halo_interior", _interior_cpu,
+                             _interior_cuda("halo_conv_tail", "halo_tail"), _interior_fake),
+    True: library.kernel_op("halo_interior_static", _interior_cpu,
+                            _interior_cuda("halo_conv_tail_static", "halo_tail_static"),
+                            _interior_fake),
+}
+
+
+def halo_interior(x, k8, b8, k9, b9, k10, b10, *, bh: int = 30, static: bool = False):
+    """The interior rows 4..H-5 of the tail, ``(B, O10, H - 8, W)``: the op
+    ``holostyle::halo_interior`` (with ``static``,
+    ``holostyle::halo_interior_static``), one launch of the dynamic (or the
+    static) kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    _check(x, ((k8, b8), (k9, b9), (k10, b10)), bh, static)
+    return _INTERIOR[static](x, k8, b8, k9, b9, k10, b10, bh)
 
 
 def halo_conv_tail(x, k8, b8, k9, b9, k10, b10, *, bh: int = 30):

@@ -19,17 +19,16 @@ both fp32 or both bf16. Returns ``rows`` ``(B, O, 2, W)`` (output rows 0
 and H-1) and ``cols`` ``(B, O, H, 2)`` (output columns 0 and W-1 over all
 rows; the corners equal the rows' values), in the input type.
 
-``border_lines_plain`` is the counterpart of the JAX package's
-``border_lines_einsum``; the wrapper takes it only for a tensor on the CPU.
-On a CUDA tensor it launches the kernel or raises, for any H (the JAX
-kernel's even-H restriction is a TPU block-layout limit).
+``border_lines`` calls the custom op ``holostyle::border_lines``
+(``library``), whose CPU implementation is ``border_lines_plain``, the
+counterpart of the JAX package's ``border_lines_einsum``. On a CUDA tensor
+it launches the kernel or raises, for any H (the JAX kernel's even-H
+restriction is a TPU block-layout limit).
 
-The gradient: ``BorderLines`` is a ``torch.autograd.Function`` whose forward
-is the wrapper and whose backward is the VJP of ``border_lines_plain``,
-the counterpart of the JAX package's ``_border_lines_cvjp`` (the Pallas
-forward paired with the einsum's VJP). The kernel is called through
-``ctypes`` and has no ``grad_fn`` of its own: ``ReflectConv`` reaches it
-only through the Function. Under ``torch.no_grad`` it saves nothing.
+The gradient: the op's registered backward is the VJP of
+``border_lines_plain``, the counterpart of the JAX package's
+``_border_lines_cvjp`` (the Pallas forward paired with the einsum's VJP).
+Under ``torch.no_grad`` the op saves nothing.
 """
 
 from __future__ import annotations
@@ -39,10 +38,9 @@ import functools
 
 import torch
 
-from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build
+from style_transfer_based_holographic_imaging_tpu_torch.kernels import _build, library
 
-__all__ = ["border_lines", "border_lines_plain", "BorderLines", "ring_taps", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["border_lines", "border_lines_plain", "ring_taps", "LAUNCHES", "reset_launches"]
 
 # Launches of the kernel by its wrapper.
 LAUNCHES = {"border_lines": 0}
@@ -109,21 +107,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def border_lines(x: torch.Tensor, k: torch.Tensor):
-    """``(rows, cols)`` of the reflect-padded 3x3 conv of ``x`` by ``k``."""
-    if x.ndim != 4 or k.ndim != 4 or tuple(k.shape[1:]) != (x.shape[1], 3, 3):
-        raise ValueError(f"want x (B, C, H, W) and k (O, C, 3, 3), got {tuple(x.shape)}, {tuple(k.shape)}")
-    if x.dtype not in _DTYPES or k.dtype != x.dtype:
-        raise TypeError(f"x and k must both be float32 or bfloat16, got {x.dtype}, {k.dtype}")
-    if x.device != k.device or x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"x and k must lie on one CPU or CUDA device, got {x.device}, {k.device}")
+def _border_lines_cpu(x: torch.Tensor, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    rows, cols = border_lines_plain(x, k)
+    return rows.contiguous(), cols.contiguous()
+
+
+def _border_lines_cuda(x, k):
+    x, k = x.contiguous(), k.contiguous()
     b, c, h, w = x.shape
-    if h < 2 or w < 2:
-        raise ValueError(f"the ring needs H, W >= 2, got {h}x{w}")
-    if x.device.type == "cpu":
-        return border_lines_plain(x, k)
-    if not (x.is_contiguous() and k.is_contiguous()):
-        raise ValueError("x and k must be contiguous")
     o = k.shape[0]
     rows = torch.empty(b, o, 2, w, dtype=x.dtype, device=x.device)
     cols = torch.empty(b, o, h, 2, dtype=x.dtype, device=x.device)
@@ -139,25 +130,43 @@ def border_lines(x: torch.Tensor, k: torch.Tensor):
     return rows, cols
 
 
-class BorderLines(torch.autograd.Function):
-    """``border_lines`` with gradients for ``x`` and ``k``: ``apply(x, k)``.
-    The backward recomputes ``border_lines_plain`` under autograd and takes
-    its VJP, as the JAX ``custom_vjp`` takes ``jax.vjp`` of the einsum."""
+def _border_lines_fake(x, k):
+    b, _, h, w = x.shape
+    o = k.shape[0]
+    return x.new_empty(b, o, 2, w), x.new_empty(b, o, h, 2)
 
-    @staticmethod
-    def forward(ctx, x, k):
-        if any(ctx.needs_input_grad):
-            ctx.save_for_backward(x, k)
-        return border_lines(x, k)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g_rows, g_cols):
-        x, k = ctx.saved_tensors
-        with torch.enable_grad():
-            xg = x.detach().requires_grad_(ctx.needs_input_grad[0])
-            kg = k.detach().requires_grad_(ctx.needs_input_grad[1])
-            rows, cols = border_lines_plain(xg, kg)
-            wrt = [t for t in (xg, kg) if t.requires_grad]
-            grads = iter(torch.autograd.grad((rows, cols), wrt, (g_rows, g_cols)))
-        return tuple(next(grads) if t.requires_grad else None for t in (xg, kg))
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g_rows, g_cols):
+    """The VJP of ``border_lines_plain``, recomputed under autograd, as the
+    JAX ``custom_vjp`` takes ``jax.vjp`` of the einsum."""
+    x, k = ctx.saved_tensors
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(ctx.needs_input_grad[0])
+        kg = k.detach().requires_grad_(ctx.needs_input_grad[1])
+        rows, cols = border_lines_plain(xg, kg)
+        wrt = [t for t in (xg, kg) if t.requires_grad]
+        grads = iter(torch.autograd.grad((rows, cols), wrt, (g_rows, g_cols)))
+    return tuple(next(grads) if t.requires_grad else None for t in (xg, kg))
+
+
+_BORDER_LINES = library.kernel_op("border_lines", _border_lines_cpu, _border_lines_cuda,
+                                  _border_lines_fake, backward=_backward, setup_context=_setup)
+
+
+def border_lines(x: torch.Tensor, k: torch.Tensor):
+    """``(rows, cols)`` of the reflect-padded 3x3 conv of ``x`` by ``k``,
+    differentiable in both: the op ``holostyle::border_lines``."""
+    if x.ndim != 4 or k.ndim != 4 or tuple(k.shape[1:]) != (x.shape[1], 3, 3):
+        raise ValueError(f"want x (B, C, H, W) and k (O, C, 3, 3), got {tuple(x.shape)}, {tuple(k.shape)}")
+    if x.dtype not in _DTYPES or k.dtype != x.dtype:
+        raise TypeError(f"x and k must both be float32 or bfloat16, got {x.dtype}, {k.dtype}")
+    if x.device != k.device or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x and k must lie on one CPU or CUDA device, got {x.device}, {k.device}")
+    h, w = x.shape[-2:]
+    if h < 2 or w < 2:
+        raise ValueError(f"the ring needs H, W >= 2, got {h}x{w}")
+    return _BORDER_LINES(x, k)

@@ -32,7 +32,7 @@ __all__ = [
 # (materialize the reflection pad, VALID conv), "einsum" (SAME conv, then
 # the one-pixel border ring recomputed from the edge lines with tensor ops),
 # "cuda" (the same ring from the Hopper kernel of kernels/reflect_border.py,
-# through its autograd Function ``BorderLines``; the JAX package's
+# the op ``holostyle::border_lines`` with its backward; the JAX package's
 # "pallas") or "auto", which is "matpad" as in the JAX package.
 _REFLECT_BACKENDS = ("auto", "matpad", "einsum", "cuda")
 _REFLECT_BACKEND = "auto"
@@ -75,7 +75,7 @@ class ReflectConv(nn.Conv2d):
         h, w = x.shape[-2], x.shape[-1]
         if backend == "matpad" or h < 4 or w < 4:
             return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), self.weight, self.bias)
-        ring = reflect_border.BorderLines.apply if backend == "cuda" else reflect_border.border_lines_plain
+        ring = reflect_border.border_lines if backend == "cuda" else reflect_border.border_lines_plain
         bias = self.bias.view(1, -1, 1)
         y = F.conv2d(x, self.weight, padding=1) + bias[..., None]
         rows, cols = ring(x.contiguous(), self.weight)

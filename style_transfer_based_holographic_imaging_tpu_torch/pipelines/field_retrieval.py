@@ -186,7 +186,7 @@ def make_retrieval_fn(
 
 
 def evaluate_golden_suite(
-    net: StyleTransferNet,
+    net: Optional[StyleTransferNet],
     goldens,
     config: Optional[ExperimentConfig] = None,
     *,
@@ -196,6 +196,7 @@ def evaluate_golden_suite(
     quant_scales: Optional[Dict[str, float]] = None,
     refine_steps: int = 0,
     refine_distance: bool = False,
+    retrieval_fn: Optional[Callable[..., Dict[str, Any]]] = None,
     device: str | torch.device = "cuda",
 ) -> Dict[str, Any]:
     """Run the 20 x 5 golden suite and return the reference's metrics.
@@ -215,6 +216,12 @@ def evaluate_golden_suite(
     refined distances are the ones reported. 0 keeps the network-only
     inference.
 
+    ``retrieval_fn`` replaces the retrieval with any callable of the same
+    ``fn(net, holo, style_mean, style_std, distance_style)`` contract, its
+    outputs tensors or host arrays (moved to ``device``): a frozen artifact
+    (``pipelines.export_artifact``), so that a release file is scored
+    without the model code it was built from; ``net`` may then be None.
+
     With ``save_dir`` it also writes the reports of ``eval/report.py`` there:
     the per-sample montages, the distance box plot and one ``metrics.jsonl``
     line. The montage planes stay on the device with the metrics and come to
@@ -223,13 +230,17 @@ def evaluate_golden_suite(
     config = config or ExperimentConfig()
     physics = config.physics
     device = torch.device(device)
-    fn = make_retrieval_fn(
-        physics,
-        alpha=config.eval.alpha,
-        dtype=dtype,
-        quant_scales=quant_scales,
-        device=device,
-    )
+    if retrieval_fn is None:
+        fn = make_retrieval_fn(
+            physics,
+            alpha=config.eval.alpha,
+            dtype=dtype,
+            quant_scales=quant_scales,
+            device=device,
+        )
+    else:
+        def fn(*args):
+            return {k: torch.as_tensor(v, device=device) for k, v in retrieval_fn(*args).items()}
     if style_override is not None:
         sm, ss = style_override
     else:

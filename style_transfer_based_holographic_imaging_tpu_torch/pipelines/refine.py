@@ -15,7 +15,7 @@ loop of eager steps.
 Each step differentiates ``ops.holo.holo_forward`` with a per-sample
 distance. On a CUDA tensor with the ``auto`` or ``cuda`` backend its forward
 is the ``asm_dynamic`` kernel and its backward the adjoint of the
-``torch.fft`` composition (``kernels.asm_cuda.AsmDynamic``): ``steps + 1`` launches a batch, and with
+``torch.fft`` composition (the op ``holostyle::asm_dynamic``): ``steps + 1`` launches a batch, and with
 ``refine_distance`` ``max(steps // 2, 10)`` more.
 
 ``refine_retrieval`` is the served form (the server's and the stream's

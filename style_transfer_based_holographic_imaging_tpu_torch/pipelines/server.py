@@ -34,30 +34,28 @@ import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.config import ExperimentConfig
-from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
-    StyleTransferNet,
-    style_stats_nchw,
-)
-from style_transfer_based_holographic_imaging_tpu_torch.pipelines.field_retrieval import (
-    make_retrieval_fn,
-)
-from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import refine_retrieval
+
+if TYPE_CHECKING:
+    from style_transfer_based_holographic_imaging_tpu_torch.models.net import StyleTransferNet
 
 __all__ = [
     "RetrievalService",
+    "ArtifactService",
     "serve_forever",
     "retrieve_remote",
     "run_chunked",
 ]
 
-# The serving result contract: the response's keys (and, with the export
-# slice, a frozen artifact's outputs).
+# The serving result contract: the response's keys and a frozen artifact's
+# outputs (``pipelines/export_artifact.py`` imports it). The model code is
+# imported by ``RetrievalService`` alone, so that an artifact loads and
+# serves without it.
 _RESULT_KEYS = ("amp_foc", "ph_foc", "distance_pred", "amp_field", "ph_field")
 
 
@@ -67,9 +65,9 @@ def run_chunked(
     """Validate (B, 1, S, S) holograms, pad the ragged tail with its last
     frame, run ``run`` per batch-size chunk, trim and concatenate.
 
-    The one batching contract of the server (and of the export slice's
-    artifacts), so the padding and chunking seen over the wire cannot
-    diverge.
+    The one batching contract of the live server and of frozen artifacts
+    (``ArtifactRetrieval``), so the padding and chunking seen over the wire
+    cannot diverge.
     """
     holo = np.asarray(holo, np.float32)
     if holo.ndim == 3:
@@ -100,6 +98,59 @@ def run_chunked(
     return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
 
 
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+class ArtifactService:
+    """A frozen export artifact (``pipelines/export_artifact.py``) behind the
+    server's lock: ``RetrievalService``'s surface (``warmup``, ``retrieve``,
+    ``health``, ``n_served``), so ``serve_forever`` takes either. The
+    program, weights, style vector and refocus distance all come from the
+    one file; the padding and chunking to its batch live in
+    ``ArtifactRetrieval.retrieve``."""
+
+    def __init__(self, path: str, device: str | torch.device = "cuda"):
+        from style_transfer_based_holographic_imaging_tpu_torch.pipelines.export_artifact import (
+            load_artifact,
+        )
+
+        self.path = path
+        self._art = load_artifact(path, device)
+        self.device = self._art.device
+        self.meta = self._art.meta
+        self.batch_size = int(self.meta["batch_size"])
+        self.image_size = int(self.meta["image_size"])
+        self._lock = threading.Lock()
+        self.n_served = 0
+
+    def warmup(self) -> None:
+        """One request before the first one served (cuDNN's algorithm
+        choice, the kernels' build)."""
+        self.retrieve(np.full((1, 1, self.image_size, self.image_size), 0.1, np.float32))
+        self.n_served = 0
+
+    def retrieve(self, holo: np.ndarray) -> Dict[str, np.ndarray]:
+        with self._lock:
+            out = self._art.retrieve(holo)
+            self.n_served += next(iter(out.values())).shape[0]
+        return out
+
+    def health(self) -> Dict:
+        return {
+            "status": "ok",
+            "device": _device_name(self.device),
+            "artifact": self.path,
+            "platforms": self.meta.get("platforms"),
+            "batch_size": self.batch_size,
+            "image_size": self.image_size,
+            "width": self.meta.get("width"),
+            "quantized": self.meta.get("quantized"),
+            "refine_steps": 0,
+            "n_served": self.n_served,
+        }
+
+
 class RetrievalService:
     """The net's weights on the card and the retrieval fn, behind a lock.
 
@@ -120,6 +171,15 @@ class RetrievalService:
         refine_steps: int = 0,
         device: str | torch.device = "cuda",
     ):
+        from style_transfer_based_holographic_imaging_tpu_torch.models.net import style_stats_nchw
+        from style_transfer_based_holographic_imaging_tpu_torch.pipelines.field_retrieval import (
+            make_retrieval_fn,
+        )
+        from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import (
+            refine_retrieval,
+        )
+
+        self._refine = refine_retrieval
         self.config = config or ExperimentConfig()
         self.device = torch.device(device)
         self.batch_size = int(batch_size)
@@ -154,7 +214,7 @@ class RetrievalService:
         holo = torch.from_numpy(holo_np).to(self.device)
         out = self._fn(self.net, holo, self._sm, self._ss, self._d_style)
         if self.refine_steps:
-            out = refine_retrieval(
+            out = self._refine(
                 out, holo, self.config.physics, steps=self.refine_steps, device=self.device)
         return {k: out[k].detach().float().cpu().numpy() for k in _RESULT_KEYS if k in out}
 
@@ -172,9 +232,7 @@ class RetrievalService:
     def health(self) -> Dict:
         return {
             "status": "ok",
-            "device": (
-                torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
-            ),
+            "device": _device_name(self.device),
             "batch_size": self.batch_size,
             "image_size": self.image_size,
             "width": self.net.width,
@@ -185,7 +243,7 @@ class RetrievalService:
         }
 
 
-def _make_handler(service: RetrievalService):
+def _make_handler(service):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet by default
             pass
@@ -247,13 +305,14 @@ def retrieve_remote(url: str, holo: np.ndarray, timeout: float = 120.0) -> Dict[
 
 
 def serve_forever(
-    service: RetrievalService,
+    service,
     host: str = "127.0.0.1",
     port: int = 8100,
     *,
     ready: Optional[Callable[[ThreadingHTTPServer], None]] = None,
 ) -> ThreadingHTTPServer:
-    """Start the HTTP server (blocking); returns only after ``shutdown()``.
+    """Start the HTTP server (blocking) for a ``RetrievalService`` or an
+    ``ArtifactService``; returns only after ``shutdown()``.
 
     ``ready(httpd)`` is called once the socket is bound, before the first
     request is taken: with port 0 the port is ``httpd.server_address[1]``,

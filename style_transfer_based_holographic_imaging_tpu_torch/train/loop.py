@@ -11,7 +11,7 @@ gradients, the optimizer and EMA, the discriminator's step), so that they
 can be timed alone. On the card every convolution is cuDNN's (TF32 off);
 the kernels on the path are the synthesis's ``asm_dynamic`` (two launches
 a batch, ``data/synth.py``) and, with the ``cuda`` reflect backend, the
-border ring with its gradient (``kernels/reflect_border.BorderLines``).
+border ring with its gradient (the op ``kernels/reflect_border.border_lines``).
 """
 
 from __future__ import annotations

@@ -42,16 +42,17 @@ def median_ms(fn, reps: int = 15, warmup: int = 3, cuda: bool = True) -> float:
 
 def seeded_stack(b: int, dtype, c_in: int, widths, seed: int, device, size=128):
     """Input and (kernel, bias) pairs of a 3x3 conv stack from
-    ``torch.Generator`` seed ``seed``: x ``(b, c_in, H, W)`` in [0, 1) with
-    ``size`` H = W or an ``(H, W)`` pair, He-normal OIHW kernels (std
-    sqrt(2 / fan_in)) in ``dtype``, N(0, 0.01^2) fp32 biases."""
+    ``device``'s ``torch.Generator`` seed ``seed`` (drawn on the device: an
+    input at B = 256 is a quarter of a billion values): x ``(b, c_in, H,
+    W)`` in [0, 1) with ``size`` H = W or an ``(H, W)`` pair, He-normal OIHW
+    kernels (std sqrt(2 / fan_in)) in ``dtype``, N(0, 0.01^2) fp32 biases."""
     h, w = (size, size) if isinstance(size, int) else size
-    g = torch.Generator().manual_seed(seed)
-    args = [torch.rand(b, c_in, h, w, generator=g).to(device, dtype)]
+    g = torch.Generator(device=device).manual_seed(seed)
+    args = [torch.rand(b, c_in, h, w, generator=g, device=device).to(dtype)]
     c = c_in
     for o in widths:
-        k = torch.randn(o, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5
-        args += [k.to(device, dtype), (0.01 * torch.randn(o, generator=g)).to(device)]
+        k = torch.randn(o, c, 3, 3, generator=g, device=device) * (2.0 / (9 * c)) ** 0.5
+        args += [k.to(dtype), 0.01 * torch.randn(o, generator=g, device=device)]
         c = o
     return args
 

@@ -8,7 +8,7 @@ with ``nvcc`` at first use); elsewhere they skip. On a machine with a card:
 Tolerance on max|err| / max|plain|: for the ASM kernels the JAX package's
 budgets per precision mode (1e-5 highest, 1e-4 high, 2e-2 bf16); kernel and
 plain version round alike and differ only in the order of their fp32 sums.
-The gradients of ``AsmConst`` and ``AsmDynamic`` (the kernels forward, the
+The gradients of the ops ``asm_const`` and ``asm_dynamic`` (the kernels forward, the
 composition's adjoint in ``torch.fft`` backward) against ``propagate_torch``
 autograd: rtol 1e-3 of the largest gradient, the JAX package's gradient
 budget.
@@ -17,7 +17,7 @@ For the conv stacks, the halo tail and the border ring: 1e-5 in fp32
 1e-2 in bf16, where a value that the other summation order puts on a bf16
 rounding boundary rounds the other way (2^-8 relative) and carries into the
 next layer.
-Training: ``reflect_border.BorderLines`` (the ring kernel forward, the
+Training: the op ``reflect_border.border_lines`` (the ring kernel forward, the
 plain version's VJP backward) gives the gradients of ``border_lines_plain``
 autograd (1e-5 of max: the forward's fp32 summation order); one train
 step on the card against the same step on the CPU, width 0.25, 64^2, B = 2:
@@ -27,6 +27,9 @@ params, EMA and discriminator within 1e-4 of each leaf's max plus the
 spread of Adam's first step, lr g/(|g| + eps), over the gradients within
 the leaf's measured fp32 noise of the float64 one (up to 2 lr where the
 sign is free; ``chip_smoke.py`` says more).
+Each kernel is a ``holostyle::`` custom op: ``torch.library.opcheck`` passes
+for each on CUDA tensors. A ``torch.export`` artifact whose refocus is the
+``asm_const`` op answers as the live path does, bit for bit.
 The served path: the HTTP service's answers equal the direct retrieval call
 on the same padded batches, bit for bit (same shapes, same kernels); the
 pinned prefetch gives the same batches, in order, as a blocking
@@ -185,10 +188,12 @@ def test_function_gradients_match_torch_fft_autograd(card, kind, b, precision):
     weights = torch.randn(2, b, 128, 128, generator=torch.Generator().manual_seed(b)).to(card)
     wl, px = KW["wavelength"], KW["pixel_size"]
     if kind == "const":
-        fn, dist = (lambda xr, xi: asm_cuda.AsmConst.apply(xr, xi, -2e-4, wl, px, precision)), None
+        fn, dist = (lambda xr, xi: asm_cuda.asm_const(
+            xr, xi, -2e-4, wavelength=wl, pixel_size=px, precision=precision)), None
     else:
         dist = torch.linspace(-8e-4, 8e-4, b, device=card)
-        fn = lambda xr, xi, d: asm_cuda.AsmDynamic.apply(xr, xi, d, wl, px, precision)  # noqa: E731
+        fn = lambda xr, xi, d: asm_cuda.asm_dynamic(  # noqa: E731
+            xr, xi, d, wavelength=wl, pixel_size=px, precision=precision)
     asm_cuda.reset_launches()
     got = _grads(fn, xre, xim, dist, weights)
     assert asm_cuda.LAUNCHES["asm_" + kind] == 1
@@ -520,7 +525,7 @@ def test_border_lines_function_gradient(card, shape):
     k = (torch.randn(o, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(card).requires_grad_()
     up = [torch.randn(b, o, 2, w, generator=g).to(card), torch.randn(b, o, h, 2, generator=g).to(card)]
     before = reflect_border.LAUNCHES["border_lines"]
-    got = reflect_border.BorderLines.apply(x, k)
+    got = reflect_border.border_lines(x, k)
     assert reflect_border.LAUNCHES["border_lines"] == before + 1
     want = reflect_border.border_lines_plain(x, k)
     g_got = torch.autograd.grad(sum((t * u).sum() for t, u in zip(got, up)), (x, k))
@@ -529,7 +534,7 @@ def test_border_lines_function_gradient(card, shape):
     for a, e in zip(got + g_got, want + g_want):
         assert _rel(a, e) < CONV_BUDGETS[torch.float32]
     with torch.no_grad():
-        rows, _ = reflect_border.BorderLines.apply(x, k)
+        rows, _ = reflect_border.border_lines(x, k)
     assert rows.grad_fn is None
 
 
@@ -607,3 +612,82 @@ def test_one_train_step_card_against_cpu(card):
             spread = scale * torch.where(w == 0, torch.zeros_like(w), spread)
             diff = (a[k].cpu().double() - e[k].double()).abs()
             assert bool((diff <= 1e-4 * float(e[k].abs().max()) + spread).all()), (group, k)
+
+
+# --------------------------------------------------------------------------
+# The kernels as custom ops, and the frozen artifact on the card
+# --------------------------------------------------------------------------
+
+
+def _op_cases(card):
+    """Each ``holostyle::`` op's arguments at small shapes on the card, fp32;
+    the ASM planes and the ring's inputs with gradients."""
+    g = torch.Generator().manual_seed(7)
+    xre, xim = (t.requires_grad_() for t in _planes(2, 16, 16, card, seed=7))
+    dist = torch.tensor([1e-4, -2e-4], device=card, requires_grad=True)
+    x = torch.randn(2, 4, 9, 12, generator=g).to(card).requires_grad_()
+    k = torch.randn(6, 4, 3, 3, generator=g).to(card).requires_grad_()
+    wl, px = KW["wavelength"], KW["pixel_size"]
+    tail = _stack_args(card, torch.float32, 8, (8, 8, 2), b=2, h=24, w=16)
+    return {
+        "asm_const": (xre, xim, -2e-4, wl, px, "high"),
+        "asm_dynamic": (xre, xim, dist, wl, px, "high"),
+        "border_lines": (x, k),
+        "fused_encoder_head": tuple(_stack_args(card, torch.float32, 1, (8, 8), b=2, h=16, w=20)),
+        "fused_conv_tail": tuple(tail),
+        "halo_interior": (*tail, 8),
+        "halo_interior_static": (*tail, 8),
+    }
+
+
+@pytest.mark.parametrize("name", ["asm_const", "asm_dynamic", "border_lines", "fused_encoder_head",
+                                  "fused_conv_tail", "halo_interior", "halo_interior_static"])
+def test_ops_pass_opcheck_on_the_card(card, name):
+    torch.library.opcheck(getattr(torch.ops.holostyle, name).default, _op_cases(card)[name])
+
+
+@pytest.mark.parametrize("path", ["fp32", "int8"])
+def test_artifact_with_the_kernels_equals_the_live_path(card, tmp_path, path):
+    """fp32: the refocus as ``asm_const``; int8 with the stacks on: the head
+    and tail ops too, the tail's input channels-last at run time (cuDNN's
+    transposed conv of a channels-last input) where the trace saw it
+    contiguous."""
+    from style_transfer_based_holographic_imaging_tpu_torch.kernels import library
+    from style_transfer_based_holographic_imaging_tpu_torch.models import quant
+    from style_transfer_based_holographic_imaging_tpu_torch.pipelines.export_artifact import (
+        export_retrieval,
+        load_artifact,
+        save_artifact,
+    )
+
+    cfg = ExperimentConfig()
+    net = StyleTransferNet(width=0.25)
+    net.load_state_dict(init_net_params(torch.Generator().manual_seed(0), width=0.25))
+    rng = np.random.default_rng(0)
+    c = net.encoder.out_channels
+    style = (rng.random((1, 1, 1, c), np.float32), (0.5 + rng.random((1, 1, 1, c))).astype(np.float32))
+    holo = rng.random((3, 1, 128, 128), np.float32)
+    kw, ops = {}, ["holostyle.asm_const.default"]
+    if path == "int8":
+        kw["quant_scales"] = quant.calibrate_scales(net, [np.sqrt(holo)], *style, device="cpu")
+        ops = ops + ["holostyle.fused_conv_tail.default", "holostyle.fused_encoder_head.default"]
+    file = str(tmp_path / "a.hstx")
+    quant.set_fused_stacks("on")
+    try:
+        save_artifact(file, *export_retrieval(net, style, cfg, batch_size=2, asm_backend="cuda", **kw))
+        art = load_artifact(file)
+        assert sorted(set(library.graph_ops(art._module.graph))) == ops
+        asm_cuda.reset_launches()
+        got = art.retrieve(holo)
+        assert asm_cuda.LAUNCHES == {"asm_const": 2, "asm_dynamic": 0}
+        fn = make_retrieval_fn(cfg.physics, device=card, **kw)
+        d = float(cfg.physics.to_network_units(cfg.data.style_distances[0]))
+        net = net.to(card)
+        padded = np.concatenate([holo, holo[-1:]])
+        for lo in (0, 2):
+            want = fn(net, padded[lo:lo + 2], *style, d)
+            n = min(2, len(holo) - lo)
+            for key, v in want.items():
+                assert np.array_equal(got[key][lo:lo + n], v[:n].cpu().numpy()), key
+    finally:
+        quant.set_fused_stacks("auto")

@@ -295,6 +295,12 @@ NEW_FLAGS = [
     ["autofocus", "--golden", "--domain", "rbc", "--d-min", "0.3", "--d-max", "0.9", "--n-coarse", "5",
      "--n-fine", "3", "--metric", "grad", "--batch-size", "10", "--print-distances",
      "--asm-backend", "torch"],
+    ["export", "--out", "m.hstx", "--batch-size", "4", "--bf16", "--platforms", "cpu",
+     "--style-distance", "0.2", "--check", "--quant", "--asm-backend", "cuda"],
+    ["serve", "--artifact", "model.hstx", "--batch-size", "4"],
+    ["sweep", "--style-distances", "0.2,0.6", "--save-dir", "s", "--seed", "3"],
+    ["synth-bench", "--batch-size", "8"],
+    ["doctor", "--cpu"],
 ]
 REFUSED = [
     ["train", "--dtype", "bfloat16"],
@@ -307,11 +313,6 @@ REFUSED = [
     ["eval", "--domain", "mars"],
     ["extract-style", "--bank", "golden"],
     ["serve", "--devices", "2"],
-    ["serve", "--artifact", "model.hstx"],
-    ["synth-bench"],
-    ["sweep"],
-    ["export"],
-    ["doctor"],
 ]
 
 
@@ -329,7 +330,8 @@ def test_unported_flags_exit_2(argv):
 
 
 @pytest.mark.parametrize("argv", [["eval"], ["extract-style"], ["stream", "--root", TREE],
-                                  ["autofocus", "--golden"]])
+                                  ["autofocus", "--golden"], ["export"], ["sweep"], ["synth-bench"],
+                                  ["serve", "--artifact", "model.hstx"]])
 def test_no_card_without_cpu_raises(argv, monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--cpu"):

@@ -2,7 +2,7 @@
 
 The same seeded numpy inputs go through both packages on the CPU.
 
-* (a) ``AsmConst`` and ``AsmDynamic``, called directly on CPU tensors (their
+* (a) The ops ``asm_const`` and ``asm_dynamic``, called directly on CPU tensors (their
   forward is then the kernels' plain version): field and distance gradients
   of a real loss against the JAX package's ``propagate_pallas(...,
   interpret=True)`` gradients, rtol 1e-3 / atol 1e-4 (the budgets of
@@ -139,10 +139,8 @@ def _torch_grads(xre, xim, dist, loss):
 
 def _function(kind, precision):
     if kind == "const":
-        return lambda xre, xim, d: asm_cuda.AsmConst.apply(
-            xre, xim, d, KW["wavelength"], KW["pixel_size"], precision)
-    return lambda xre, xim, d: asm_cuda.AsmDynamic.apply(
-        xre, xim, d, KW["wavelength"], KW["pixel_size"], precision)
+        return lambda xre, xim, d: asm_cuda.asm_const(xre, xim, d, precision=precision, **KW)
+    return lambda xre, xim, d: asm_cuda.asm_dynamic(xre, xim, d, precision=precision, **KW)
 
 
 @pytest.fixture
@@ -271,7 +269,8 @@ def test_propagate_cuda_goes_through_the_functions(distance):
     field = torch.complex(torch.tensor(xre), torch.tensor(xim)).requires_grad_()
     with torch.no_grad():
         assert asm_cuda.propagate_cuda(field, d, **KW).grad_fn is None
-    name = "AsmDynamicBackward" if distance == "tensor" else "AsmConstBackward"
+    op = "asm_dynamic" if distance == "tensor" else "asm_const"
+    name = f"GeneratedBackwardFor_holostyle_{op}_defaultBackward"
     assert name in _graph_names(asm_cuda.propagate_cuda(field, d, **KW))
 
 
@@ -334,7 +333,7 @@ def test_physics_refine_matches_jax_on_a_noisy_golden_batch(noisy_batch, steps, 
 @pytest.mark.parametrize("refine_distance", [False, True])
 def test_physics_refine_through_the_functions_matches_the_torch_backend(noisy_batch, refine_distance):
     """``asm_backend='cuda'`` on CPU tensors runs every step through
-    ``AsmDynamic`` (the plain ``high`` forward, the adjoint backward): its
+    the ``asm_dynamic`` op (the plain ``high`` forward, the adjoint backward): its
     refined PSNR is the ``torch`` backend's within 0.05 dB, the budget the
     card is held to against the CPU."""
     amp, ph0, d, meas, gt = noisy_batch

@@ -500,7 +500,7 @@ def test_resume_from_a_converted_jax_state(case, setup, jax_refs):
 
 @pytest.mark.parametrize("shape", [(2, 3, 9, 7, 5), (1, 8, 16, 16, 4)])
 def test_border_lines_function_gradient(shape):
-    """``BorderLines`` (on the CPU its forward is the plain version) gives
+    """The ``border_lines`` op (on the CPU its forward is the plain version) gives
     ``border_lines_plain``'s autograd gradients; under no_grad it keeps no
     graph."""
     b, c, h, w, o = shape
@@ -510,19 +510,19 @@ def test_border_lines_function_gradient(shape):
     wr, wc = torch.randn(b, o, 2, w, generator=g), torch.randn(b, o, h, 2, generator=g)
     want = torch.autograd.grad(sum((t * u).sum() for t, u in zip(reflect_border.border_lines_plain(x, k), (wr, wc))),
                                (x, k))
-    got = torch.autograd.grad(sum((t * u).sum() for t, u in zip(reflect_border.BorderLines.apply(x, k), (wr, wc))),
+    got = torch.autograd.grad(sum((t * u).sum() for t, u in zip(reflect_border.border_lines(x, k), (wr, wc))),
                               (x, k))
     for a, e in zip(got, want):
         assert torch.equal(a, e)
     with torch.no_grad():
-        rows, _ = reflect_border.BorderLines.apply(x, k)
+        rows, _ = reflect_border.border_lines(x, k)
     assert rows.grad_fn is None
 
 
 @pytest.mark.parametrize("backend", ["cuda", "einsum"])
 def test_reflect_conv_ring_backends_keep_the_gradient(backend):
     """``ReflectConv``'s ring backends give ``matpad``'s gradients for x,
-    weight and bias (``cuda`` goes through ``BorderLines``; on a CPU tensor
+    weight and bias (``cuda`` goes through the ``border_lines`` op; on a CPU tensor
     its forward is the plain version): 1e-5 of max, fp32 sums."""
     g = torch.Generator().manual_seed(4)
     conv = ReflectConv(6, 5)
