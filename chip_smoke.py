@@ -157,6 +157,25 @@ line naming it and ends the run with exit code 3; nothing hangs):
    on a fixed batch at lr 1e-4, the total loss must fall, timed with CUDA
    events and split into synthesis, generator forward+backward,
    optimizer+EMA and the discriminator's step, with the peak memory.
+   Mixed precision and ``remat``: (f) the committed ``w125`` recipe
+   (``checkpoints_w125/config.json``: width 1.25, bf16, the warp on) through
+   ``train()`` for W125_STEPS steps at B = 32 (every loss finite, params and
+   moments fp32, ``asm_dynamic`` twice a step and nothing else), ``cli train
+   --dtype bfloat16`` with its batch, warp and weights, then TRAIN_TIMED
+   steps timed with the peak memory; (g) the flagship in bf16 at
+   B = 2 from (b)'s params and batch: the step on the card against the CPU
+   (aux within 1e-2), the gradients of the card, the CPU, the card with the
+   ``cuda`` ring and a control one bit coarser than bf16 against float64
+   ones on BF16_GRAD_BATCHES batches (``bf16_distance_shares``; the control
+   must fail), the ring launched at each of the step's 38 reflect convs in
+   bf16, each call within one bf16 ulp of ``border_lines_plain``; (h) at
+   B = 32 with dropout on, under ``torch.use_deterministic_algorithms``, a
+   ``remat`` step's gradients against REMAT_PLAIN_STEPS plain steps' in
+   fp32 (``auto``) and bf16 (the ``cuda`` ring, its launches with and
+   without ``remat``), the flagship's steps timed in bf16 and with
+   ``remat`` in fp32 and bf16 (fp32 without it is (e)), and the bf16 ring
+   at each of the step's reflect convs beside its plain version and its
+   bound.
 17. ``export`` — (after ``domain``) the frozen serving artifact: ``fast``
    exported with ``torch.export`` from ``torch_weights.npz`` (fp32, batch
    32, the refocus as the op ``holostyle::asm_const``, ``("cuda",)``) into
@@ -192,6 +211,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import importlib.util
 import io
 import json
@@ -208,6 +228,10 @@ import urllib.request
 _t_start = time.monotonic()
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+# The cuBLAS workspace setting under which torch.use_deterministic_algorithms
+# accepts cuBLAS (the `train` phase's remat check); read when the first
+# cuBLAS handle is made.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -249,7 +273,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.models import (  # noqa:
     set_reflect_backend,
     split_style_vector,
 )
-from style_transfer_based_holographic_imaging_tpu_torch.models import quant  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.models import layers, quant  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward, unwrap_phase  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import propagate, propagate_torch  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # noqa: E402
@@ -534,6 +558,45 @@ SYNTH_TOL = 1e-4
 SYNTH_OBJECT_TOL = 1e-5
 RING_GRAD_TOL = 1e-4
 RING_GRAD_BATCH = 2
+# Mixed precision and remat (the train phase's (f)-(h)): the w125 recipe
+# through train() for W125_STEPS steps, then TRAIN_TIMED steps timed after
+# TRAIN_TIMED_WARMUP; the flagship's bf16 and remat steps REMAT_TIMED after
+# REMAT_WARMUP. A bf16 step on the card against the CPU: aux within
+# BF16_AUX_RTOL relative. Its gradients' L2 distances from float64, each
+# over its leaf's norm, on BF16_GRAD_BATCHES batches (bf16_distance_shares):
+# a decoder leaf's median within BF16_GRAD_RATIO times the yardstick's
+# (the CPU's for the card, the card's matpad for the cuda ring) plus
+# BF16_GRAD_SLACK; the encoder's and the distance head's leaves share one
+# ill-conditioned factor a batch (the physics loss's gradient through the
+# distance head: on eight batches one leaf read 0.5-19 % on the CPU, 1.6-28
+# % on the card, their ratio 0.5-5.8 a batch), so their median ratio over
+# the group, its median over the batches, within BF16_GRAD_RATIO. On those
+# eight batches the card read at most 0.52 of the decoder's bound and 0.73
+# of the group's, and a control one bit coarser than bf16 (every conv's
+# output and the gradient into it) at least 2.64 of the decoder's, which the
+# run requires (scripts/port_exp_bf16_train.py; NVIDIA H100 80GB HBM3,
+# 700.00 W). remat: under torch.use_deterministic_algorithms the remat step
+# within REMAT_SPREAD times the largest difference between two of
+# REMAT_PLAIN_STEPS plain steps, which repeat bit for bit there (without it
+# each pair of steps, plain or remat, read 1.6e-6 to 2.5e-6 of a leaf's max
+# in fp32 and up to 0.0122 in bf16: the backward's atomic adds, which
+# cuDNN's deterministic mode alone does not remove). The ring launched at
+# each of a step's REFLECT_STEP_CONVS reflect convs (three encoder passes
+# of 9, the decoder's 11), each call within one bf16 ulp of its plain
+# version's max (the fp32 sums' order).
+W125_CONFIG = os.path.join(REPO, "checkpoints_w125", "config.json")
+W125_STEPS = 3
+TRAIN_TIMED = 20
+TRAIN_TIMED_WARMUP = 3
+REMAT_TIMED = 5
+REMAT_WARMUP = 1
+REMAT_PLAIN_STEPS = 2
+REMAT_SPREAD = 2.0
+BF16_AUX_RTOL = 1e-2
+BF16_GRAD_BATCHES = 2
+BF16_GRAD_RATIO = 2.0
+BF16_GRAD_SLACK = 1e-3
+REFLECT_STEP_CONVS = 3 * 9 + 11
 # Peaks by card (NVIDIA data sheets, dense): fp32 FLOP/s outside the tensor
 # cores, bf16 FLOP/s on the tensor cores, bytes/s.
 PEAKS = {
@@ -1576,20 +1639,24 @@ def ring_bound(peak_flops, peak_bytes, b: int, layer, dtype):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def time_ring_step(step_layers, peak_flops, peak_bytes, b: int, device):
-    """The ring at each reflect conv of one fp32 step, at batch b: by
-    layer (C, H, W, O) its CUDA-event median, its bound and how many of the
-    step's convs have that shape; and the step's sums."""
-    by_layer = time_ring_layers(step_layers, b, device)
+def time_ring_step(step_layers, peak_flops, peak_bytes, b: int, device, dtype=torch.float32,
+                   plain: bool = False):
+    """The ring at each reflect conv of one step in ``dtype``, at batch b:
+    by layer (C, H, W, O) its CUDA-event median (with ``plain`` also the
+    plain version's), its bound and how many of the step's convs have that
+    shape; and the step's sums."""
+    by_layer = time_ring_layers(step_layers, b, device, dtype=dtype, plain=plain)
     for v in by_layer.values():
-        v["bound_ms"], v["bound_by"] = ring_bound(peak_flops, peak_bytes, b, v.pop("layer"),
-                                                  torch.float32)
-    return {
+        v["bound_ms"], v["bound_by"] = ring_bound(peak_flops, peak_bytes, b, v.pop("layer"), dtype)
+    out = {
         "by_layer": by_layer,
         "step_ms": sum(v["ms"] * v["convs"] for v in by_layer.values()),
         "step_bound_ms": sum(v["bound_ms"] * v["convs"] for v in by_layer.values()),
         "convs": sum(v["convs"] for v in by_layer.values()),
     }
+    if plain:
+        out["step_plain_ms"] = sum(v["plain_ms"] * v["convs"] for v in by_layer.values())
+    return out
 
 
 def conv_bounds(peak_flops, peak_bytes, b: int):
@@ -1694,39 +1761,59 @@ def compare_states(got, want, anchor: dict, paths: tuple, train_cfg, label: str)
     return out
 
 
-def compare_aux(got, want, label: str) -> float:
+def compare_aux(got, want, label: str, tol: float = TRAIN_AUX_RTOL) -> float:
     worst = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-30) for k in want)
-    if set(got) != set(want) or not worst < TRAIN_AUX_RTOL:
+    if set(got) != set(want) or not worst < tol:
         _die(f"{label}: aux off by {worst:.3e} relative: {got} vs {want}", 1)
     return worst
 
 
-def step_gradients(cfg, params, disc_params, batch, device, dtype=torch.float32, backend="auto"):
+@functools.lru_cache(maxsize=None)
+def step_modules(width: float, image_size: int, device, dtype):
+    """The net (its distance head fp32) and the discriminator that
+    ``step_gradients`` runs params through, built once for each
+    configuration: ``functional_call`` takes every weight from the params it
+    is given."""
+    net = StyleTransferNet(width=width).to(device, dtype)
+    net.distance_g.float()
+    return net, PatchDiscriminator(image_size=image_size).to(device, dtype)
+
+
+def step_gradients(cfg, params, disc_params, batch, device, dtype=torch.float32, backend="auto",
+                   compute=torch.float32, host=True, aux_out=None):
     """The gradients of one step (every leaf, float64 on the CPU) at
     ``params`` on ``batch``: ``generator_loss_fn``'s under "params", and
     under "disc_params" the discriminator's LSGAN loss at ``disc_params`` on
     the style holograms and the forward's detached ``g_t``, as
     ``TrainStep.disc_step`` takes it. The net and discriminator in
-    ``dtype``, the distance head in fp32, the reflect ``backend``."""
+    ``dtype``, the distance head in fp32, the reflect ``backend``; the net
+    computes in ``compute`` (bf16: mixed precision, the params fp32). With
+    ``use_dropout`` the masks come from the stream's generator of step 0,
+    the same for every call. With ``host`` off the gradients stay where
+    they were computed, in their dtype. ``aux_out`` (a dict) gets the
+    loss and its terms."""
     set_reflect_backend(backend)
-    net = StyleTransferNet(width=cfg.model.width).to(device, dtype)
-    net.distance_g.float()
-    disc = PatchDiscriminator(image_size=cfg.data.image_size).to(device, dtype)
+    net, disc = step_modules(cfg.model.width, cfg.data.image_size, device, dtype)
     p = {k: (v.float() if k.startswith("distance_g.") else v.to(dtype)).to(device).requires_grad_()
          for k, v in params.items()}
     b = {k: v.to(device, dtype) for k, v in batch.items()}
     dp = {k: v.to(device, dtype) for k, v in disc_params.items()}
+    dropout = synth.stream_generator(cfg.data.seed + 2, 0) if cfg.train.use_dropout else None
     loss, aux = generator_loss_fn(p, b, net=net, physics=cfg.physics, cfg=cfg.train, disc=disc,
-                                  disc_params=dp)
+                                  disc_params=dp, dropout=dropout, dtype=compute)
     grads = torch.autograd.grad(loss, list(p.values()))
+    if aux_out is not None:
+        aux_out.update({k: float(v.detach()) for k, v in aux.items() if k != "g_t"},
+                       loss=float(loss.detach()))
     dp = {k: v.requires_grad_() for k, v in dp.items()}
     real, _ = functional_call(disc, dp, (b["style_holo"],))
-    fake, _ = functional_call(disc, dp, (aux["g_t"].detach(),))
+    fake, _ = functional_call(disc, dp, (aux["g_t"].detach().to(dtype),))
     dgrads = torch.autograd.grad(lsgan_d_loss(real, fake), list(dp.values()), allow_unused=True)
     set_reflect_backend("auto")
-    host = lambda g, like: (torch.zeros_like(like) if g is None else g).detach().double().cpu()  # noqa: E731
-    return {"params": {k: host(g, p[k]) for k, g in zip(p, grads)},
-            "disc_params": {k: host(g, dp[k]) for k, g in zip(dp, dgrads)}}
+    to = (lambda g: g.double().cpu()) if host else (lambda g: g)  # noqa: E731
+    leaf = lambda g, like: to((torch.zeros_like(like) if g is None else g).detach())  # noqa: E731
+    return {"params": {k: leaf(g, p[k]) for k, g in zip(p, grads)},
+            "disc_params": {k: leaf(g, dp[k]) for k, g in zip(dp, dgrads)}}
 
 
 def check_gradients(paths: dict, anchor: dict, label: str) -> dict:
@@ -1880,53 +1967,387 @@ def train_step_ring(cfg, cmp, device) -> dict:
                                      cfg.train, "train step, cuda ring against matpad")}
 
 
-def learn_and_time(cfg, bank, device) -> dict:
-    """(e) TRAIN_LEARN_STEPS steps on one fixed batch at TRAIN_LEARN_LR from
-    ``init_net_params`` seed 0: the total loss must fall. Each step also
-    synthesizes a fresh batch, as ``train()`` does; CUDA events split it
-    into synthesis, generator forward+backward, optimizer+EMA and the
-    discriminator's step (medians after TRAIN_WARMUP steps), with the peak
-    of allocated memory."""
-    run = dataclasses.replace(cfg.train, lr=TRAIN_LEARN_LR)
+def time_train_steps(cfg, bank, device, *, dtype=torch.float32, remat=False, steps=TRAIN_TIMED,
+                     warmup=TRAIN_TIMED_WARMUP, lr=None, fixed_batch=False, params=None,
+                     disc_params=None) -> dict:
+    """``warmup`` + ``steps`` train steps of ``cfg`` from ``params`` (by
+    default ``init_net_params`` seed 0) at its width and batch, the net
+    computing in ``dtype``, with
+    ``remat`` (and ``lr`` for the config's), as ``train()`` runs them: each
+    synthesizes a batch, then the generator's gradients, the optimizer and
+    EMA and, when adversarial, the discriminator's step. With
+    ``fixed_batch`` every step takes its gradients on the stream's batch 0
+    (the fresh batch still synthesized and timed). CUDA-event medians of
+    the step and its parts over the timed steps, images/s, the peak of
+    allocated memory and each step's total loss (all finite, or the run
+    fails)."""
+    run = dataclasses.replace(cfg.train, remat=remat, lr=cfg.train.lr if lr is None else lr)
     bank_dev = torch.as_tensor(bank, device=device)
-    params = init_net_params(torch.Generator().manual_seed(0), width=cfg.model.width)
-    disc_params = init_params(PatchDiscriminator(image_size=cfg.data.image_size),
-                              torch.Generator().manual_seed(1))
+    if params is None:
+        params = init_net_params(torch.Generator().manual_seed(0), width=cfg.model.width)
+    disc = PatchDiscriminator(image_size=cfg.data.image_size).to(device) if run.adv_weight else None
+    if disc is None:
+        disc_params = None
+    elif disc_params is None:
+        disc_params = init_params(PatchDiscriminator(image_size=cfg.data.image_size), torch.Generator().manual_seed(1))
     state = create_train_state(params, run, disc_params=disc_params, device=device)
-    step = TrainStep(StyleTransferNet(width=cfg.model.width).to(device), cfg.physics, run,
-                     disc=PatchDiscriminator(image_size=cfg.data.image_size).to(device))
-    batch = synth.synth_batch(0, bank_dev, cfg.data, cfg.physics, return_gt=True)
-    parts = ("synthesis", "generator", "optimizer_ema", "discriminator")
+    step = TrainStep(StyleTransferNet(width=cfg.model.width).to(device), cfg.physics, run, disc=disc,
+                     dtype=dtype)
+    fixed = synth.synth_batch(0, bank_dev, cfg.data, cfg.physics, return_gt=True) if fixed_batch else None
+    parts = ("synthesis", "generator", "optimizer_ema") + (("discriminator",) if disc is not None else ())
     times = {k: [] for k in parts + ("step",)}
     losses = []
+    step_modules.cache_clear()  # the peak is the step's alone
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(TRAIN_LEARN_STEPS):
+    for i in range(warmup + steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
         ev[0].record()
-        synth.synth_batch(i + 1, bank_dev, cfg.data, cfg.physics, return_gt=True)
+        batch = synth.synth_batch(i + bool(fixed_batch), bank_dev, cfg.data, cfg.physics,
+                                  return_gt=bool(run.supervised_weight))
+        batch = fixed if fixed_batch else batch
         ev[1].record()
         grads, aux = step.generator_grads(state, batch)
         ev[2].record()
         step.apply(state, grads)
         ev[3].record()
-        step.disc_step(state, aux.pop("g_t"), batch["style_holo"])
-        ev[4].record()
-        ev[4].synchronize()
+        if disc is not None:
+            step.disc_step(state, aux.pop("g_t"), batch["style_holo"])
+            ev[4].record()
+        ev[-1].synchronize()
         losses.append(float(aux["loss_total"]))
-        if i >= TRAIN_WARMUP:
+        if i >= warmup:
             for k, a, z in zip(parts, ev, ev[1:]):
                 times[k].append(a.elapsed_time(z))
             times["step"].append(ev[0].elapsed_time(ev[-1]))
     peak = torch.cuda.max_memory_allocated()
-    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    if not (all(math.isfinite(v) for v in losses) and tail < head):
-        _die(f"the total loss did not fall over {TRAIN_LEARN_STEPS} steps: {losses}", 1)
+    if not all(math.isfinite(v) for v in losses):
+        _die(f"train steps ({_dt(dtype)}, remat {remat}): a loss is not finite: {losses}", 1)
     ms = {k: float(np.median(v)) for k, v in times.items()}
-    return {"B": cfg.data.batch_size, "lr": TRAIN_LEARN_LR, "loss_total_first5": head,
-            "loss_total_last5": tail, "losses": losses, "ms": ms,
-            "images_per_s": cfg.data.batch_size / ms["step"] * 1e3,
-            "max_memory_allocated_bytes": peak, "timed_steps": len(times["step"])}
+    return {"dtype": _dt(dtype), "remat": remat, "B": cfg.data.batch_size, "width": cfg.model.width,
+            "lr": run.lr, "ms": ms, "images_per_s": cfg.data.batch_size / ms["step"] * 1e3,
+            "max_memory_allocated_bytes": peak, "timed_steps": steps, "losses": losses}
+
+
+def learn_and_time(cfg, bank, device) -> dict:
+    """(e) TRAIN_LEARN_STEPS steps on one fixed batch at TRAIN_LEARN_LR from
+    ``init_net_params`` seed 0 (``time_train_steps``, the medians after
+    TRAIN_WARMUP steps): the total loss must fall."""
+    out = time_train_steps(cfg, bank, device, steps=TRAIN_LEARN_STEPS - TRAIN_WARMUP, warmup=TRAIN_WARMUP,
+                           lr=TRAIN_LEARN_LR, fixed_batch=True)
+    losses = out["losses"]
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not tail < head:
+        _die(f"the total loss did not fall over {TRAIN_LEARN_STEPS} steps: {losses}", 1)
+    return {**out, "loss_total_first5": head, "loss_total_last5": tail}
+
+
+def drive_train_w125(bank, device) -> dict:
+    """(f) The committed ``w125`` recipe (``checkpoints_w125/config.json``:
+    width 1.25, bf16, the warp on, B = 32, 128^2) from ``init_net_params``
+    seed 0 through ``train()`` for W125_STEPS steps, the counts reset just
+    before and read just after: every loss finite, params and optimizer
+    state fp32, ``asm_dynamic`` launched twice a step (the synthesis) and
+    nothing else under ``auto``; then TRAIN_TIMED steps timed."""
+    with open(W125_CONFIG) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    if cfg.model.dtype != "bfloat16" or cfg.model.width != 1.25 or not cfg.data.rotate_deg:
+        _die(f"{W125_CONFIG} is not the bf16 width-1.25 warp recipe: {cfg.model}", 1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_w125_") as tmp:
+        run = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, log_every=1, checkpoint_every=0, checkpoint_dir=tmp))
+        asm_cuda.reset_launches()
+        reflect_border.reset_launches()
+        t0 = time.monotonic()
+        state = train(run, bank=bank, iterations=W125_STEPS, device=device, log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {**asm_cuda.LAUNCHES, **reflect_border.LAUNCHES}
+        with open(os.path.join(tmp, "train_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    if len(rows) != W125_STEPS or not all(math.isfinite(v) for r in rows for v in r.values()):
+        _die(f"w125 train(): {len(rows)} metric rows, want {W125_STEPS}, all finite: {rows[-1:]}", 1)
+    trees = (state.params, state.opt_state.mu, state.opt_state.nu)
+    if not all(v.dtype == torch.float32 and bool(torch.isfinite(v).all()) for t in trees for v in t.values()):
+        _die("w125 train(): params or Adam moments not finite fp32", 1)
+    want = {"asm_dynamic": 2 * W125_STEPS, "asm_const": 0, "border_lines": 0}
+    if launches != want:
+        _die(f"w125 train() launched {launches}, want {want}", 1)
+    return {"config": os.path.relpath(W125_CONFIG, REPO), "steps": W125_STEPS, "seconds": seconds,
+            "launches": launches, "first": rows[0], "last": rows[-1], "cli": cli_train_w125(cfg),
+            "timed": time_train_steps(cfg, bank, device, dtype=torch.bfloat16)}
+
+
+def cli_train_w125(cfg) -> dict:
+    """``cli train --dtype bfloat16`` on the card with the ``w125`` recipe's
+    batch, warp and loss weights (the CLI trains width 1.0) for W125_STEPS
+    steps: every logged loss finite, ``asm_dynamic`` twice a step, the
+    saved params fp32."""
+    d, t = cfg.data, cfg.train
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_w125_") as tmp:
+        asm_cuda.reset_launches()
+        run_cli(["train", "--dtype", "bfloat16", "--iterations", str(W125_STEPS), "--batch-size",
+                 str(d.batch_size), "--bank", "golden", "--checkpoint-dir", tmp, "--log-every", "1",
+                 "--checkpoint-every", "0", "--rotate-deg", str(d.rotate_deg), "--elastic-px", str(d.elastic_px),
+                 "--lr", str(t.lr), "--supervised-weight", str(t.supervised_weight), "--physics-weight",
+                 str(t.physics_weight), "--distance-weight", str(t.distance_weight), "--adv-weight",
+                 str(t.adv_weight), "--train-encoder"])
+        torch.cuda.synchronize()
+        launches = dict(asm_cuda.LAUNCHES)
+        with open(os.path.join(tmp, "train_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        params = load_train_params(latest_snapshot(tmp))
+    if (len(rows) != W125_STEPS or not all(math.isfinite(v) for r in rows for v in r.values())
+            or launches["asm_dynamic"] != 2 * W125_STEPS
+            or not all(v.dtype == torch.float32 for v in params.values())):
+        _die(f"cli train --dtype bfloat16: {len(rows)} rows, launches {launches}, "
+             f"param dtypes {sorted({str(v.dtype) for v in params.values()})}: {rows[-1:]}", 1)
+    return {"steps": W125_STEPS, "launches": launches, "last": rows[-1]}
+
+
+@contextlib.contextmanager
+def checking_ring():
+    """Within the block, every ``reflect_border.border_lines`` call (the
+    reflect convs look it up at each call) runs the op, then holds its rows
+    and columns to ``border_lines_plain`` on the same inputs in units of one
+    bf16 ulp of the plain output's max; the list this yields gets one row a
+    call: the layer and its readings."""
+    rows = []
+    ring = reflect_border.border_lines
+
+    def checked(x, k):
+        out = ring(x, k)
+        with torch.no_grad():
+            ref = reflect_border.border_lines_plain(x.detach(), k.detach())
+            err = max(float((a.float() - r.float()).abs().max()) / bf16_ulp(r.float()) for a, r in zip(out, ref))
+        rows.append({"layer": [x.shape[1], x.shape[2], x.shape[3], k.shape[0]], "dtype": _dt(x.dtype),
+                     "ulps": err})
+        return out
+
+    reflect_border.border_lines = checked
+    try:
+        yield rows
+    finally:
+        reflect_border.border_lines = ring
+
+
+def grad_distances(grads: dict, anchor: dict) -> dict:
+    """Each leaf's L2 distance from the float64 ``anchor``'s over the
+    anchor leaf's norm: {group/leaf: relative distance} (leaves whose float64
+    gradient is zero left out)."""
+    out = {}
+    for group, want in anchor.items():
+        for k, w in want.items():
+            norm = float(w.norm())
+            if norm > 0:
+                out[f"{group}/{k}"] = float((grads[group][k] - w).norm()) / norm
+    return out
+
+
+def bf16_distance_shares(path: list, yardstick: list) -> dict:
+    """``path``'s relative distances from float64 (``grad_distances``, one
+    dict a batch) against ``yardstick``'s, the generator's leaves in two
+    groups. The decoder's: each leaf's median over the batches within
+    BF16_GRAD_RATIO times the yardstick's plus BF16_GRAD_SLACK. The encoder's
+    and the distance head's, whose distances carry one ill-conditioned
+    factor a batch (the physics loss's gradient through the distance head):
+    the median over those leaves of the two paths' ratio, its median over
+    the batches within BF16_GRAD_RATIO. Each group's worst share of its
+    bound."""
+    dec = [k for k in path[0] if k.startswith("params/decoder.")]
+    enc = [k for k in path[0] if k.startswith("params/") and k not in dec]
+    shares = {k: float(np.median([d[k] for d in path]))
+              / (BF16_GRAD_RATIO * float(np.median([d[k] for d in yardstick])) + BF16_GRAD_SLACK) for k in dec}
+    worst = max(shares, key=shares.get)
+    ratios = [float(np.median([p[k] / y[k] for k in enc])) for p, y in zip(path, yardstick)]
+    return {"decoder": {"worst_share_of_bound": shares[worst], "leaf": worst,
+                        "top": dict(sorted(shares.items(), key=lambda kv: -kv[1])[:3])},
+            "encoder_head": {"share_of_bound": float(np.median(ratios)) / BF16_GRAD_RATIO,
+                             "median_ratio_by_batch": ratios}}
+
+
+def check_bf16_distances(path: list, yardstick: list, label: str) -> dict:
+    """``bf16_distance_shares`` within their bounds, or the run fails."""
+    out = bf16_distance_shares(path, yardstick)
+    if not (out["decoder"]["worst_share_of_bound"] <= 1.0 and out["encoder_head"]["share_of_bound"] <= 1.0):
+        _die(f"{label}: gradients off the float64 ones: {json.dumps(out)}", 1)
+    return out
+
+
+class _OneBitCoarser(torch.autograd.Function):
+    """A bf16 tensor rounded to 7 significant bits (bf16 keeps 8), and the
+    gradient into it too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _round_7_bits(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _round_7_bits(g)
+
+
+def _round_7_bits(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype != torch.bfloat16:
+        return x
+    i = x.float().view(torch.int32)
+    return ((i + (1 << 16)) & -(1 << 17)).view(torch.float32).to(torch.bfloat16)
+
+
+@contextlib.contextmanager
+def one_bit_coarser_convs():
+    """Within the block every bf16 conv of ``models/layers.py`` (``conv_in_dtype``)
+    one bit coarser than bf16, forward and backward: the gradient check's
+    control."""
+    conv = layers.conv_in_dtype
+    layers.conv_in_dtype = lambda *a, **k: _OneBitCoarser.apply(conv(*a, **k))
+    try:
+        yield
+    finally:
+        layers.conv_in_dtype = conv
+
+
+def train_bf16_card_vs_cpu(cfg, bank, cmp, device) -> dict:
+    """(g) Mixed precision at the flagship's configuration, B =
+    TRAIN_CMP_BATCH, from (b)'s params: the bf16 step's loss and terms on
+    the card against the CPU's on (b)'s batch (within BF16_AUX_RTOL); on
+    BF16_GRAD_BATCHES batches (the first (b)'s) the bf16 gradients of the
+    card (``matpad``), of the CPU, of the card with the ``cuda`` ring, and
+    of the control (the card's step one bit coarser,
+    ``one_bit_coarser_convs``) against float64 ones on the card: the card's
+    held to the CPU's and the ring's to the card's ``matpad``
+    (``check_bf16_distances``), the control must fail the check, and the
+    fp32 discriminator's gradients within TRAIN_GRAD_TOL of float64. The
+    ring launched at each of a step's reflect convs, each call's output
+    within one bf16 ulp of its plain version's max."""
+    small = _train_cfg(cfg, batch_size=TRAIN_CMP_BATCH)
+    params, disc_params = cmp["params"], cmp["disc_params"]
+    bf16 = torch.bfloat16
+    paths = ("card", "cpu", "cuda_ring", "control")
+    dist = {p: [] for p in paths}
+    aux = {p: {} for p in paths}
+    disc, launches, ring_calls, seconds = {}, [], [], {}
+    for i in range(BF16_GRAD_BATCHES):
+        batch = cmp["batch"] if i == 0 else synth.synth_batch(i, torch.as_tensor(bank), small.data, cfg.physics,
+                                                              return_gt=True)
+        args = (small, params, disc_params, batch)
+        anchor = cmp["anchor"] if i == 0 else step_gradients(*args, device, torch.float64)
+        for path in paths:
+            t0 = time.monotonic()
+            reflect_border.reset_launches()
+            ring = checking_ring() if path == "cuda_ring" else contextlib.nullcontext([])
+            control = one_bit_coarser_convs() if path == "control" else contextlib.nullcontext()
+            with ring as calls, control:
+                grads = step_gradients(*args, "cpu" if path == "cpu" else device,
+                                       backend="cuda" if path == "cuda_ring" else "auto", compute=bf16,
+                                       aux_out=aux[path] if i == 0 else None)
+                torch.cuda.synchronize()
+            seconds[path] = seconds.get(path, 0.0) + time.monotonic() - t0
+            dist[path].append(grad_distances(grads, anchor))
+            if path == "cuda_ring":
+                launches.append(reflect_border.LAUNCHES["border_lines"])
+                ring_calls += calls
+            if path != "control":
+                disc.update(check_gradients({f"{path}_batch{i}": grads}, {"disc_params": anchor["disc_params"]},
+                                            "bf16 steps, the fp32 discriminator"))
+    worst_ulps = max(r["ulps"] for r in ring_calls)
+    if (any(n != REFLECT_STEP_CONVS for n in launches) or len(ring_calls) != REFLECT_STEP_CONVS * BF16_GRAD_BATCHES
+            or worst_ulps > 1.0 or any(r["dtype"] != "bfloat16" for r in ring_calls)):
+        _die(f"the bf16 ring steps launched {launches} rings ({len(ring_calls)} checked, want "
+             f"{REFLECT_STEP_CONVS} a step in bf16), worst {worst_ulps} bf16 ulps off the plain version", 1)
+    control = bf16_distance_shares(dist["control"], dist["cpu"])
+    if not control["decoder"]["worst_share_of_bound"] > 1.0:
+        _die(f"the bf16 gradient check passes a path one bit coarser than bf16: {json.dumps(control)}", 1)
+    return {"B": TRAIN_CMP_BATCH, "batches": BF16_GRAD_BATCHES, "seconds_by_path": seconds,
+            "aux_rel_err": compare_aux(aux["card"], aux["cpu"], "one bf16 step, card against CPU", BF16_AUX_RTOL),
+            "card_vs_cpu": check_bf16_distances(dist["card"], dist["cpu"], "bf16 steps, the card"),
+            "ring_vs_matpad": check_bf16_distances(dist["cuda_ring"], dist["card"], "bf16 steps, the cuda ring"),
+            "control_vs_cpu": control, "disc_params_vs_float64": disc,
+            "ring_launches": launches[0], "ring_worst_bf16_ulps": worst_ulps,
+            "ring_layers": [tuple(r["layer"]) for r in ring_calls[:REFLECT_STEP_CONVS]],
+            "tols": {"aux_rtol": BF16_AUX_RTOL, "grad_ratio": BF16_GRAD_RATIO, "grad_slack": BF16_GRAD_SLACK},
+            "rel_distances": dist}
+
+
+def max_rel_difference(a: dict, b: dict) -> float:
+    """The largest |a - b| of any leaf of ``step_gradients``'s trees over
+    that leaf's max |b|."""
+    return max(float((a[g][k] - b[g][k]).abs().max()) / max(float(b[g][k].abs().max()), 1e-30)
+               for g in b for k in b[g])
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms`` within the block."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def remat_against_plain(cfg, bank, cmp, device, dtype, backend) -> dict:
+    """(h) ``remat`` at the flagship's configuration and batch with dropout
+    on, from (b)'s params on the stream's batch 0, the net computing in
+    ``dtype`` with the reflect ``backend``, under
+    ``torch.use_deterministic_algorithms``: the gradients of
+    REMAT_PLAIN_STEPS plain steps and one ``remat`` step, and the ring's
+    launches in each. The ``remat`` step's largest difference from the
+    first plain step (``max_rel_difference``) within REMAT_SPREAD times the
+    plain steps' spread. In that mode plain steps repeat bit for bit, so
+    the ``remat`` step must equal them: its recompute gives the forward's
+    activations bit for bit. Without it any two steps, plain or not, part
+    by the backward's atomic adds."""
+    run = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, use_dropout=True))
+    batch = synth.synth_batch(0, torch.as_tensor(bank, device=device), cfg.data, cfg.physics, return_gt=True)
+    grads, launches = [], []
+    with deterministic_algorithms():
+        for remat in (False,) * REMAT_PLAIN_STEPS + (True,):
+            reflect_border.reset_launches()
+            grads.append(step_gradients(dataclasses.replace(run, train=dataclasses.replace(run.train, remat=remat)),
+                                        cmp["params"], cmp["disc_params"], batch, device, backend=backend,
+                                        compute=dtype, host=False))
+            torch.cuda.synchronize()
+            launches.append(reflect_border.LAUNCHES["border_lines"])
+    plain = grads[:-1]
+    spread = max(max_rel_difference(a, b) for i, b in enumerate(plain) for a in plain[i + 1:])
+    diff = max_rel_difference(grads[-1], plain[0])
+    out = {"dtype": _dt(dtype), "backend": backend, "B": cfg.data.batch_size, "plain_steps": REMAT_PLAIN_STEPS,
+           "plain_spread": spread, "remat_vs_plain": diff, "bound": REMAT_SPREAD * spread,
+           "ring_launches": {"plain": launches[0], "remat": launches[-1]}}
+    if not diff <= REMAT_SPREAD * spread:
+        _die(f"a remat step against plain steps ({_dt(dtype)}, {backend}): {json.dumps(out)}", 1)
+    return out
+
+
+def drive_train_mixed(cfg, bank, cmp, fp32_timed, device, peak_flops, peak_bytes) -> dict:
+    """(g) and (h): the bf16 step against the CPU and float64, ``remat``
+    against plain steps in fp32 (``auto``) and bf16 (the ``cuda`` ring, its
+    launches with and without ``remat``), the flagship's steps timed in
+    bf16 and with ``remat`` (fp32 without it is (e)'s), and the bf16 ring at
+    each of the training step's reflect convs; each part's seconds."""
+    seconds, t0 = {}, time.monotonic()
+    ring_cmp = train_bf16_card_vs_cpu(cfg, bank, cmp, device)
+    seconds["g"], t0 = time.monotonic() - t0, time.monotonic()
+    remat = {f"{_dt(dt)}_{be}": remat_against_plain(cfg, bank, cmp, device, dt, be)
+             for dt, be in ((torch.float32, "auto"), (torch.bfloat16, "cuda"))}
+    launches = remat["bfloat16_cuda"]["ring_launches"]
+    if launches["plain"] != REFLECT_STEP_CONVS or not launches["plain"] < launches["remat"] <= 2 * launches["plain"]:
+        _die(f"the bf16 cuda-ring steps launched {launches}: want {REFLECT_STEP_CONVS} a plain step and "
+             "more, up to twice that, with remat (its recompute)", 1)
+    seconds["remat"], t0 = time.monotonic() - t0, time.monotonic()
+    timed = {"float32": {k: fp32_timed[k] for k in ("dtype", "remat", "B", "ms", "images_per_s",
+                                                    "max_memory_allocated_bytes", "timed_steps")}}
+    for dtype, remat_on in ((torch.bfloat16, False), (torch.float32, True), (torch.bfloat16, True)):
+        timed[f"{_dt(dtype)}{'_remat' if remat_on else ''}"] = time_train_steps(
+            cfg, bank, device, dtype=dtype, remat=remat_on, steps=REMAT_TIMED, warmup=REMAT_WARMUP,
+            params=cmp["params"], disc_params=cmp["disc_params"])
+    seconds["timed"], t0 = time.monotonic() - t0, time.monotonic()
+    ring_step = time_ring_step(ring_cmp.pop("ring_layers"), peak_flops, peak_bytes, cfg.data.batch_size, device,
+                               dtype=torch.bfloat16, plain=True)
+    seconds["ring_step"] = time.monotonic() - t0
+    return {"bf16_card_vs_cpu": ring_cmp, "remat_against_plain": remat, "ring_launches": launches,
+            "timed": timed, "ring_bf16_step": ring_step, "seconds": seconds}
 
 
 def run_cli(argv):
@@ -2549,18 +2970,29 @@ def main() -> int:
 
     with Phase("train") as phase:
         train_bank = synth.golden_digit_bank(goldens, subset=synth.GOLDEN_TRAIN_DIGITS)
-        train_run = drive_train(cfg, train_bank, dev)
-        train_cmp = train_step_card_vs_cpu(cfg, train_bank, dev)
-        train_synth = synthesis_card_vs_cpu(cfg, train_bank, dev)
-        ring_grad_rows = ring_gradients(ring_layers_of_step, dev)
-        train_ring = train_step_ring(cfg, train_cmp, dev)
-        train_timing = learn_and_time(cfg, train_bank, dev)
+        part_seconds = {}
+
+        def part(name, fn, *args):
+            t0 = time.monotonic()
+            out = fn(*args)
+            part_seconds[name] = time.monotonic() - t0
+            return out
+
+        train_run = part("a", drive_train, cfg, train_bank, dev)
+        train_cmp = part("b", train_step_card_vs_cpu, cfg, train_bank, dev)
+        train_synth = part("c", synthesis_card_vs_cpu, cfg, train_bank, dev)
+        ring_grad_rows = part("d_layers", ring_gradients, ring_layers_of_step, dev)
+        train_ring = part("d_step", train_step_ring, cfg, train_cmp, dev)
+        train_timing = part("e", learn_and_time, cfg, train_bank, dev)
+        train_w125 = part("f", drive_train_w125, train_bank, dev)
+        train_mixed = part("g_h", drive_train_mixed, cfg, train_bank, train_cmp, train_timing, dev, peak_flops,
+                           peak_bytes)
         for k in ("params", "disc_params", "batch", "anchor", "card_grads"):
             train_cmp.pop(k)
-        phase.info = {"card": smi, "width": cfg.model.width, "run": train_run,
+        phase.info = {"card": smi, "width": cfg.model.width, "part_seconds": part_seconds, "run": train_run,
                       "card_vs_cpu_step": train_cmp, "synthesis_card_vs_cpu": train_synth,
                       "ring_gradients": ring_grad_rows, "ring_train_step": train_ring,
-                      "learn_and_time": train_timing}
+                      "learn_and_time": train_timing, "w125": train_w125, "mixed_precision": train_mixed}
 
     with Phase("timing") as phase:
         kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
@@ -2781,12 +3213,22 @@ def main() -> int:
         "fused_conv_tail": (csrc + "conv_stack.cu", jk + "conv_stack.py:122", torch.bfloat16),
         "border_lines": (csrc + "reflect_border.cu", jk + "reflect_border.py:97", torch.float32),
     }
+    ring_train = train_mixed["ring_bf16_step"]
+    remat_launches = train_mixed["ring_launches"]
     extras = {
         "border_lines": {"step_fp32_ms": ring_step["step_ms"],
                          "step_fp32_bound_ms": ring_step["step_bound_ms"],
                          "step_convs": ring_step["convs"],
+                         "train_bf16_B": cfg.data.batch_size,
+                         "train_bf16_step_ms": ring_train["step_ms"],
+                         "train_bf16_step_plain_ms": ring_train["step_plain_ms"],
+                         "train_bf16_step_bound_ms": ring_train["step_bound_ms"],
+                         "train_bf16_step_convs": ring_train["convs"],
+                         "train_bf16_worst_bf16_ulps": train_mixed["bf16_card_vs_cpu"]["ring_worst_bf16_ulps"],
                          "launches_by_path": {"reflect": launches["border_lines"],
-                                              "train_step_cuda_ring": train_ring["launches"]},
+                                              "train_step_cuda_ring": train_ring["launches"],
+                                              "train_bf16_step_cuda_ring": remat_launches["plain"],
+                                              "train_bf16_remat_step_cuda_ring": remat_launches["remat"]},
                          "gradient_max_rel_err": max(r["rel_err_vs_matpad"] for r in ring_grad_rows)},
     }
     for k, (source, where, dt) in conv_meta.items():

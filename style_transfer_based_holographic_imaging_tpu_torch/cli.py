@@ -40,11 +40,12 @@ the ``asm_const`` kernel (a card-only file), as the JAX command maps
 ``auto`` to ``xla``. ``serve --artifact`` serves such a file.
 
 Each command takes the JAX package's flags that the port implements and
-prints its lines. argparse refuses the rest with a message and exit code 2:
-mixed-precision training (``--dtype``), TensorBoard (``--tensorboard-dir``),
-the device mesh (``train --devices/--partition/--model-devices``, ``stream
---devices`` over 1, ``serve --devices``) and ``extract-style --pt-out`` (the
-reference's ``.pt`` layout).
+prints its lines (``train --dtype bfloat16`` is mixed-precision training,
+``--tensorboard-dir`` mirrors its scalars). argparse refuses the rest with a
+message and exit code 2: the device mesh (``train
+--devices/--partition/--model-devices``, ``stream --devices`` over 1,
+``serve --devices``) and ``extract-style --pt-out`` (the reference's ``.pt``
+layout).
 """
 
 from __future__ import annotations
@@ -622,7 +623,7 @@ def cmd_train(args):
 
     device = _setup_backend(args)
     set_reflect_backend(args.reflect_backend)
-    model_cfg = ModelConfig(with_phase_decoder=args.phase_decoder)
+    model_cfg = ModelConfig(dtype=args.dtype, with_phase_decoder=args.phase_decoder)
     train_cfg = TrainConfig(
         iterations=args.iterations, lr=args.lr, checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir, freeze_encoder=not args.train_encoder,
@@ -631,6 +632,7 @@ def cmd_train(args):
         distance_weight=args.distance_weight, content_weight=args.content_weight,
         style_weight=args.style_weight, log_every=args.log_every,
         grad_accum=args.grad_accum, ema_decay=args.ema_decay,
+        tensorboard_dir=args.tensorboard_dir,
     )
     data_kw = dict(batch_size=args.batch_size, image_size=args.image_size, seed=args.seed,
                    rotate_deg=args.rotate_deg, elastic_px=args.elastic_px)
@@ -923,7 +925,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=5000)
     p.add_argument("--checkpoint-dir", type=str, default="checkpoints")
     p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--tensorboard-dir", type=str, default="",
+                   help="also mirror the per-log-step scalars to a TensorBoard event dir "
+                        "(needs tensorboardX; '' = off)")
     p.add_argument("--train-encoder", action="store_true")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="conv compute dtype; bfloat16 = mixed-precision training "
+                        "(fp32 params, optimizer and losses)")
     p.add_argument("--phase-decoder", action="store_true",
                    help="train a dedicated decoder_ph head for the phase plane")
     p.add_argument("--rotate-deg", type=float, default=0.0,

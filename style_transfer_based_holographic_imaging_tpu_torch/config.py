@@ -36,6 +36,17 @@ class PhysicsConfig:
         return -self.distance_normalize_constant + d_mm / self.distance_normalize
 
 
+def compute_dtype_name(name: str) -> str:
+    """``ModelConfig.dtype`` as "float32" or "bfloat16" (the JAX package's
+    ``_compute_dtype``: "bf16" and "fp32" are the same); anything else is
+    refused."""
+    if name in ("bfloat16", "bf16"):
+        return "bfloat16"
+    if name in ("float32", "fp32"):
+        return "float32"
+    raise ValueError(f"unsupported ModelConfig.dtype {name!r}")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture of the style-transfer network."""
@@ -47,8 +58,11 @@ class ModelConfig:
     style_channels: int = 512
     decoder_out_channels: int = 2
     distance_hidden: int = 1024
-    dtype: str = "float32"
+    dtype: str = "float32"              # compute dtype: float32/fp32 or bfloat16/bf16
     param_dtype: str = "float32"
+
+    def __post_init__(self):
+        compute_dtype_name(self.dtype)
 
 
 @dataclass(frozen=True)
@@ -99,9 +113,12 @@ class TrainConfig:
     checkpoint_every: int = 5000
     log_every: int = 100
     checkpoint_dir: str = "checkpoints"
+    remat: bool = False                 # recompute the network forward in the backward
+                                        # (activation memory for about a third more work)
     grad_accum: int = 1                 # micro-batches a step, gradients averaged
     freeze_encoder: bool = True         # the encoder gets no update
     ema_decay: float = 0.0              # Polyak averaging of the generator; 0 = off
+    tensorboard_dir: str = ""           # mirror the logged scalars to this event dir; "" = off
 
 
 @dataclass(frozen=True)

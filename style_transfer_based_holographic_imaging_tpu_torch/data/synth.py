@@ -22,14 +22,17 @@ The JAX package's evaluation streams (the domain records,
 ``extract_style_vector``) key ``synth_batch`` with ``jax.random``:
 ``jax_key_draws`` takes the same draws from a numpy reproduction of that
 stream (``utils/jax_random.py``), and ``synth_batch_from_key`` renders them,
-so those batches are the JAX package's; ``synth_interpolation_batch`` (the
-``sweep`` command's) draws its digit and distance from that stream too. The
-training stream keeps its ``torch.Generator``.
+so those batches are the JAX package's, the warp's rotations and flows
+included; ``synth_interpolation_batch`` (the ``sweep`` command's) draws its
+digit and distance from that stream too. The training stream keeps its
+``torch.Generator``.
 
 Banks: ``golden_digit_bank`` (the golden suite's GT digits),
 ``load_digit_bank`` (an ``.npz``), ``sklearn_digit_bank`` /
 ``mixed_digit_bank``, which need ``sklearn`` and raise where it is absent,
-and the experimental domains' ``bead_bank`` and ``rbc_bank`` (numpy, seeded).
+``morphed_digit_bank`` (a bank widened by affine, elastic and stroke
+morphs, the JAX package's ``jax.random`` stream), and the experimental
+domains' ``bead_bank`` and ``rbc_bank`` (numpy, seeded).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ __all__ = [
     "sklearn_digit_bank",
     "golden_digit_bank",
     "mixed_digit_bank",
+    "morphed_digit_bank",
     "GOLDEN_TRAIN_DIGITS",
     "GOLDEN_HELDOUT_BATCHES",
     "bead_bank",
@@ -159,6 +163,97 @@ def _shape_warp(img: torch.Tensor, angle_deg: torch.Tensor, flow: Optional[torch
     return _map_coordinates_linear(img, ys, xs)
 
 
+def _morph_draws(keys: np.ndarray, *, rotate_deg: float, scale_range, shear: float,
+                 elastic_px: float, elastic_cells: int, thickness: float) -> Dict[str, np.ndarray]:
+    """The draws of the JAX ``_morph_digit`` for each of ``keys`` ``(B, 2)``:
+    each key split in five (rotation, scale, shear, flow, thickness), a
+    ``uniform`` angle in radians ``(B,)``, scales ``(B, 2)`` (y, x), shear
+    ``(B,)``, with ``elastic_px`` a ``normal`` flow ``(B, 2, cells, cells)``
+    and with ``thickness`` a ``uniform`` lerp weight ``(B,)``."""
+    ks = jax_random.split(keys, 5)
+    out = {
+        "theta": jax_random.uniform(ks[:, 0], (), -rotate_deg, rotate_deg) * _F32(np.pi / 180.0),
+        "scale": jax_random.uniform(ks[:, 1], (2,), scale_range[0], scale_range[1]),
+        "shear": jax_random.uniform(ks[:, 2], (), -shear, shear),
+    }
+    if elastic_px:
+        out["flow"] = jax_random.normal(ks[:, 3], (2, elastic_cells, elastic_cells))
+    if thickness:
+        out["thick"] = jax_random.uniform(ks[:, 4], (), -thickness, thickness)
+    return out
+
+
+def _morph_digits(img: torch.Tensor, draws: Dict[str, np.ndarray], *, elastic_px: float) -> torch.Tensor:
+    """The JAX ``_morph_digit`` of each ``(S, S)`` digit of ``img`` ``(B, S,
+    S)`` with its ``draws`` (``_morph_draws``), on ``img``'s device: the
+    digit sampled bilinearly at the inverse of rotation @ shear @
+    diag(sy, sx) about the centre, displaced by the cubic-upsampled flow,
+    then lerped toward its 3x3 grey dilation (weight t >= 0) or erosion
+    (t < 0), clipped to [0, 1]."""
+    dev = img.device
+    b, s = img.shape[0], img.shape[-1]
+    theta = draws["theta"].astype(_F32)
+    cos_t, sin_t = np.cos(theta), np.sin(theta)
+    rot = np.stack([np.stack([cos_t, -sin_t], -1), np.stack([sin_t, cos_t], -1)], -2)
+    shr = np.zeros((b, 2, 2), _F32)
+    shr[:, 0, 0] = shr[:, 1, 1] = 1.0
+    shr[:, 0, 1] = draws["shear"]
+    diag = np.zeros((b, 2, 2), _F32)
+    diag[:, 0, 0], diag[:, 1, 1] = draws["scale"][:, 0], draws["scale"][:, 1]
+    inv = torch.from_numpy(np.linalg.inv(rot @ shr @ diag).astype(_F32)).to(dev)
+    grid = torch.arange(s, dtype=torch.float32, device=dev)
+    yy, xx = torch.meshgrid(grid, grid, indexing="ij")
+    c = (s - 1) / 2.0
+    m = [inv[:, i, j].reshape(b, 1, 1) for i in range(2) for j in range(2)]
+    ys = m[0] * (yy - c) + m[1] * (xx - c) + c
+    xs = m[2] * (yy - c) + m[3] * (xx - c) + c
+    if elastic_px:
+        up = resize_cubic(torch.from_numpy(draws["flow"]).to(dev), s, s) * elastic_px
+        ys = ys + up[:, 0]
+        xs = xs + up[:, 1]
+    out = _map_coordinates_linear(img, ys, xs)
+    if "thick" in draws:
+        x4 = out[:, None]
+        dil = torch.nn.functional.max_pool2d(x4, 3, 1, 1)[:, 0]        # -inf pad
+        ero = -torch.nn.functional.max_pool2d(-x4, 3, 1, 1)[:, 0]      # +inf pad
+        t = torch.from_numpy(draws["thick"]).to(dev).reshape(b, 1, 1)
+        out = torch.where(t >= 0.0, out * (1.0 - t) + dil * t, out * (1.0 + t) - ero * t)
+    return out.clamp(0.0, 1.0)
+
+
+def morphed_digit_bank(base: np.ndarray, n: int, *, seed: int = 0, rotate_deg: float = 25.0,
+                       scale_range=(0.8, 1.15), shear: float = 0.2, elastic_px: float = 5.0,
+                       elastic_cells: int = 8, thickness: float = 0.8, batch: int = 1024,
+                       device: str | torch.device = "cuda") -> np.ndarray:
+    """``base`` (kept verbatim at the front) and ``n - len(base)`` random
+    morphs of its digits (``_morph_digits``): the JAX package's
+    ``morphed_digit_bank``, with its ``jax.random`` stream. From
+    ``key(seed)``, each chunk splits the key in three (the next key, the
+    digit indices, the morphs), draws ``batch`` indices and ``batch`` morph
+    keys even for a last partial chunk, and keeps the chunk's first ones.
+    The morphs render on ``device``."""
+    base = np.asarray(base, np.float32)
+    if n <= len(base):
+        return base[:n]
+    n_new = n - len(base)
+    key = jax_random.key(seed)
+    base_dev = torch.from_numpy(base).to(device)
+    kw = dict(rotate_deg=rotate_deg, scale_range=scale_range, shear=shear, elastic_px=elastic_px,
+              elastic_cells=elastic_cells, thickness=thickness)
+    chunks = [base]
+    done = 0
+    while done < n_new:
+        take = min(batch, n_new - done)
+        key, k_idx, k_morph = jax_random.split(key, 3)
+        idx = jax_random.randint(k_idx, (batch,), 0, len(base))[:take]
+        draws = {k: v[:take] for k, v in _morph_draws(jax_random.split(k_morph, batch), **kw).items()}
+        out = _morph_digits(base_dev[torch.from_numpy(idx.astype(np.int64)).to(base_dev.device)], draws,
+                            elastic_px=elastic_px)
+        chunks.append(out.cpu().numpy())
+        done += take
+    return np.concatenate(chunks, axis=0)
+
+
 def _augment(img: torch.Tensor, flips: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     """Per-sample vertical/horizontal flip (``flips`` ``(B, 2)``) and
     ``jnp.roll`` by ``shifts`` ``(B, 2)`` of ``(B, S, S)`` images: a
@@ -216,12 +311,11 @@ def jax_key_draws(key: np.ndarray, n_bank: int, data: DataConfig) -> Dict[str, t
     ``draw_batch`` returns: ``key`` (``jax_random.key`` data) split in 8,
     sub-keys 0 and 1 the style and content digit indices, 2 the flips, 3 the
     shifts, 4 and 5 the style and content distance indices, 6 the phase
-    scale and 7 the gamma. A warp config raises: the warp draws ``normal``
-    per sample, which ``utils/jax_random.py`` does not reproduce."""
-    if _warps(data):
-        raise NotImplementedError(
-            "jax_key_draws: the warp (rotate_deg / elastic_px) draws jax.random.normal per "
-            "sample, which the port does not reproduce (ROADMAP A.4)")
+    scale and 7 the gamma. With the warp on, ``fold_in(key, 0x5A17)`` split
+    in two (style, content), each split into one key a sample, each of those
+    split into the rotation's key (a ``uniform`` angle) and the flow's (a
+    ``normal`` ``(2, cells, cells)``), as the JAX ``_shape_warp`` draws
+    them."""
     b = data.batch_size
     max_shift = int(round(data.translate_frac * data.image_size))
     ks = jax_random.split(key, 8)
@@ -231,7 +325,7 @@ def jax_key_draws(key: np.ndarray, n_bank: int, data: DataConfig) -> Dict[str, t
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x))
 
-    return {
+    draws = {
         "idx": t(np.stack([jax_random.randint(ks[0], (b,), 0, n_bank),
                            jax_random.randint(ks[1], (b,), 0, n_bank)]).astype(np.int64)),
         "flips": t(jax_random.bernoulli(ks[2], 0.5, (2, b, 2))),
@@ -243,6 +337,14 @@ def jax_key_draws(key: np.ndarray, n_bank: int, data: DataConfig) -> Dict[str, t
             jax_random.randint(ks[5], (b,), 0, len(data.content_distances)),
         ]).astype(np.int64)),
     }
+    if _warps(data):
+        pair = jax_random.split(jax_random.fold_in(key, 0x5A17), 2)      # style, content
+        rot_flow = jax_random.split(jax_random.split(pair, b), 2)         # (2, B, 2, 2)
+        draws["angle"] = t(jax_random.uniform(rot_flow[:, :, 0], (), -data.rotate_deg, data.rotate_deg))
+        if data.elastic_px:
+            c = data.elastic_cells
+            draws["flow"] = t(jax_random.normal(rot_flow[:, :, 1], (2, c, c)))
+    return draws
 
 
 def render_batch(bank: torch.Tensor, draws: Dict[str, torch.Tensor], data: DataConfig,

@@ -21,7 +21,10 @@ numpy arrays, the optax states as their namedtuples or as nested dicts), so
 that a JAX run resumes in the port: the step, the params, the optax Adam
 moments and count (under ``clip_by_global_norm``, and under
 ``multi_transform`` with a frozen encoder, whose masked leaves carry no
-moments), the discriminator's params and Adam state, and the EMA.
+moments), the discriminator's params and Adam state, and the EMA. A
+mixed-precision run (``ModelConfig.dtype`` bfloat16) keeps its params, Adam
+moments and EMA in fp32 in both packages: its state converts the same way,
+and resumes under the port's bf16 ``TrainStep``.
 
 ``load_release_weights`` reads a release's state dict back from the numpy
 file that ``scripts/port_golden_eval.py --export-npz`` writes (one fp32

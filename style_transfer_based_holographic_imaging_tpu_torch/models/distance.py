@@ -4,9 +4,10 @@ feature statistics -> a normalized distance in (0, 1).
 Three Linear -> InstanceNorm -> ReLU blocks and a sigmoid head. With a
 ``dropout`` generator the forward is the train-mode network of
 ``TrainConfig.use_dropout``: Dropout(0.5) after each Linear, flax's
-(keep where a uniform draw is below 0.5, scaled by 2), its masks drawn from
-that generator on the host. Without one (inference, and training by
-default) there is none.
+(keep where a uniform draw is below 0.5, scaled by 2: ``x / 0.5`` and the
+select in the activation's dtype), its masks drawn from that generator on
+the host, in fp32 and in bf16 alike. Without one (inference, and training
+by default) there is none.
 
 The forward takes a compute ``dtype``, as the flax module does. In bf16 the
 input, weights and biases are cast to bf16 and every value rounds where XLA
@@ -21,7 +22,11 @@ compiled HLO):
   and rounded, eps is a bf16 constant, and the rsqrt, the product and the
   relu each round;
 * the sigmoid is ``1 / (1 + exp(-z))`` with a rounding after the exp, the
-  add and the division (``jax.nn.sigmoid`` as XLA expands it).
+  add and the division (``jax.nn.sigmoid`` as XLA expands it). In the
+  jitted training step XLA keeps the division in fp32 up to the loss's fp32
+  cast (its excess precision: the output reads off the bf16 grid), so the
+  training forward asks for it unrounded (``round_output=False``); its
+  backward is ``lax.logistic``'s JVP in bf16.
 
 The fp32 default is the fp32 network as it was.
 """
@@ -57,25 +62,58 @@ class DistanceMLP(nn.Module):
         *,
         dtype: torch.dtype = torch.float32,
         dropout: Optional[torch.Generator] = None,
+        round_output: bool = True,
     ) -> torch.Tensor:
+        """``(B, 1)`` in ``dtype``; below fp32 with ``round_output`` off, the
+        sigmoid's fp32 quotient (the training step's loss reads that)."""
         mean, std = mean_std
         b = mean.shape[0]
         x = torch.cat([mean.reshape(b, -1), std.reshape(b, -1)], dim=-1).to(dtype)
-        if dropout is not None and dtype != torch.float32:
-            raise ValueError("train-mode dropout runs in float32")
         if dtype == torch.float32:
             for layer in (self.l1, self.l2, self.l3):
                 x = layer(x)
                 if dropout is not None:
-                    keep = torch.rand(x.shape, generator=dropout) < _KEEP
-                    x = torch.where(keep.to(x.device), x / _KEEP, 0.0)
+                    x = _dropout(x, dropout)
                 x = F.relu(instance_norm_rows(x))
             return torch.sigmoid(self.out(x))
         for layer in (self.l1, self.l2, self.l3):
-            x = _norm_relu(_dense(layer, x), dtype)
-        z = _dense(self.out, x).to(dtype).float()
-        d = (torch.exp(-z).to(dtype).float() + 1.0).to(dtype).float()
-        return (1.0 / d).to(dtype)
+            y = _dense(layer, x)
+            if dropout is not None:
+                # flax's Dropout on the rounded Dense output, in the dtype
+                y = _dropout(y.to(dtype), dropout).float()
+            x = _norm_relu(y, dtype)
+        return _Sigmoid.apply(_dense(self.out, x).to(dtype), round_output)
+
+
+class _Sigmoid(torch.autograd.Function):
+    """``jax.nn.sigmoid`` below fp32 (see the module docstring). Forward
+    ``1 / (1 + exp(-z))``, rounded after the exp and the add and, with
+    ``round_output``, after the division; without it the fp32 quotient.
+    Backward the JVP of
+    ``lax.logistic``, ``g * (s * (1 - s))`` with ``s`` rounded, in ``z``'s
+    dtype, each op rounded, as the JAX package's jitted step takes it."""
+
+    @staticmethod
+    def forward(ctx, z, round_output):
+        dt = z.dtype
+        d = (torch.exp(-z.float()).to(dt).float() + 1.0).to(dt).float()
+        s32 = 1.0 / d
+        s = s32.to(dt)
+        ctx.save_for_backward(s)
+        return s if round_output else s32
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return (g.to(s.dtype) * (s * (1.0 - s))).to(g.dtype), None
+
+
+def _dropout(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``Dropout(0.5)`` in train mode: keep where a uniform draw from
+    ``generator`` (on the host) is below 0.5, ``x / 0.5`` there, else zero,
+    in ``x``'s dtype."""
+    keep = torch.rand(x.shape, generator=generator) < _KEEP
+    return torch.where(keep.to(x.device), x / _KEEP, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:

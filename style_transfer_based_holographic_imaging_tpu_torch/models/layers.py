@@ -6,9 +6,11 @@ conv and the row-wise instance norm of the distance head.
 
 The convs take a compute ``dtype`` per call, as the flax modules do: the
 parameters stay fp32 and are cast to it at each conv with the activation
-and the bias (``conv_in_dtype``). Below fp32 a reflect conv materializes
-its pad (the ``matpad`` backend, the JAX package's default), as the int8
-path's fp convs do.
+and the bias (``conv_in_dtype``). Every dtype honours the border backend,
+as the JAX package's ``ReflectConv`` does: below fp32 the ring backends run
+the SAME conv in that dtype and the ring from the edge lines in it (the
+kernel folds the taps and sums in fp32 and rounds once, as the plain
+version and the JAX einsum do).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = [
     "instance_norm_rows",
     "set_reflect_backend",
     "conv_in_dtype",
+    "at_least_fp32",
 ]
 
 # Border handling of ReflectConv, the JAX package's backends: "matpad"
@@ -44,6 +47,12 @@ def set_reflect_backend(backend: str) -> None:
     if backend not in _REFLECT_BACKENDS:
         raise ValueError(f"unknown reflect backend {backend!r}")
     _REFLECT_BACKEND = backend
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast up to fp32 when its float type is narrower (bf16, the
+    mixed-precision compute dtype); fp32 and float64 stay as they are."""
+    return x.float() if x.is_floating_point() and x.element_size() < 4 else x
 
 
 def conv_in_dtype(op, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -68,17 +77,23 @@ class ReflectConv(nn.Conv2d):
         super().__init__(in_channels, out_channels, 3, padding=0)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        if dtype != torch.float32:
-            xp = F.pad(x.to(dtype), (1, 1, 1, 1), mode="reflect")
-            return conv_in_dtype(F.conv2d, xp, self.weight, self.bias, dtype)
         backend = "matpad" if _REFLECT_BACKEND == "auto" else _REFLECT_BACKEND
         h, w = x.shape[-2], x.shape[-1]
+        low = dtype != torch.float32
         if backend == "matpad" or h < 4 or w < 4:
+            if low:
+                xp = F.pad(x.to(dtype), (1, 1, 1, 1), mode="reflect")
+                return conv_in_dtype(F.conv2d, xp, self.weight, self.bias, dtype)
             return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), self.weight, self.bias)
         ring = reflect_border.border_lines if backend == "cuda" else reflect_border.border_lines_plain
-        bias = self.bias.view(1, -1, 1)
-        y = F.conv2d(x, self.weight, padding=1) + bias[..., None]
-        rows, cols = ring(x.contiguous(), self.weight)
+        if low:
+            x, weight = x.to(dtype), self.weight.to(dtype)
+            bias = self.bias.to(dtype).view(1, -1, 1)
+            y = conv_in_dtype(F.conv2d, x, self.weight, self.bias, dtype, padding=1)
+        else:
+            weight, bias = self.weight, self.bias.view(1, -1, 1)
+            y = F.conv2d(x, weight, padding=1) + bias[..., None]
+        rows, cols = ring(x.contiguous(), weight)
         y[:, :, 0] = rows[:, :, 0] + bias
         y[:, :, h - 1] = rows[:, :, 1] + bias
         y[:, :, 1 : h - 1, 0] = cols[:, :, 1 : h - 1, 0] + bias

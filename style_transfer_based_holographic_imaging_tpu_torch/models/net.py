@@ -2,8 +2,8 @@
 
 VGG encoder + AdaIN against a stored style vector + amplitude/phase decoder
 + distance regressor. ``field_retrieval`` is the inference path;
-``forward`` is the training forward (the JAX ``__call__``), fp32, with its
-content and style losses; ``init_net_params`` draws a fresh state dict
+``forward`` is the training forward (the JAX ``__call__``) with its
+content and style losses, in fp32 or, for mixed-precision training, bf16; ``init_net_params`` draws a fresh state dict
 with the flax initializers' distributions.
 
 ``field_retrieval`` takes the compute ``dtype`` per call, as the flax module
@@ -25,6 +25,7 @@ from torch import nn
 
 from style_transfer_based_holographic_imaging_tpu_torch.models.decoder import AmpPhaseDecoder
 from style_transfer_based_holographic_imaging_tpu_torch.models.distance import DistanceMLP
+from style_transfer_based_holographic_imaging_tpu_torch.models.layers import at_least_fp32
 from style_transfer_based_holographic_imaging_tpu_torch.models.vgg import VggEncoder
 from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (
     adain,
@@ -108,31 +109,40 @@ class StyleTransferNet(nn.Module):
         alpha: float = 1.0,
         *,
         dropout: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ) -> Dict[str, torch.Tensor]:
         """The training forward (the JAX ``__call__`` with ``field_retrieval``
-        and ``unknown_distance``), fp32. ``content`` and ``style`` are
+        and ``unknown_distance``). ``content`` and ``style`` are
         sqrt-intensity holograms ``(B, 1, H, W)``. Returns ``loss_content``,
         ``loss_style``, ``g_t`` and ``g_t_phase`` ``(B, 1, H, W)``, ``t``
         and the distances ``d_content``, ``d_style`` ``(B, 1)``; ``dropout``
-        is the distance head's train-mode generator. The JAX ``__call__``'s
-        ``style_re`` (a decoder pass over the style features) is left out:
-        no loss reads it, and under ``jit`` the JAX package drops it too."""
-        style_feats = self.encode_with_intermediate(style)
-        content_feat = self.encode(content)
+        is the distance head's train-mode generator. The encoders, AdaIN,
+        the decoder(s) and the distance head run in the compute ``dtype``
+        (their outputs stay in it, but for the distances: below fp32 the
+        sigmoid's unrounded fp32 quotient, which the JAX package's jitted
+        step feeds its loss); the two losses are taken in fp32 from
+        fp32 copies of the features, as the JAX package takes them. The JAX
+        ``__call__``'s ``style_re`` (a decoder pass over the style features)
+        is left out: no loss reads it, and under ``jit`` the JAX package
+        drops it too."""
+        dt = _check_dtype(dtype)
+        style_feats = self.encoder(style, all_taps=True, dtype=dt)
+        content_feat = self.encode(content, dt)
         t = adain(content_feat, style_feats[-1])
         t = alpha * t + (1.0 - alpha) * content_feat
 
-        g = self.decoder(t)
+        g = self.decoder(t, dt)
         g_t, g_t_phase = g[:, 0:1], g[:, 1:2]
         if self.with_phase_decoder:
-            g_t_phase = self.decoder_ph(t)[:, 0:1]
-        g_t_feats = self.encode_with_intermediate(g_t)
+            g_t_phase = self.decoder_ph(t, dt)[:, 0:1]
+        g_t_feats = self.encoder(g_t, all_taps=True, dtype=dt)
 
-        loss_c = torch.mean((g_t_feats[-1] - t.detach()) ** 2)
+        up = at_least_fp32
+        loss_c = torch.mean((up(g_t_feats[-1]) - up(t.detach())) ** 2)
         loss_s = torch.zeros((), dtype=torch.float32, device=g_t.device)
         for gf, sf in zip(g_t_feats, style_feats):
-            gm, gs = calc_mean_std(gf)
-            sm, ss = calc_mean_std(sf.detach())
+            gm, gs = calc_mean_std(up(gf))
+            sm, ss = calc_mean_std(up(sf.detach()))
             loss_s = loss_s + torch.mean((gm - sm) ** 2) + torch.mean((gs - ss) ** 2)
         out = {
             "loss_content": loss_c,
@@ -140,8 +150,10 @@ class StyleTransferNet(nn.Module):
             "g_t": g_t,
             "g_t_phase": g_t_phase,
             "t": t,
-            "d_content": self.distance_g(calc_mean_std(content_feat), dropout=dropout),
-            "d_style": self.distance_g(calc_mean_std(style_feats[-1]), dropout=dropout),
+            "d_content": self.distance_g(calc_mean_std(content_feat), dtype=dt, dropout=dropout,
+                                         round_output=False),
+            "d_style": self.distance_g(calc_mean_std(style_feats[-1]), dtype=dt, dropout=dropout,
+                                       round_output=False),
         }
         return out
 

@@ -19,6 +19,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.train.state import (
 )
 from style_transfer_based_holographic_imaging_tpu_torch.train.loop import (
     TrainStep,
+    compute_dtype,
     generator_loss_fn,
     train,
 )
@@ -40,4 +41,5 @@ __all__ = [
     "generator_loss_fn",
     "TrainStep",
     "train",
+    "compute_dtype",
 ]

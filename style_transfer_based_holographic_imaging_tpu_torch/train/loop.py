@@ -4,7 +4,18 @@ loss, the train step and ``train()``.
   L = w_c L_content + w_s L_style + w_phy L_phy + w_d (L_dist_style + L_dist_content)
     + w_sup L_field_supervised + w_perc L_perceptual + w_tv TV(phi_t) + w_adv L_adv
 
-fp32 throughout. The stop-gradients of the JAX package are ``.detach()``;
+The network runs in the compute dtype of ``ModelConfig.dtype``: fp32, or
+bf16 for mixed-precision training (the JAX package's ``dtype=bfloat16``):
+bf16 convs, the distance head in bf16, and fp32 params, Adam moments, EMA,
+discriminator and every loss, its outputs cast up at the loss boundary as
+the JAX package casts them. ``TrainConfig.remat`` recomputes the network
+forward in the backward (``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint``); the distance head's dropout generator is rewound for
+the recompute, so both passes draw one mask. With
+``TrainConfig.tensorboard_dir`` the logged scalars are also mirrored to a
+TensorBoard event directory (``utils/tb.py``).
+
+The stop-gradients of the JAX package are ``.detach()``;
 its jitted, donated step is an eager step that updates the state in place.
 The step's parts are separate methods of ``TrainStep`` (the generator's
 gradients, the optimizer and EMA, the discriminator's step), so that they
@@ -24,11 +35,13 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from style_transfer_based_holographic_imaging_tpu_torch.config import (
     ExperimentConfig,
     PhysicsConfig,
     TrainConfig,
+    compute_dtype_name,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.data.synth import (
     InfiniteHologramSampler,
@@ -36,6 +49,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.data.synth import (
     stream_generator,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models.discriminator import PatchDiscriminator
+from style_transfer_based_holographic_imaging_tpu_torch.models.layers import at_least_fp32
 from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
     StyleTransferNet,
     init_net_params,
@@ -59,8 +73,15 @@ from style_transfer_based_holographic_imaging_tpu_torch.train.state import (
     make_optimizer,
     save_checkpoint,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.utils.tb import make_writer
 
-__all__ = ["generator_loss_fn", "TrainStep", "train"]
+__all__ = ["generator_loss_fn", "TrainStep", "train", "compute_dtype"]
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """``ModelConfig.dtype`` -> the network's compute dtype (the JAX
+    package's ``_compute_dtype``): bf16 is mixed-precision training."""
+    return torch.bfloat16 if compute_dtype_name(name) == "bfloat16" else torch.float32
 
 
 def generator_loss_fn(
@@ -73,17 +94,32 @@ def generator_loss_fn(
     disc_params: Optional[Params] = None,
     disc: Optional[PatchDiscriminator] = None,
     dropout: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The generator-side loss of ``net`` at ``params`` on a batch of NCHW
-    sqrt-holograms, and its terms (``aux``; ``g_t`` for the discriminator).
-    ``dropout`` is the distance head's train-mode generator
-    (``cfg.use_dropout``)."""
-    out = functional_call(
-        net, params, (batch["content_holo"], batch["style_holo"], 1.0),
-        {"dropout": dropout if cfg.use_dropout else None},
-    )
-    amp_t, ph_t = out["g_t"], out["g_t_phase"]
-    d_c_pred, d_s_pred = out["d_content"], out["d_style"]
+    sqrt-holograms, and its terms (``aux``; ``g_t`` for the discriminator,
+    in the compute ``dtype``). ``dropout`` is the distance head's train-mode
+    generator (``cfg.use_dropout``). Every loss is fp32."""
+    gen = dropout if cfg.use_dropout else None
+    kw = {"dropout": gen, "dtype": dtype}
+    if cfg.remat:
+        # The recompute must draw the dropout masks the forward drew: the
+        # checkpoint restores the global RNGs, not this generator, so it
+        # is rewound to its state at the forward on each pass.
+        start = gen.get_state() if gen is not None else None
+
+        def apply_net(p, content, style):
+            if gen is not None:
+                gen.set_state(start)
+            return functional_call(net, p, (content, style, 1.0), kw)
+
+        out = checkpoint(apply_net, params, batch["content_holo"], batch["style_holo"],
+                         use_reentrant=False)
+    else:
+        out = functional_call(net, params, (batch["content_holo"], batch["style_holo"], 1.0), kw)
+    # Up to fp32 at the loss boundary: every term below sums in fp32.
+    amp_t, ph_t = at_least_fp32(out["g_t"]), at_least_fp32(out["g_t_phase"])
+    d_c_pred, d_s_pred = at_least_fp32(out["d_content"]), at_least_fp32(out["d_style"])
 
     loss = cfg.content_weight * out["loss_content"]
     loss = loss + cfg.style_weight * out["loss_style"]
@@ -119,11 +155,11 @@ def generator_loss_fn(
                       if k.startswith("encoder.")}
 
             def feats(x):
-                return functional_call(net.encoder, frozen, (x,), {"all_taps": True})
+                return functional_call(net.encoder, frozen, (x,), {"all_taps": True, "dtype": dtype})
 
             l_perc = torch.zeros((), dtype=torch.float32, device=ph_t.device)
             for f_p, f_g in zip(feats(ph_t), feats(gt_ph.to(ph_t.dtype))):
-                l_perc = l_perc + torch.mean((f_p - f_g) ** 2)
+                l_perc = l_perc + torch.mean((at_least_fp32(f_p) - at_least_fp32(f_g)) ** 2)
             l_perc = l_perc / 4.0
             loss = loss + cfg.perceptual_weight * l_perc
             aux["loss_perceptual"] = l_perc
@@ -140,7 +176,7 @@ def generator_loss_fn(
         aux["loss_adv"] = l_adv
 
     aux["loss_total"] = loss
-    aux["g_t"] = amp_t
+    aux["g_t"] = out["g_t"]
     return loss, aux
 
 
@@ -159,14 +195,16 @@ class TrainStep:
     """One optimizer step (the JAX ``make_train_step``), in place on the
     state: the generator's gradients (averaged over ``grad_accum``
     micro-batches), its update and EMA, then the discriminator's update from
-    its params before the step and the detached ``g_t`` of the forward."""
+    its params before the step and the detached ``g_t`` of the forward.
+    ``dtype`` is the network's compute dtype (``compute_dtype``); the
+    discriminator and the optimizer stay fp32."""
 
     def __init__(self, net: StyleTransferNet, physics: PhysicsConfig, cfg: TrainConfig, *,
-                 disc: Optional[PatchDiscriminator] = None):
+                 disc: Optional[PatchDiscriminator] = None, dtype: torch.dtype = torch.float32):
         if cfg.grad_accum > 1 and cfg.adv_weight:
             raise ValueError("grad_accum > 1 is not supported with the adversarial term "
                              "(the discriminator update would see stale generator outputs)")
-        self.net, self.physics, self.cfg, self.disc = net, physics, cfg, disc
+        self.net, self.physics, self.cfg, self.disc, self.dtype = net, physics, cfg, disc, dtype
         self.tx = make_optimizer(cfg)
         self.disc_tx = make_disc_optimizer(cfg)
 
@@ -175,7 +213,7 @@ class TrainStep:
         params = {k: v.detach().requires_grad_(self.tx.trainable(k)) for k, v in state.params.items()}
         wrt = [k for k in params if params[k].requires_grad]
         kw = dict(net=self.net, physics=self.physics, cfg=self.cfg,
-                  disc_params=state.disc_params, disc=self.disc, dropout=dropout)
+                  disc_params=state.disc_params, disc=self.disc, dropout=dropout, dtype=self.dtype)
         k = self.cfg.grad_accum
         if k <= 1:
             loss, aux = generator_loss_fn(params, batch, **kw)
@@ -204,10 +242,11 @@ class TrainStep:
         apply_gradients(state, grads, self.tx, self.cfg.ema_decay)
 
     def disc_step(self, state: TrainState, fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
-        """The discriminator's LSGAN step on ``real`` and ``fake``; its loss."""
+        """The discriminator's LSGAN step on ``real`` and ``fake`` (in fp32,
+        whatever the generator's dtype); its loss."""
         dp = {k: v.detach().requires_grad_() for k, v in state.disc_params.items()}
-        real_logits, _ = functional_call(self.disc, dp, (real,))
-        fake_logits, _ = functional_call(self.disc, dp, (fake,))
+        real_logits, _ = functional_call(self.disc, dp, (at_least_fp32(real),))
+        fake_logits, _ = functional_call(self.disc, dp, (at_least_fp32(fake),))
         d_loss = lsgan_d_loss(real_logits, fake_logits)
         grads = _grads(d_loss, list(dp.values()))
         apply_disc_gradients(state, dict(zip(dp, grads)), self.disc_tx)
@@ -241,15 +280,15 @@ def train(
     its place, its ``iteration`` aligned to the state's step.
     Measured batches carry no ground truth, so the supervised term stays
     out of the loss: pass ``supervised_weight=0`` to say so.
-    Logs every ``log_every`` steps, to ``log_fn`` and as one JSON line in
-    ``<checkpoint_dir>/train_metrics.jsonl``; saves ``iter_<n>`` snapshots
+    The network computes in ``ModelConfig.dtype`` (``compute_dtype``).
+    Logs every ``log_every`` steps, to ``log_fn``, as one JSON line in
+    ``<checkpoint_dir>/train_metrics.jsonl`` and, with ``tensorboard_dir``,
+    as scalars of an event file; saves ``iter_<n>`` snapshots
     every ``checkpoint_every`` steps. ``iterations`` defaults to the rest of
     the schedule (``cfg.iterations`` minus the state's step).
     """
     cfg, physics = config.train, config.physics
-    if config.model.dtype not in ("float32", "fp32"):
-        raise ValueError(f"training runs in float32; ModelConfig.dtype {config.model.dtype!r} "
-                         "(mixed precision) is not ported")
+    dtype = compute_dtype(config.model.dtype)
     device = torch.device(device)
     net = StyleTransferNet(width=config.model.width,
                            with_phase_decoder=config.model.with_phase_decoder).to(device)
@@ -281,26 +320,33 @@ def train(
             return_gt=bool(cfg.supervised_weight), start_iteration=state.step, device=device)
     else:
         sampler.iteration = state.step
-    step_fn = TrainStep(net, physics, cfg, disc=disc)
+    step_fn = TrainStep(net, physics, cfg, disc=disc, dtype=dtype)
     n_iter = max(cfg.iterations - state.step, 0) if iterations is None else iterations
 
     start = state.step
+    tb = make_writer(cfg.tensorboard_dir)
     t0 = time.time()
-    for i, batch in zip(range(n_iter), sampler):
-        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        dropout = stream_generator(config.data.seed + 2, state.step) if cfg.use_dropout else None
-        state, aux = step_fn(state, batch, dropout)
-        step = start + i + 1
-        if step % cfg.log_every == 0:
-            aux_host = {k: float(v) for k, v in aux.items()}
-            rate = cfg.log_every * config.data.batch_size / max(time.time() - t0, 1e-9)
-            t0 = time.time()
-            log_fn(f"step {step} | " + " ".join(f"{k}={v:.4f}" for k, v in sorted(aux_host.items()))
-                   + f" | {rate:.1f} img/s")
-            if cfg.checkpoint_dir:
-                os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-                with open(os.path.join(cfg.checkpoint_dir, "train_metrics.jsonl"), "a") as f:
-                    f.write(json.dumps({"step": step, "img_per_sec": round(rate, 1), **aux_host}) + "\n")
-        if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
-            save_checkpoint(state, cfg.checkpoint_dir)
+    try:
+        for i, batch in zip(range(n_iter), sampler):
+            batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+            dropout = stream_generator(config.data.seed + 2, state.step) if cfg.use_dropout else None
+            state, aux = step_fn(state, batch, dropout)
+            step = start + i + 1
+            if step % cfg.log_every == 0:
+                aux_host = {k: float(v) for k, v in aux.items()}
+                rate = cfg.log_every * config.data.batch_size / max(time.time() - t0, 1e-9)
+                t0 = time.time()
+                log_fn(f"step {step} | " + " ".join(f"{k}={v:.4f}" for k, v in sorted(aux_host.items()))
+                       + f" | {rate:.1f} img/s")
+                if cfg.checkpoint_dir:
+                    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+                    with open(os.path.join(cfg.checkpoint_dir, "train_metrics.jsonl"), "a") as f:
+                        f.write(json.dumps({"step": step, "img_per_sec": round(rate, 1), **aux_host}) + "\n")
+                if tb is not None:
+                    tb.write(step, {"img_per_sec": rate, **aux_host})
+            if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+                save_checkpoint(state, cfg.checkpoint_dir)
+    finally:
+        if tb is not None:
+            tb.close()
     return state

@@ -97,18 +97,23 @@ def recording_ring_layers():
         reflect_border.border_lines = ring
 
 
-def time_ring_layers(layers, b: int, device, reps: int = 9) -> dict:
+def time_ring_layers(layers, b: int, device, reps: int = 9, dtype=torch.float32,
+                     plain: bool = False) -> dict:
     """The ring at each distinct layer ``(C, H, W, O)`` of ``layers`` at
-    batch b, on fp32 ``ring_inputs`` of seed 3: by key ``"CxHxWxO"`` the
-    layer, its CUDA-event median in ms and how many of ``layers`` have that
-    shape (``convs``)."""
+    batch b, on ``ring_inputs`` of seed 3 in ``dtype``: by key
+    ``"CxHxWxO"`` the layer, its CUDA-event median in ms (with ``plain``
+    also ``plain_ms``, ``border_lines_plain``'s) and how many of ``layers``
+    have that shape (``convs``)."""
     by_layer = {}
     for layer in layers:
         key = "x".join(map(str, layer))
         if key not in by_layer:
-            x, k = ring_inputs(b, layer, 3, device)
+            x, k = ring_inputs(b, layer, 3, device, dtype)
             ms = median_ms(lambda: reflect_border.border_lines(x, k), reps=reps)
             by_layer[key] = {"layer": tuple(layer), "ms": ms, "convs": 0}
+            if plain:
+                by_layer[key]["plain_ms"] = median_ms(lambda: reflect_border.border_lines_plain(x, k),
+                                                      reps=reps)
             del x, k
         by_layer[key]["convs"] += 1
     return by_layer

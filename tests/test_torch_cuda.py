@@ -27,6 +27,14 @@ params, EMA and discriminator within 1e-4 of each leaf's max plus the
 spread of Adam's first step, lr g/(|g| + eps), over the gradients within
 the leaf's measured fp32 noise of the float64 one (up to 2 lr where the
 sign is free; ``chip_smoke.py`` says more).
+Mixed-precision training: the bf16 ring op passes ``opcheck`` at a
+training layer's shape (C = 80, the ``w125`` recipe's width, 64^2); a bf16
+``ReflectConv`` through the ``cuda`` ring against ``matpad`` on the card,
+output and gradients within the bf16 budget, one ring launch a forward; a
+``remat`` step against plain steps on the card (bf16, the ``cuda`` ring,
+dropout on): within twice the spread of two plain steps (cuDNN's backward
+need not be deterministic) plus 1e-6 of each leaf's max, and the ring
+launched again by the recompute (up to twice as often).
 Each kernel is a ``holostyle::`` custom op: ``torch.library.opcheck`` passes
 for each on CUDA tensors. A ``torch.export`` artifact whose refocus is the
 ``asm_const`` op answers as the live path does, bit for bit.
@@ -644,6 +652,81 @@ def _op_cases(card):
                                   "fused_conv_tail", "halo_interior", "halo_interior_static"])
 def test_ops_pass_opcheck_on_the_card(card, name):
     torch.library.opcheck(getattr(torch.ops.holostyle, name).default, _op_cases(card)[name])
+
+
+def test_bf16_ring_op_passes_opcheck_at_a_training_shape(card):
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 80, 64, 64, generator=g).to(card, torch.bfloat16).requires_grad_()
+    k = (torch.randn(80, 80, 3, 3, generator=g) / 27.0).to(card, torch.bfloat16).requires_grad_()
+    torch.library.opcheck(torch.ops.holostyle.border_lines.default, (x, k))
+
+
+def test_bf16_reflect_conv_cuda_ring_against_matpad_on_the_card(card):
+    from style_transfer_based_holographic_imaging_tpu_torch.models import ReflectConv, set_reflect_backend
+
+    g = torch.Generator().manual_seed(9)
+    conv = ReflectConv(80, 80)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * (2.0 / (9 * 80)) ** 0.5)
+        conv.bias.copy_(0.1 * torch.randn(80, generator=g))
+    conv = conv.to(card)
+    x = torch.randn(2, 80, 64, 64, generator=g).to(card).requires_grad_()
+    up = torch.randn(2, 80, 64, 64, generator=g).to(card, torch.bfloat16)
+    out = {}
+    try:
+        for backend in ("cuda", "matpad"):
+            set_reflect_backend(backend)
+            before = reflect_border.LAUNCHES["border_lines"]
+            y = conv(x, torch.bfloat16)
+            launched = reflect_border.LAUNCHES["border_lines"] - before
+            assert launched == (1 if backend == "cuda" else 0) and y.dtype == torch.bfloat16
+            out[backend] = (y, *torch.autograd.grad((y * up).float().sum(), (x, conv.weight, conv.bias)))
+    finally:
+        set_reflect_backend("auto")
+    torch.cuda.synchronize()
+    for a, e in zip(out["cuda"], out["matpad"]):
+        assert _rel(a.float(), e.float()) < CONV_BUDGETS[torch.bfloat16]
+
+
+def test_remat_step_against_plain_steps_on_the_card(card):
+    from style_transfer_based_holographic_imaging_tpu_torch.data import synth
+    from style_transfer_based_holographic_imaging_tpu_torch.models import set_reflect_backend
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "checkpoints", "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, width=0.25),
+                              data=dataclasses.replace(cfg.data, batch_size=2, image_size=64, digit_pad=16),
+                              train=dataclasses.replace(cfg.train, use_dropout=True))
+    bank = torch.from_numpy(synth.golden_digit_bank(load_golden_suite(), size=32,
+                                                    subset=synth.GOLDEN_TRAIN_DIGITS)).to(card)
+    batch = synth.synth_batch(0, bank, cfg.data, cfg.physics, return_gt=True)
+    params = init_net_params(torch.Generator().manual_seed(0), width=0.25)
+    disc_params = init_params(PatchDiscriminator(image_size=64), torch.Generator().manual_seed(1))
+    runs = []
+    set_reflect_backend("cuda")
+    try:
+        for remat in (False, False, True):
+            run = dataclasses.replace(cfg.train, remat=remat)
+            state = create_train_state(params, run, disc_params=disc_params, device=card)
+            step = TrainStep(StyleTransferNet(width=0.25).to(card), cfg.physics, run,
+                             disc=PatchDiscriminator(image_size=64).to(card), dtype=torch.bfloat16)
+            before = reflect_border.LAUNCHES["border_lines"]
+            state, aux = step(state, batch, synth.stream_generator(cfg.data.seed + 2, 0))
+            torch.cuda.synchronize()
+            runs.append((state, aux, reflect_border.LAUNCHES["border_lines"] - before))
+    finally:
+        set_reflect_backend("auto")
+    (a, aux_a, n_a), (b, aux_b, _), (r, aux_r, n_r) = runs
+    assert n_a == 38 and n_a < n_r <= 2 * n_a      # the recompute runs the rings again
+    for k in aux_a:
+        spread = abs(float(aux_b[k]) - float(aux_a[k]))
+        assert abs(float(aux_r[k]) - float(aux_a[k])) <= 2 * spread + 1e-6 * abs(float(aux_a[k])), k
+    for group in ("params", "disc_params"):
+        for k, want in getattr(a, group).items():
+            spread = float((getattr(b, group)[k] - want).abs().max())
+            diff = float((getattr(r, group)[k] - want).abs().max())
+            assert diff <= 2 * spread + 1e-6 * float(want.abs().max()), (group, k)
 
 
 @pytest.mark.parametrize("path", ["fp32", "int8"])

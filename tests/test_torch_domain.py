@@ -4,8 +4,7 @@ releases' scoring (``pipelines/domain_eval.py``).
 
 * ``DOMAIN_PRESETS``: every alias gives the JAX package's config, field for
   field (the port's dataclasses carry a subset of the JAX fields: the
-  discriminator's shape, ``dp_axis``, ``remat`` and ``tensorboard_dir`` are
-  not ported).
+  discriminator's shape and ``dp_axis`` are not ported).
 * ``bead_bank`` and ``rbc_bank``: bit for bit.
 * ``coral``: within 1e-5 of max (an fp32 SVD and inverse on each side).
 * ``extract_style_vector`` at width 0.25 on the same weights (the ``ultra``
@@ -61,7 +60,7 @@ UM_TOL = 0.5
 STYLE_TOL = 1e-5
 CORAL_TOL = 1e-5
 NOT_PORTED = {"ModelConfig": {"disc_conv_dim", "disc_repeat_num", "disc_class_dim"},
-              "TrainConfig": {"dp_axis", "remat", "tensorboard_dir"}}
+              "TrainConfig": {"dp_axis"}}
 _cache = {}
 
 

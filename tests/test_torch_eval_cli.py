@@ -301,10 +301,10 @@ NEW_FLAGS = [
     ["sweep", "--style-distances", "0.2,0.6", "--save-dir", "s", "--seed", "3"],
     ["synth-bench", "--batch-size", "8"],
     ["doctor", "--cpu"],
-]
-REFUSED = [
     ["train", "--dtype", "bfloat16"],
     ["train", "--tensorboard-dir", "tb"],
+]
+REFUSED = [
     ["train", "--devices", "2"],
     ["train", "--partition", "zero1"],
     ["train", "--model-devices", "2"],

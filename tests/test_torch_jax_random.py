@@ -10,7 +10,9 @@ against ``jax.random`` itself, and the JAX-keyed synthesis built on it.
   ``jax.random`` calls (``tests/test_torch_synth.py``'s ``jax_draws``), and
   ``synth_batch_from_key`` against the JAX package's ``synth_batch`` for the
   MNIST, rbc and bead presets: every output within 1e-5 of its max (the
-  synthesis's rule, ``tests/test_torch_synth.py``). A warp config raises.
+  synthesis's rule, ``tests/test_torch_synth.py``). A warp config's draws
+  are ``synth_batch``'s too: its keys and angles bit for bit, its flows
+  (``normal``) within ``tests/test_torch_warp.py``'s 4 ulp.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_synth import jax_draws
+from test_torch_warp import NORMAL_ULPS, ulps
 from torch_cpu_threads import warm_few_torch_threads  # noqa: F401
 
 from style_transfer_based_holographic_imaging_tpu.config import DOMAIN_PRESETS as J_PRESETS
@@ -124,6 +127,18 @@ def test_synth_batch_from_key_matches_jax_synth_batch(name, bank):
 
 
 def test_a_warp_config_is_refused():
-    data = dataclasses.replace(DOMAIN_PRESETS["mnist"]().data, rotate_deg=10.0)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        synth.jax_key_draws(jr.key(0), 10, data)
+    """No longer refused: a warp config's draws are ``synth_batch``'s, the
+    rotation angles bit for bit and the elastic flows within 4 ulp (the
+    bound of ``jax_random.normal``)."""
+    for warp in (dict(rotate_deg=10.0), dict(rotate_deg=20.0, elastic_px=2.5)):
+        data = dataclasses.replace(DOMAIN_PRESETS["mnist"]().data, **SMALL, **warp)
+        jdata = dataclasses.replace(J_PRESETS["mnist"]().data, **SMALL, **warp)
+        got = synth.jax_key_draws(jr.key(0), 10, data)
+        want = jax_draws(jax.random.key(0), 10, jdata)
+        assert set(got) == set(want)
+        for key in want:
+            if key == "flow":
+                assert got[key].shape == want[key].shape
+                assert ulps(got[key].numpy(), want[key].numpy()).max() <= NORMAL_ULPS
+            else:
+                assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key

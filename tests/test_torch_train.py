@@ -617,14 +617,17 @@ def test_cli_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--dtype", "bfloat16"], ["--tensorboard-dir", "tb"], ["--domain", "mars"], ["--bank", "mnist"],
+    ["--dtype", "bf16"], ["--remat"], ["--domain", "mars"], ["--bank", "mnist"],
     ["--devices", "2"], ["--partition", "zero1"], ["--model-devices", "2"], ["--dtype", "float16"],
 ])
 def test_cli_train_rejects_flags_it_does_not_implement(flag, capsys):
-    """The JAX package's flags that the port does not implement, and values
-    outside a flag's choices, are refused by argparse with a message and
-    exit code 2, never silently accepted. (``--domain``, ``--mat-root`` and
-    ``--bank bead|rbc`` are implemented: ``tests/test_torch_eval_cli.py``.)"""
+    """The JAX package's flags that the port does not implement (the mesh),
+    a flag neither CLI has (``--remat``: it comes through ``TrainConfig``,
+    as in the JAX package) and values outside a flag's choices are refused
+    by argparse with a message and exit code 2, never silently accepted.
+    (``--domain``, ``--mat-root``, ``--bank bead|rbc``, ``--dtype bfloat16``
+    and ``--tensorboard-dir`` are implemented: ``tests/test_torch_eval_cli.py``,
+    ``tests/test_torch_train_bf16.py``.)"""
     with pytest.raises(SystemExit) as exit_:
         cli.main(["train", "--cpu", "--iterations", "1", *flag])
     assert exit_.value.code == 2
