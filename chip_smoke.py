@@ -8,26 +8,20 @@ line naming it and ends the run with exit code 3; nothing hangs):
 
 1. ``device``  — a CUDA card must be present (else exit 2); prints the card's
    name and power limit (``nvidia-smi``) and the TF32 flags.
-2. ``build``   — removes stale build files, compiles the four kernel sources
-   with one ``nvcc`` each, all started together, loads the libraries with
-   ``ctypes``; prints each source's ``nvcc`` seconds and the ``-Xptxas -v``
-   lines (registers, shared memory, spills) of every source.
-3. ``kernels`` — each kernel against its plain PyTorch version. The ASM
-   kernels also against the ``torch.fft`` composition, at B = 5 and 256, in
+2. ``build``   — the script removes stale build files and starts one
+   ``nvcc`` for each of the four kernel sources, all together, before it
+   imports torch (``kernels/_build.py`` imports no torch): the ASM source
+   on one thread, the other three on another. The phase waits for the ASM
+   library and loads it with ``ctypes``; prints its ``nvcc`` seconds and
+   its ``-Xptxas -v`` lines (registers, shared memory, spills). The three
+   others compile on while phases 3-5, which launch only the ASM kernels,
+   run.
+3. ``kernels`` — the ASM kernels against their plain PyTorch version and
+   the ``torch.fft`` composition, at B = 5 and 256, in
    every precision mode, with per-sample distances spread over the suite's
    range for ``asm_dynamic``, and against the plain version alone at the
    ragged shapes ``ODD_SHAPES``; tolerance on max|err| / max|ref|: 1e-5
-   (highest), 1e-4 (high), 2e-2 (bf16), the JAX package's budgets. The conv
-   stacks at flagship shapes and the border ring at ``RING_LAYERS`` (three
-   of the net's layers, one odd H, short lines that share a block, output
-   channels off 64), at B = 5 and 256, in fp32 and bf16, the tail at the
-   ragged shapes ``TAIL_ODD_SHAPES``, the head at ``HEAD_ODD_SHAPES`` (the
-   releases' widths, H and W off its tile), both also at 80 channels, past
-   the tensor-core bodies' 64 (bf16 there runs the SIMT body); tolerance
-   1e-5 in fp32
-   (summation order) and 1e-2 in bf16 (a value that the other summation
-   order puts on a bf16 rounding boundary rounds the other way, 2^-8
-   relative, and carries into the next layer).
+   (highest), 1e-4 (high), 2e-2 (bf16), the JAX package's budgets.
 4. ``slice``   — the flagship-width net (width 1.0) on weights drawn from
    ``torch.Generator`` seed 0: the whole 20 x 5 golden suite through
    ``evaluate_golden_suite`` and one ``retrieval_step`` with per-sample style
@@ -44,10 +38,20 @@ line naming it and ends the run with exit code 3; nothing hangs):
    the true distances, 100 steps, on the card against the same call on the
    CPU (PSNR within 0.05 dB); ``evaluate_golden_suite(refine_steps=100)`` on
    the seeded net with the launch counts reset just before and read just
-   after (``asm_dynamic`` must have launched 20 x 101 times); one refine at
-   B = 256, 128^2, 100 steps timed with CUDA events, beside the same refine
-   through ``torch.fft`` alone (``asm_backend='torch'``), and split into the
-   forward kernel, the adjoint backward and the rest.
+   after (``asm_dynamic`` must have launched 20 x 101 times).
+5b. ``conv_kernels`` — waits for the other three libraries and loads them;
+   prints their ``nvcc`` seconds and ``-Xptxas -v`` lines. Then the conv
+   stacks at flagship shapes and the border ring at ``RING_LAYERS`` (three
+   of the net's layers, one odd H, short lines that share a block, output
+   channels off 64), at B = 5 and 256, in fp32 and bf16, the tail at the
+   ragged shapes ``TAIL_ODD_SHAPES``, the head at ``HEAD_ODD_SHAPES`` (the
+   releases' widths, H and W off its tile), both also at 80 channels, past
+   the tensor-core bodies' 64 (bf16 there runs the SIMT body); tolerance
+   1e-5 in fp32
+   (summation order) and 1e-2 in bf16 (a value that the other summation
+   order puts on a bf16 rounding boundary rounds the other way, 2^-8
+   relative, and carries into the next layer).
+   The world of phase 19 is spawned after this phase.
 6. ``quant``   — the int8 serving path on the same net: int8 scales
    calibrated on the golden suite, then the suite through
    ``evaluate_golden_suite(quant_scales=..., dtype=bf16)`` with the fused
@@ -75,14 +79,18 @@ line naming it and ends the run with exit code 3; nothing hangs):
    bit for bit in bf16, within the conv tolerance in fp32. Then both
    kernels and ``conv_tail_reference`` on the card against the port's CPU
    versions on the same inputs (the edge rows' strips take cuDNN's convs on
-   the card), bf16 edge rows within four ulps of max|ref|. Times at B = 256
-   of the script's rows.
-9. ``timing``  — CUDA-event medians at B = 256 of each kernel, its plain
+   the card), bf16 edge rows within four ulps of max|ref|.
+9. ``timing``  — (last, when no other process of the run is left) CUDA-event
+   medians at B = 256 of each kernel, its plain
    version and its library call in fp32 and bf16, the ring at each of the
    20 reflect convs of the step (and their sum beside its bound), and of
    the whole
    ``retrieval_step`` (holograms/s): fp32, int8 with the stacks on and with
-   them off (with the stages of each), fp32 with the ring.
+   them off (with the stages of each), fp32 with the ring; the halo phase's
+   rows (the script's, ``scripts/port_exp_halo_conv.py``); one refine at
+   B = 256, 128^2, 100 steps timed with CUDA events, beside the same refine
+   through ``torch.fft`` alone (``asm_backend='torch'``), and split into the
+   forward kernel, the adjoint backward and the rest.
 
 10. ``golden`` — the ``fast`` release's own weights
    (``checkpoints/fast/torch_weights.npz``; a missing file fails the run)
@@ -178,10 +186,12 @@ line naming it and ends the run with exit code 3; nothing hangs):
    bound.
 17. ``export`` — (after ``domain``) the frozen serving artifact: ``fast``
    exported with ``torch.export`` from ``torch_weights.npz`` (fp32, batch
-   32, the refocus as the op ``holostyle::asm_const``, ``("cuda",)``) into
-   a temp directory, its seconds and bytes; the file loaded in a fresh
-   process and ``RetrievalService`` built from the checkpoint in another,
-   beside this process's exports and checks below, each timed from
+   32, the refocus as the op ``holostyle::asm_const``, ``("cuda",)``), and
+   in int8 with the stacks on, into a temp directory by a fresh process on
+   the card (``EXPORTER``) that starts after ``conv_kernels`` and runs
+   beside the phases between, its seconds and bytes; once it is written,
+   the file loaded in a fresh process and ``RetrievalService`` built from
+   the checkpoint in another, each timed from
    the process's start to its imports, its program and its first answer
    (the artifact's process must import no model code and no JAX); the
    artifact against
@@ -197,6 +207,28 @@ line naming it and ends the run with exit code 3; nothing hangs):
    ``asm_dynamic`` launches); ``cli sweep`` on ``fast`` (3 ``asm_dynamic``
    launches), its functions card against CPU and its montage against the
    CPU's; ``cli doctor`` lists the card; ``stylize`` card against CPU.
+
+19. ``parallel`` — (after ``train``, before ``timing``) the mesh layer
+   (``parallel/``): a 1-rank ``nccl`` world in this process
+   (``parallel.init_world``) through ``train()``, as ``cli train --devices
+   N`` runs each rank, ``dp`` and ``tp_fsdp`` on a (1, 1) mesh, at the
+   flagship's configuration, B = 4, 2 steps, against ``train()`` without
+   a mesh (losses, each step's gradients, and params, EMA and
+   discriminator beside Adam replayed on each run's gradients); one
+   spawn of a 2-rank ``gloo`` world on ``cuda:0``
+   (``parallel.launch``; started after ``conv_kernels`` so that its
+   ranks' cold start, the import of ``torch._dynamo`` at a process's first
+   ``torch.library`` op call, the CUDA context and cuDNN, overlaps the
+   phases before this one, none of which times what the kernels line
+   prints, then held until this phase releases it) running ``dp``, ``zero1``,
+   ``fsdp`` and ``tp`` in turn, 2 steps each at B = 4 without
+   the adversarial term and with the ``cuda`` ring, each first step's aux,
+   whole gradients and params against the one-process step on the card,
+   each rank's ``asm_dynamic`` and ``border_lines`` launches counted; the
+   collectives gloo carries on CUDA tensors, a partition whose collectives
+   it refuses named with the error; and a 2-position serving mesh on
+   ``cuda:0`` (``RetrievalService(mesh=...)``, ``fast`` in fp32, batch 32)
+   against one device, one ``asm_const`` a chunk.
 
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -216,7 +248,9 @@ import importlib.util
 import io
 import json
 import math
+import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -232,6 +266,51 @@ sys.path.insert(0, REPO)
 # accepts cuBLAS (the `train` phase's remat check); read when the first
 # cuBLAS handle is made.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+PORT = "style_transfer_based_holographic_imaging_tpu_torch"
+
+
+class _Build(threading.Thread):
+    """``_build.build(*names)`` on a thread of its own; ``result`` waits for
+    it (the waiting phase's watchdog bounds the wait) and returns its
+    seconds, or raises its error."""
+
+    def __init__(self, build_module, *names: str):
+        super().__init__(daemon=True)
+        self.build_module, self.names = build_module, names
+        self.seconds, self.error = None, None
+        self.start()
+
+    def run(self):
+        try:
+            self.seconds = self.build_module.build(*self.names)
+        except BaseException as e:  # noqa: BLE001 — raised again by result()
+            self.error = e
+
+    def result(self) -> dict:
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.seconds
+
+
+def _start_builds() -> dict:
+    """Start every kernel source's ``nvcc`` before torch's import, which
+    takes about 10 s on the card's host: ``kernels/_build.py`` imports no
+    torch, so it is loaded here by its path, under its package name, where
+    the port's kernel modules find it when they import it. Stale build files
+    go first. The ASM source builds on one thread (the first phases launch
+    only its kernels), the other three on another."""
+    name = f"{PORT}.kernels._build"
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, PORT, "kernels", "_build.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    removed = module.remove_stale()
+    return {"removed_stale": removed, "asm": _Build(module, "asm_propagate"),
+            "rest": _Build(module, *(s for s in module.SOURCES if s != "asm_propagate"))}
+
+
+_BUILDS = _start_builds() if __name__ == "__main__" else None
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -280,6 +359,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # no
     adain_with_stats,
     calc_mean_std,
 )
+from style_transfer_based_holographic_imaging_tpu_torch import parallel  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # noqa: E402
     ArtifactService,
     RetrievalService,
@@ -297,9 +377,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # no
     stylize,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines.export_artifact import (  # noqa: E402
-    export_retrieval,
     load_artifact,
-    save_artifact,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines.style_vector import (  # noqa: E402
     style_vector_from_holograms,
@@ -314,6 +392,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.train import (  # noqa: 
     train,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.train.state import (  # noqa: E402
+    Adam,
     apply_disc_gradients,
     apply_gradients,
     make_disc_optimizer,
@@ -344,9 +423,9 @@ halo_exp = _load_script("port_exp_halo_conv")
 TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
-    "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
+    "conv_kernels": 90.0, "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
     "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "export": 45.0, "commands": 30.0,
-    "train": 90.0, "timing": 120.0,
+    "train": 90.0, "parallel": 45.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
 # (B, H, W) where the ASM kernels' tensor-core tiles are ragged: the card
@@ -464,7 +543,8 @@ DOMAINS = {"rbc": ("red_blood_cell", synth.rbc_bank), "bead": ("polystyrene", sy
 # same card), the suite through it within the golden phase's limits with
 # one asm_const a batch, the int8 export with the stacks on against the
 # live int8 path alike, one HTTP round trip; cold starts in fresh processes
-# (COLD_TIMEOUT_S each); EXPORT_TIMED calls of each path timed. The
+# (COLD_TIMEOUT_S each); EXPORT_TIMED calls of each path timed. The two
+# exports run in a process of their own (EXPORTER, EXPORT_TIMEOUT_S). The
 # commands phase: `synth-bench` at SYNTH_BENCH_BATCH (SYNTH_BENCH_REPS + 1
 # asm_dynamic launches: the warm-up and the timed calls), `sweep` on `fast`
 # (two asm_dynamic for the synthesis, one for the per-plane refocus), card
@@ -475,6 +555,7 @@ DOMAINS = {"rbc": ("red_blood_cell", synth.rbc_bank), "bead": ("polystyrene", sy
 EXPORT_BATCH = 32
 ARTIFACT_TOL = 1e-6
 COLD_TIMEOUT_S = 60.0
+EXPORT_TIMEOUT_S = 150.0
 EXPORT_TIMED = 10
 SYNTH_BENCH_BATCH = 256
 SYNTH_BENCH_REPS = 50
@@ -524,6 +605,37 @@ service = RetrievalService(net, style, cfg, batch_size=32)
 loaded_at = time.time()
 out = service.retrieve(np.load(sys.argv[3]))
 """ + _COLD_TAIL
+# The export phase's two exports of a release in a fresh process on the
+# card: fp32, and int8 with the fused stacks on. torch.export traces on the
+# host, 15-35 s of the two on the card's host: the process starts once every
+# kernel is built and runs beside the phases before the export phase. argv:
+# the repo, the release, the batch, the output directory. Prints each
+# artifact's path, its export's seconds (the save included) and its ops.
+EXPORTER = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+from style_transfer_based_holographic_imaging_tpu_torch.config import ExperimentConfig
+from style_transfer_based_holographic_imaging_tpu_torch.interop import load_release_weights, load_style_vector
+from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet, quant
+from style_transfer_based_holographic_imaging_tpu_torch.pipelines.export_artifact import (
+    export_retrieval, save_artifact)
+release, batch, out_dir = sys.argv[2], int(sys.argv[3]), sys.argv[4]
+with open(os.path.join(release, "config.json")) as f:
+    cfg = ExperimentConfig.from_json(f.read())
+net = StyleTransferNet.from_state_dict(
+    load_release_weights(os.path.join(release, "torch_weights.npz")), cfg.model.width).to("cuda")
+style = load_style_vector(os.path.join(release, "style_vector.npz"))
+scales = quant.load_scales(os.path.join(release, "quant_scales.json"))
+out = {}
+for name, kw, stacks in (("fp32", {}, "auto"), ("int8", {"quant_scales": scales}, "on")):
+    quant.set_fused_stacks(stacks)
+    t0 = time.time()
+    blob, meta = export_retrieval(net, style, cfg, batch_size=batch, asm_backend="cuda", **kw)
+    path = os.path.join(out_dir, f"fast_{name}.hstx")
+    save_artifact(path, blob, meta)
+    out[name] = {"path": path, "seconds": time.time() - t0, "ops": meta["ops"]}
+print(json.dumps(out))
+"""
 # The train phase: steps of train() at the flagship's batch; the one-step
 # comparisons' batch; the fixed-batch run at TRAIN_LEARN_LR, its first
 # TRAIN_WARMUP steps untimed. Tolerances: aux terms 1e-4 relative. The
@@ -597,6 +709,46 @@ BF16_GRAD_BATCHES = 2
 BF16_GRAD_RATIO = 2.0
 BF16_GRAD_SLACK = 1e-3
 REFLECT_STEP_CONVS = 3 * 9 + 11
+# The mesh layer (the parallel phase): PARALLEL_STEPS steps at a global batch
+# of PARALLEL_BATCH at the flagship's configuration. A 1-rank nccl world
+# through train() (dp, and tp_fsdp on a (1, 1) mesh, whose collectives run
+# over groups of one) against train() without a mesh: the logged losses
+# within PARALLEL_LOSS_RTOL; the first step's gradients within
+# PARALLEL_GRAD_TOL of the leaf's max (read: 0.026-0.034 of it), the second's,
+# taken at params that the first step's Adam already parted, within
+# PARALLEL_LATER_GRAD_TOL (read: 3.4e-4 to 9.0e-4 of the leaf's max in the
+# flagship's encoder; a gradient scaled by 2 would read 0.5); the params, EMA
+# and discriminator after the run within TRAIN_LEAF_TOL of each leaf's max
+# plus PARALLEL_SPREAD times the gap that Adam, replayed in float64 on each
+# run's gradients, puts between them (read: the gap itself, 0.45-0.50 of
+# the bound): the 1-rank world's gradients are not the one-process run's
+# bit for bit, and Adam's step parts by up to 2 lr where a gradient is
+# near its noise (NVIDIA H100 80GB HBM3, 700.00 W). A 2-rank gloo world on
+# cuda:0 for each partition of PARALLEL_PARTITIONS, without the adversarial
+# term (its discriminator's 45 M weights through gloo's host-staged
+# collectives would take the phase's budget), the reflect backend `cuda`.
+# Each partition's first step against the one-process step on the card: aux within PARALLEL_LOSS_RTOL (the CPU
+# tests' dp rule), the whole gradients within PARALLEL_GRAD_TOL of each
+# leaf's max (a step's fp32 noise on the card: two identical steps read
+# 1.6e-6 to 2.5e-6), the params within TRAIN_LEAF_TOL of the leaf's max plus
+# the spread of Adam's first step over the gradients' measured difference.
+# A serving mesh of 2 positions on cuda:0 against one device (fp32, the
+# golden batch 10 and the next batches to 32).
+PARALLEL_BATCH = 4
+PARALLEL_STEPS = 2
+PARALLEL_PARTITIONS = {"dp": (("data",), (2,)), "zero1": (("data",), (2,)), "fsdp": (("data",), (2,)),
+                       "tp": (("data", "model"), (1, 2))}
+# The collectives each partition's step runs (mesh.py's all_reduce,
+# all_gather, reduce_scatter); barrier at the world's start.
+PARALLEL_NEEDS = {"dp": ("all_reduce",), "zero1": ("all_reduce", "all_gather", "reduce_scatter"),
+                  "fsdp": ("all_reduce", "all_gather", "reduce_scatter"),
+                  "tp": ("all_reduce", "all_gather")}
+PARALLEL_LOSS_RTOL = 2e-5
+PARALLEL_GRAD_TOL = 1e-4
+PARALLEL_LATER_GRAD_TOL = 1e-2
+PARALLEL_SPREAD = 2.0
+PARALLEL_SERVE_BATCH = 32
+PARALLEL_TIMEOUT_S = 120.0
 # Peaks by card (NVIDIA data sheets, dense): fp32 FLOP/s outside the tensor
 # cores, bf16 FLOP/s on the tensor cores, bytes/s.
 PEAKS = {
@@ -625,6 +777,9 @@ def _die(message: str, code: int) -> None:
     emit({"error": message})
     _build.kill_build()
     for child in _CHILDREN:
+        child.kill()
+    # the ranks of a world the parallel phase spawned (parallel.launch)
+    for child in multiprocessing.active_children():
         child.kill()
     os._exit(code)
 
@@ -2350,6 +2505,409 @@ def drive_train_mixed(cfg, bank, cmp, fp32_timed, device, peak_flops, peak_bytes
             "timed": timed, "ring_bf16_step": ring_step, "seconds": seconds}
 
 
+def gloo_support(device) -> dict:
+    """Each collective of the mesh layer on a small tensor on ``device`` in
+    this rank's world: "ok" or the first line of its error. (send/recv,
+    which the mesh layer does not use, is left out: on CUDA tensors gloo
+    aborts the process there; scripts/port_probe_gloo_cuda.py tries each
+    collective in a world of its own.)"""
+    world = torch.distributed.group.WORLD
+    n = torch.distributed.get_world_size()
+    x = torch.arange(2.0 * n, device=device)
+    ops = {
+        "all_reduce": lambda: parallel.mesh.all_reduce(x.clone(), world),
+        "all_gather": lambda: parallel.mesh.all_gather(x, 0, world),
+        "reduce_scatter": lambda: parallel.mesh.reduce_scatter(x, 0, world),
+        "barrier": lambda: torch.distributed.barrier(),
+    }
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize() if device.type == "cuda" else None
+            out[name] = "ok"
+        except RuntimeError as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return out
+
+
+def parallel_step_pair(cfg, params, bank, device, mesh=None, partition="dp", rank=0):
+    """PARALLEL_STEPS train steps from ``params`` on the stream's first
+    batches, the reflect backend ``cuda``: on a mesh in this rank, on its
+    shards and rows. Returns the first step's aux, its whole gradients and
+    the whole params after it, every step's aux and seconds, and the
+    kernels' launches of the steps (the synthesis included)."""
+    set_reflect_backend("cuda")
+    state = create_train_state(params, cfg.train, device=device)
+    plan, rows = None, None
+    if mesh is not None:
+        plan = parallel.partition_state_shardings(partition, state, mesh)
+        state = parallel.shard_state(state, plan, rank)
+        rows = parallel.local_rows(cfg.data.batch_size, mesh, rank)
+    sampler = synth.InfiniteHologramSampler(bank, cfg.data, cfg.physics, return_gt=True, device=device,
+                                            rows=rows)
+    step = TrainStep(StyleTransferNet(width=cfg.model.width).to(device), cfg.physics, cfg.train,
+                     mesh=mesh, state_shardings=plan)
+    asm_cuda.reset_launches()
+    reflect_border.reset_launches()
+    out = {"aux": [], "seconds": []}
+    for i in range(PARALLEL_STEPS):
+        batch = next(sampler)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, aux = step.generator_grads(state, batch)
+        step.apply(state, grads)
+        aux.pop("g_t")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["aux"].append({k: float(v) for k, v in aux.items()})
+        if i == 0:
+            # copies: the next step updates the state in place
+            out["grads"] = {k: v.to("cpu", copy=True) for k, v in parallel.gather_state(
+                grads, None if plan is None else plan.opt_state.mu).items()}
+            whole = state if plan is None else parallel.gather_state(state, plan)
+            out["params"] = {k: v.to("cpu", copy=True) for k, v in whole.params.items()}
+    out["launches"] = {**asm_cuda.LAUNCHES, **reflect_border.LAUNCHES}
+    set_reflect_backend("auto")
+    return out
+
+
+def parallel_rank(rank, cfg, params, bank, device_name, t_launch, want_path, go):
+    """One rank of the phase's gloo world. Started before the phase (after
+    ``conv_kernels``), it first pays a process's cold start off the clock of the
+    measured steps, with one-process steps at its share of the batch:
+    torch's import of ``torch._dynamo`` (at the first call of any
+    ``torch.library`` op), the CUDA context and cuDNN's choices; then it
+    waits for ``go``. Then the collectives gloo carries on ``device_name``, and
+    each partition of PARALLEL_PARTITIONS whose collectives it carries
+    (``parallel_step_pair``); the others named with their errors. Rank 0
+    holds each partition's whole first step against the one-process step
+    saved at ``want_path`` (``parallel_step_distances``); every rank returns
+    its launches and the seconds from the launch through each part."""
+    device = torch.device(device_name)
+    n = torch.distributed.get_world_size()
+    # one-process steps at the rank's share of the batch: the imports, the
+    # CUDA context and cuDNN's choices for these shapes, off the clock
+    parallel_step_pair(_train_cfg(cfg, batch_size=cfg.data.batch_size // n), params, bank, device)
+    seconds = {"warm": time.time() - t_launch}
+    if not go.wait(TOTAL_BUDGET_S):
+        raise TimeoutError("the parallel phase never released the world")
+    t0 = time.time()
+    seconds["released"] = t0 - t_launch
+    want = torch.load(want_path, weights_only=True) if rank == 0 else None
+    support = gloo_support(device)
+    out = {"support": support, "partitions": {}, "seconds": seconds}
+    for name, (axes, shape) in PARALLEL_PARTITIONS.items():
+        refused = {op: support[op] for op in PARALLEL_NEEDS[name] if support[op] != "ok"}
+        if refused:
+            out["partitions"][name] = {"skipped": refused}
+            continue
+        mesh = parallel.make_mesh(devices=[device_name] * n, axis_names=axes, shape=shape)
+        t = time.time()
+        res = parallel_step_pair(cfg, params, bank, device, mesh, name, rank)
+        seconds[name] = time.time() - t
+        if rank == 0:
+            res["vs_one_process"] = parallel_step_distances(res, want, cfg)
+        res.pop("grads")
+        res.pop("params")
+        out["partitions"][name] = res
+    seconds["work"] = time.time() - t0
+    return out
+
+
+class ParallelWorld:
+    """The parallel phase's 2-rank gloo world on ``cuda:0`` (``parallel_rank``),
+    launched in a daemon thread once every kernel is built so that its ranks'
+    cold start overlaps the phases before its own; ``release`` hands it the
+    one-process step and lets it run, ``join`` waits for its ranks."""
+
+    def __init__(self, cfg, params, bank, device_name: str = "cuda:0"):
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.device_name = device_name
+        self.mesh = parallel.make_mesh(devices=[device_name] * 2)
+        self.go = ctx.Event()
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+        self.want_path = os.path.join(self.tmp, "want.pt")
+        self.t_launch = time.time()
+        self.ranks, self.error = None, None
+        self.thread = threading.Thread(target=self._run, args=(cfg, params, bank), daemon=True)
+        self.thread.start()
+
+    def _run(self, cfg, params, bank):
+        try:
+            self.ranks = parallel.launch(parallel_rank, self.mesh, cfg, params, bank, self.device_name,
+                                         self.t_launch, self.want_path, self.go,
+                                         timeout=TOTAL_BUDGET_S + PARALLEL_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as e:
+            self.error = e
+
+    def release(self, want) -> None:
+        torch.save({k: want[k] for k in ("aux", "grads", "params")}, self.want_path)
+        self.go.set()
+
+    def join(self):
+        self.thread.join(PARALLEL_TIMEOUT_S)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        if self.thread.is_alive() or self.error is not None or self.ranks is None:
+            _die(f"the parallel phase's gloo world failed: {self.error or 'no result in time'}", 1)
+        return self.ranks
+
+
+def parallel_step_distances(got, want, cfg) -> dict:
+    """A mesh's first step against the one-process step: the aux's relative
+    error, the whole gradients' and the params' worst shares of their bounds
+    (the phase's rules, PARALLEL_* above; ``check_parallel_step`` holds
+    them). Computed in the rank that holds the whole state."""
+    aux_err = max(abs(got["aux"][0][k] - v) / max(abs(v), 1e-30) for k, v in want["aux"][0].items())
+    if set(got["aux"][0]) != set(want["aux"][0]):
+        aux_err = math.inf
+    g_share, p_share = {}, {}
+    g_all = want["grads"]
+    norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in g_all.values()))
+    clip = min(1.0, cfg.train.grad_clip_norm / norm) if cfg.train.grad_clip_norm else 1.0
+    for k, g in g_all.items():
+        noise = float((got["grads"][k] - g).abs().max())
+        g_share[k] = noise / max(float(g.abs().max()), 1e-30) / PARALLEL_GRAD_TOL
+        spread = adam_first_step_spread(clip * g.double(), clip * noise, cfg.train.lr)
+        floor = TRAIN_LEAF_TOL * float(want["params"][k].abs().max())
+        d = (got["params"][k].double() - want["params"][k].double()).abs()
+        p_share[k] = float((d / (floor + spread).clamp_min(1e-30)).max())
+    result = {"aux_rel_err": aux_err,
+              "grad_worst_share_of_tol": max(g_share.values()),
+              "grad_worst_leaf": max(g_share, key=g_share.get),
+              "params_worst_share_of_bound": max(p_share.values()),
+              "params_worst_leaf": max(p_share, key=p_share.get),
+              "params_max_abs_diff": max(float((got["params"][k] - want["params"][k]).abs().max())
+                                         for k in want["params"])}
+    return result
+
+
+def check_parallel_step(result: dict, label: str) -> dict:
+    if not (result["aux_rel_err"] < PARALLEL_LOSS_RTOL and result["grad_worst_share_of_tol"] < 1.0
+            and result["params_worst_share_of_bound"] < 1.0):
+        _die(f"{label}: the step is not the one-process step: {json.dumps(result)}", 1)
+    return result
+
+
+@contextlib.contextmanager
+def recording_adam_steps():
+    """Every ``Adam.update`` within the block, in order: (the optimizer, the
+    params of its names before its first update, the gradients it took),
+    float64 copies on their device."""
+    calls, seen, update = [], set(), Adam.update
+
+    def recorded(self, grads, state, params, **kw):
+        names = list(state.mu)
+        start = None if id(self) in seen else {k: params[k].detach().double().clone() for k in names}
+        seen.add(id(self))
+        calls.append((self, start, {k: grads[k].detach().double().clone() for k in names}))
+        return update(self, grads, state, params, **kw)
+
+    Adam.update = recorded
+    try:
+        yield calls
+    finally:
+        Adam.update = update
+
+
+def replay_adam_steps(calls, ema_decay: float) -> dict:
+    """``calls`` (``recording_adam_steps``) replayed in float64, each
+    optimizer from a fresh state: its names' params after the last call, and
+    the EMA of the first optimizer's (the generator's), updated after each
+    of its calls as ``train()`` does. {"params" | "disc_params" |
+    "ema_params": {name: tensor}}."""
+    params, states, order = {}, {}, []
+    ema = None
+    for tx, start, grads in calls:
+        key = id(tx)
+        if key not in params:
+            params[key] = {k: v.clone() for k, v in start.items()}
+            states[key] = tx.init(params[key])
+            order.append(key)
+            if ema is None and ema_decay:
+                ema = {k: v.clone() for k, v in start.items()}
+        Adam.update(tx, grads, states[key], params[key])
+        if key == order[0] and ema is not None:
+            for k, v in params[key].items():
+                ema[k].mul_(ema_decay).add_(v, alpha=1.0 - ema_decay)
+    out = {"params": params[order[0]], "ema_params": ema}
+    if len(order) > 1:
+        out["disc_params"] = params[order[1]]
+    return out
+
+
+def hold_train_states(got, want, got_calls, want_calls, train_cfg, label: str) -> dict:
+    """``train()`` on a mesh (``got``, its Adam calls ``got_calls``) against
+    ``train()`` without one (``want``, ``want_calls``), after the same steps.
+    Each optimizer's first gradients within PARALLEL_GRAD_TOL of the leaf's
+    max, its later ones within PARALLEL_LATER_GRAD_TOL; every
+    element of params, EMA and discriminator within TRAIN_LEAF_TOL of its
+    leaf's max plus PARALLEL_SPREAD times the gap that Adam, replayed in
+    float64 on each run's own gradients (``replay_adam_steps``), puts between
+    the two: Adam's spread over the gradients' measured difference, step by
+    step. The worst shares of the bounds."""
+    if len(got_calls) != len(want_calls):
+        _die(f"{label}: {len(got_calls)} optimizer updates, want {len(want_calls)}", 1)
+    grad_shares, seen = [], set()
+    for (tx, _, g), (_, _, w) in zip(got_calls, want_calls):
+        if set(g) != set(w):
+            _die(f"{label}: an update of other names than the run without a mesh", 1)
+        tol = PARALLEL_LATER_GRAD_TOL if id(tx) in seen else PARALLEL_GRAD_TOL
+        seen.add(id(tx))
+        shares = {k: float((g[k] - w[k]).abs().max()) / max(float(w[k].abs().max()), 1e-30) / tol for k in w}
+        worst = max(shares, key=shares.get)
+        grad_shares.append({"tol": tol, "leaf": worst, "share_of_tol": shares[worst]})
+    out = {"grad_shares_by_update": grad_shares}
+    if not max(x["share_of_tol"] for x in grad_shares) < 1.0:
+        _die(f"{label}: gradients off: {json.dumps(out)}", 1)
+    replay_got = replay_adam_steps(got_calls, train_cfg.ema_decay)
+    replay_want = replay_adam_steps(want_calls, train_cfg.ema_decay)
+    for group in ("params", "ema_params", "disc_params"):
+        a, b = getattr(got, group), getattr(want, group)
+        if b is None:
+            if a is not None:
+                _die(f"{label}: {group} where the run without a mesh has none", 1)
+            continue
+        ra, rb = replay_got.get(group) or {}, replay_want.get(group) or {}
+        shares = {}
+        for k in b:
+            w = b[k].double()
+            bound = TRAIN_LEAF_TOL * float(w.abs().max())
+            if k in rb:
+                bound = bound + PARALLEL_SPREAD * (ra[k] - rb[k]).abs()
+            shares[k] = float(((a[k].double() - w).abs() / torch.as_tensor(bound).clamp_min(1e-30)).max())
+        worst = max(shares, key=shares.get)
+        out[group] = {"worst_share_of_bound": shares[worst], "leaf": worst,
+                      "max_abs_diff": max(float((a[k] - b[k]).abs().max()) for k in b)}
+        if not shares[worst] < 1.0:
+            _die(f"{label}: {group} off: {json.dumps(out[group])}", 1)
+    return out
+
+
+def nccl_world_runs(cfg, bank, device) -> dict:
+    """A 1-rank nccl world in this process (``parallel.init_world``) through
+    ``train()``, as ``cli train --devices N`` runs each rank: ``dp`` and
+    ``tp_fsdp`` on a (1, 1) mesh, PARALLEL_STEPS steps each from seed 0,
+    against the same ``train()`` without a mesh: the logged losses within
+    PARALLEL_LOSS_RTOL, the states held by ``hold_train_states``."""
+    run = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log_every=1, checkpoint_every=0))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        def one(name, mesh=None, partition="dp"):
+            d = os.path.join(tmp, name)
+            r = dataclasses.replace(run, train=dataclasses.replace(run.train, checkpoint_dir=d))
+            asm_cuda.reset_launches()
+            t0 = time.monotonic()
+            with recording_adam_steps() as calls:
+                state = train(r, bank=bank, iterations=PARALLEL_STEPS, device=device, mesh=mesh,
+                              partition=partition, log_fn=lambda line: None)
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            with open(os.path.join(d, "train_metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            return state, calls, rows, seconds, dict(asm_cuda.LAUNCHES)
+
+        ref, ref_calls, ref_rows, ref_s, _ = one("one_process")
+        for name, axes, shape in (("dp", ("data",), (1,)), ("tp_fsdp", ("data", "model"), (1, 1))):
+            mesh = parallel.make_mesh(axis_names=axes, shape=shape)
+            parallel.init_world(mesh, 0, timeout=PARALLEL_TIMEOUT_S)
+            try:
+                backend = torch.distributed.get_backend()
+                state, calls, rows, seconds, launches = one(name, mesh, name)
+            finally:
+                parallel.close_world()
+            if backend != "nccl":
+                _die(f"nccl world {name}: the world's backend is {backend}", 1)
+            worst = max(compare_aux({k: v for k, v in r.items() if k.startswith("loss_")},
+                                    {k: v for k, v in w.items() if k.startswith("loss_")},
+                                    f"nccl world {name} step {r['step']}", PARALLEL_LOSS_RTOL)
+                        for r, w in zip(rows, ref_rows))
+            states = hold_train_states(state, ref, calls, ref_calls, run.train, f"nccl world {name}")
+            del calls
+            if launches["asm_dynamic"] != 2 * PARALLEL_STEPS:
+                _die(f"nccl world {name}: asm_dynamic launched {launches}", 1)
+            out[name] = {"backend": backend, "mesh": dict(mesh.shape), "steps": len(rows),
+                         "aux_rel_err": worst, "vs_one_process": states,
+                         "seconds": seconds, "launches": launches}
+        out["one_process_seconds"] = ref_s
+    return out
+
+
+def parallel_inputs(cfg):
+    """(the gloo world's config, the params): the flagship's at
+    PARALLEL_BATCH without the adversarial term, init_net_params seed 0."""
+    small = _train_cfg(cfg, batch_size=PARALLEL_BATCH)
+    plain = dataclasses.replace(small, train=dataclasses.replace(small.train, adv_weight=0.0))
+    return plain, init_net_params(torch.Generator().manual_seed(0), width=cfg.model.width)
+
+
+def drive_parallel(cfg, bank, world, fast_net, fast_cfg, fast_style, goldens, dev, smi) -> dict:
+    """The mesh layer on the card (the parallel phase); ``world`` is the
+    ``ParallelWorld`` started before it."""
+    small = _train_cfg(cfg, batch_size=PARALLEL_BATCH)
+    info = {"card": smi, "B": PARALLEL_BATCH, "width": cfg.model.width}
+    info["nccl_1_rank"] = nccl_world_runs(small, bank, dev)
+
+    # The 2-rank gloo world on cuda:0 against the one-process steps.
+    plain, params = parallel_inputs(cfg)
+    want = parallel_step_pair(plain, params, bank, dev)
+    t0 = time.time()
+    world.release(want)
+    ranks = world.join()
+    mesh = world.mesh
+    gloo = {"backend": parallel.default_backend(mesh), "released_to_joined_seconds": time.time() - t0,
+            "rank_seconds": [r["seconds"] for r in ranks],
+            "support": ranks[0]["support"],
+            "one_process_step_seconds": want["seconds"], "one_process_launches": want["launches"],
+            "partitions": {}}
+    for name, res in ranks[0]["partitions"].items():
+        if "skipped" in res:
+            gloo["partitions"][name] = res
+            continue
+        row = check_parallel_step(res["vs_one_process"], f"gloo world {name}")
+        row["step_seconds_rank0"] = res["seconds"]
+        row["launches_by_rank"] = [r["partitions"][name]["launches"] for r in ranks]
+        for r, launches in enumerate(row["launches_by_rank"]):
+            if launches["asm_dynamic"] != 2 * PARALLEL_STEPS or launches["border_lines"] == 0:
+                _die(f"gloo world {name} rank {r}: launched {launches}", 1)
+        gloo["partitions"][name] = row
+    info["gloo_2_ranks_cuda0"] = gloo
+
+    # A serving mesh of two positions on cuda:0.
+    holo = goldens.content_holo.reshape(-1, 1, IMAGE, IMAGE)[50:50 + PARALLEL_SERVE_BATCH]
+    one = RetrievalService(fast_net, fast_style, fast_cfg, batch_size=PARALLEL_SERVE_BATCH, device=dev)
+    want_serve = one.retrieve(holo)
+    service = RetrievalService(fast_net, fast_style, fast_cfg, batch_size=PARALLEL_SERVE_BATCH,
+                               mesh=mesh)
+    asm_cuda.reset_launches()
+    got_serve = service.retrieve(holo)
+    torch.cuda.synchronize()
+    serve_launches = dict(asm_cuda.LAUNCHES)
+    if serve_launches["asm_const"] != mesh.shape["data"]:
+        _die(f"the serving mesh launched {serve_launches}, want one asm_const a chunk", 1)
+    info["serve_mesh"] = {
+        "mesh": dict(mesh.shape), "batch": PARALLEL_SERVE_BATCH, "launches": serve_launches,
+        "health": service.health(),
+        "vs_one_device": compare_outputs(
+            {k: torch.from_numpy(v) for k, v in got_serve.items()},
+            {k: torch.from_numpy(v) for k, v in want_serve.items()},
+            SLICE_AMP_TOL, SLICE_DIST_TOL, SLICE_PHASE_TOL, SLICE_PHASE_FRACTION,
+            "the serving mesh and one device"),
+    }
+    ran = [p for p in gloo["partitions"].values() if "launches_by_rank" in p]
+    info["launches"] = {
+        "asm_const": serve_launches["asm_const"],
+        "asm_dynamic": sum(r["launches"]["asm_dynamic"] for k, r in info["nccl_1_rank"].items()
+                           if isinstance(r, dict))
+        + sum(lr["asm_dynamic"] for p in ran for lr in p["launches_by_rank"]),
+        "border_lines": sum(lr["border_lines"] for p in ran for lr in p["launches_by_rank"]),
+    }
+    return info
+
+
+
 def run_cli(argv):
     """``cli.main(argv)`` in process on the card: (stdout lines, stderr)."""
     out, err = io.StringIO(), io.StringIO()
@@ -2563,6 +3121,46 @@ def finish_cold(child, t0: float) -> dict:
     return reading
 
 
+class Exports:
+    """The export phase's exports (EXPORTER) in a process of its own,
+    started once every kernel is built, and its two cold starts, started as
+    soon as the exports are written: all of it runs beside the phases
+    before the export phase. ``result`` waits for the exports and returns
+    (their reading by path, the cold starts' processes by name)."""
+
+    def __init__(self, holo: np.ndarray):
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+        self.holo_path = os.path.join(self.tmp, "holo.npy")
+        np.save(self.holo_path, holo)
+        self.child, _ = start_cold(EXPORTER, FAST, str(EXPORT_BATCH), self.tmp)
+        self.reading, self.cold, self.error = None, {}, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            out, err = self.child.communicate(timeout=EXPORT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.child.kill()
+            self.error = f"the exports took over {EXPORT_TIMEOUT_S} s"
+            return
+        if self.child.returncode != 0:
+            self.error = f"the exports failed: {err[-2000:]}"
+            return
+        self.reading = json.loads(out.strip().splitlines()[-1])
+        self.cold = {"retrieval_service": start_cold(COLD_LIVE, FAST, self.holo_path),
+                     "artifact": start_cold(COLD_ARTIFACT, self.reading["fp32"]["path"], self.holo_path)}
+
+    def result(self):
+        self.thread.join()
+        if self.error is not None:
+            _die(self.error, 1)
+        return self.reading, self.cold
+
+    def close(self):
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
 def artifact_vs(got: dict, want: dict) -> dict:
     """max|got - want| / max|want| by key; fails the run past ARTIFACT_TOL."""
     diffs = {k: float(np.abs(got[k] - want[k]).max() / max(float(np.abs(want[k]).max()), 1e-30))
@@ -2572,13 +3170,13 @@ def artifact_vs(got: dict, want: dict) -> dict:
     return {"rel_err": diffs, "bit_equal": not any(diffs.values())}
 
 
-def drive_export(fast_net, fast_cfg, fast_style, fast_scales, records, goldens, dev, smi):
-    """The export phase (see the module docstring); returns its readings."""
+def drive_export(exports, fast_net, fast_cfg, fast_style, fast_scales, records, goldens, dev, smi):
+    """The export phase (see the module docstring) on ``exports``
+    (``Exports``, of golden batch 10); returns its readings."""
     physics = fast_cfg.physics
     d_style = float(physics.to_network_units(fast_cfg.data.style_distances[0]))
     holo = goldens.content_holo[10]
     all_holo = goldens.content_holo.reshape(-1, 1, IMAGE, IMAGE)
-    kw = dict(batch_size=EXPORT_BATCH, asm_backend="cuda")
     t0, stages = time.monotonic(), {}
 
     def mark(stage):
@@ -2586,18 +3184,12 @@ def drive_export(fast_net, fast_cfg, fast_style, fast_scales, records, goldens, 
         stages[stage] = time.monotonic() - t0
         print(json.dumps({"export_stage": stage, "seconds": stages[stage]}), file=sys.stderr, flush=True)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
-        path, holo_path = os.path.join(tmp, "fast.hstx"), os.path.join(tmp, "holo.npy")
-        np.save(holo_path, holo)
-        # The two cold starts run beside this process's export and checks
-        # (the service's from the start, the artifact's once it is written);
-        # the timings wait for them.
-        children = {"retrieval_service": start_cold(COLD_LIVE, FAST, holo_path)}
-        blob, meta = export_retrieval(fast_net, fast_style, fast_cfg, **kw)
-        save_artifact(path, blob, meta)
-        mark("export")
+    try:
+        # The cold starts may still run: the timings wait for them.
+        exported, children = exports.result()
+        mark("exports_waited")
+        path, qpath = exported["fp32"]["path"], exported["int8"]["path"]
         file_bytes = os.path.getsize(path)
-        children["artifact"] = start_cold(COLD_ARTIFACT, path, holo_path)
         art = load_artifact(path, dev)
         graph_ops = library.graph_ops(art._module.graph)
         live = RetrievalService(fast_net, fast_style, fast_cfg, batch_size=EXPORT_BATCH, device=dev)
@@ -2619,9 +3211,6 @@ def drive_export(fast_net, fast_cfg, fast_style, fast_scales, records, goldens, 
         # int8 with the stacks on: the head and tail ops in the graph.
         quant.set_fused_stacks("on")
         try:
-            qpath = os.path.join(tmp, "fast_int8.hstx")
-            save_artifact(qpath, *export_retrieval(
-                fast_net, fast_style, fast_cfg, quant_scales=fast_scales, **kw))
             qart = load_artifact(qpath, dev)
             conv_stack.reset_launches()
             q_got = qart.retrieve(holo)
@@ -2652,9 +3241,11 @@ def drive_export(fast_net, fast_cfg, fast_style, fast_scales, records, goldens, 
         ms = {"artifact": median_ms(lambda: art(x), reps=EXPORT_TIMED, warmup=2),
               "live": median_ms(lambda: fn(fast_net, x, *style_dev, d_style), reps=EXPORT_TIMED, warmup=2)}
         mark("timed")
+    finally:
+        exports.close()
     want_ops = ["holostyle.asm_const.default"]
     misses = []
-    if graph_ops != want_ops or meta["ops"] != want_ops:
+    if graph_ops != want_ops or art.meta["ops"] != want_ops or exported["fp32"]["ops"] != want_ops:
         misses.append("the fp32 graph's ops")
     if sorted(set(q_ops)) != sorted(["holostyle.asm_const.default", "holostyle.fused_conv_tail.default",
                                      "holostyle.fused_encoder_head.default"]):
@@ -2671,7 +3262,8 @@ def drive_export(fast_net, fast_cfg, fast_style, fast_scales, records, goldens, 
                    "quantized", "refine_steps", "n_served"}
     if set(health) != want_health or health["artifact"] != path or health["platforms"] != ["cuda"]:
         misses.append("/healthz")
-    info = {"nvidia_smi": smi, "batch": EXPORT_BATCH, "export_seconds": stages["export"],
+    info = {"nvidia_smi": smi, "batch": EXPORT_BATCH,
+            "export_seconds": {k: v["seconds"] for k, v in exported.items()},
             "stage_seconds": stages, "file_bytes": file_bytes,
             "graph_ops": graph_ops, "int8_graph_ops": sorted(set(q_ops)), "cold_start": cold,
             "vs_live_service": vs_live, "int8_vs_live": int8_vs_live, "tol": ARTIFACT_TOL,
@@ -2785,24 +3377,20 @@ def main() -> int:
         peak_flops = {"fp32": peak_fp32, "bf16": peak_bf16}
 
     with Phase("build") as phase:
-        removed = _build.remove_stale()
-        seconds = _build.build(*_build.SOURCES)
+        seconds = _BUILDS["asm"].result()
         asm_cuda._lib()
-        conv_stack._lib()
-        reflect_border._lib()
-        halo_conv._lib()
-        phase.info = {"nvcc_seconds": seconds, "removed_stale": removed, "build_dir": _build.BUILD_DIR,
-                      **{f"{src}_ptxas": _build.ptxas_lines(src) for src in _build.SOURCES}}
+        phase.info = {"nvcc_seconds": seconds, "removed_stale": _BUILDS["removed_stale"],
+                      "build_dir": _build.BUILD_DIR, "asm_propagate_ptxas": _build.ptxas_lines("asm_propagate")}
 
     with open(os.path.join(REPO, "checkpoints", "config.json")) as f:
         cfg = ExperimentConfig.from_json(f.read())
     physics = cfg.physics
     dev = torch.device("cuda")
+    train_bank = synth.golden_digit_bank(load_golden_suite(), subset=synth.GOLDEN_TRAIN_DIGITS)
 
     with Phase("kernels") as phase:
         rows = check_kernels(physics, dev)
-        conv_rows = check_conv_kernels(dev)
-        phase.info = {"checks": rows, "conv_checks": conv_rows}
+        phase.info = {"checks": rows}
 
     with Phase("slice") as phase:
         goldens = load_golden_suite()
@@ -2838,14 +3426,28 @@ def main() -> int:
         for key in ("mean_psnr", "mean_mae", "r2", "heldout_mean_psnr"):
             if not math.isfinite(refined[key]):
                 _die(f"refined suite metric {key} is not finite: {refined[key]}", 1)
-        refine_timing = time_refine(goldens, physics, dev)
         phase.info = {
             "gradient_checks": grad_rows, "card_vs_cpu_batch_10": anchored,
             "launches": refine_launches, "refined_suite_seconds": suite_seconds,
             "refined_mean_psnr_random_weights": refined["mean_psnr"],
             "unrefined_mean_psnr_random_weights": metrics["mean_psnr"],
-            "timing": refine_timing,
         }
+
+    with Phase("conv_kernels") as phase:
+        rest = _BUILDS["rest"].result()
+        conv_stack._lib()
+        reflect_border._lib()
+        halo_conv._lib()
+        conv_rows = check_conv_kernels(dev)
+        phase.info = {"nvcc_seconds": rest, **{f"{src}_ptxas": _build.ptxas_lines(src) for src in rest},
+                      "conv_checks": conv_rows}
+
+    # The parallel phase's gloo world and the export phase's exports,
+    # started once every kernel is built: they run beside the phases
+    # between (the world's ranks then wait for their phase). Nothing before
+    # the timing phase times what the kernels line prints.
+    parallel_world = ParallelWorld(*parallel_inputs(cfg), train_bank)
+    exports = Exports(goldens.content_holo[10])
 
     with Phase("quant") as phase:
         scales = quant.calibrate_scales(
@@ -2923,12 +3525,9 @@ def main() -> int:
         del halo_args, halo_outs
         halo_rows = check_halo_kernels(dev)
         halo_card_vs_cpu = check_halo_card_vs_cpu(dev)
-        halo_ms = time_halo(dev)
-        halo_b = halo_bounds(peak_flops, peak_bytes, B_TIMING)
         phase.info = {
             "launches": {k: launches[k] for k in halo_conv.LAUNCHES},
-            "checks": halo_rows, "card_vs_cpu": halo_card_vs_cpu, "B": B_TIMING, "ms": halo_ms,
-            "bound_ms": {f"{p}/{_dt(d)}": v for (p, d), v in halo_b.items()},
+            "checks": halo_rows, "card_vs_cpu": halo_card_vs_cpu,
         }
 
     with Phase("golden") as phase:
@@ -2960,7 +3559,7 @@ def main() -> int:
         phase.info = domain_info
 
     with Phase("export") as phase:
-        export_info = drive_export(fast_net, fast_cfg, fast_style, fast_scales, fast_records, goldens,
+        export_info = drive_export(exports, fast_net, fast_cfg, fast_style, fast_scales, fast_records, goldens,
                                    dev, smi)
         phase.info = export_info
 
@@ -2969,7 +3568,6 @@ def main() -> int:
         phase.info = commands_info
 
     with Phase("train") as phase:
-        train_bank = synth.golden_digit_bank(goldens, subset=synth.GOLDEN_TRAIN_DIGITS)
         part_seconds = {}
 
         def part(name, fn, *args):
@@ -2994,7 +3592,15 @@ def main() -> int:
                       "ring_gradients": ring_grad_rows, "ring_train_step": train_ring,
                       "learn_and_time": train_timing, "w125": train_w125, "mixed_precision": train_mixed}
 
+    with Phase("parallel") as phase:
+        parallel_info = drive_parallel(cfg, train_bank, parallel_world, fast_net, fast_cfg, fast_style,
+                                       goldens, dev, smi)
+        phase.info = parallel_info
+
     with Phase("timing") as phase:
+        refine_timing = time_refine(goldens, physics, dev)
+        halo_ms = time_halo(dev)
+        halo_b = halo_bounds(peak_flops, peak_bytes, B_TIMING)
         kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
         b = B_TIMING
         xre, xim = random_planes(b, seed=1, device=dev)
@@ -3161,6 +3767,9 @@ def main() -> int:
             "ring_fp32_ms_by_layer": ring_layers_ms,
             "ring_fp32_step": ring_step,
             "conv_bound_ms": {f"{k}/{_dt(d)}": v for (k, d), v in conv_b.items()},
+            "refine": refine_timing,
+            "halo_ms": halo_ms,
+            "halo_bound_ms": {f"{p}/{_dt(d)}": v for (p, d), v in halo_b.items()},
         }
 
     sources = "style_transfer_based_holographic_imaging_tpu_torch/kernels/csrc/asm_propagate.cu"
@@ -3199,7 +3808,8 @@ def main() -> int:
                                  "export": export_info["launches"][k],
                                  "synth_bench": commands_info["synth_bench"]["launches"][k],
                                  "sweep": commands_info["sweep"]["launches"][k],
-                                 "train": train_run["launches"][k]},
+                                 "train": train_run["launches"][k],
+                                 "parallel": parallel_info["launches"][k]},
             **({"refine_step_ms": refine_timing["step_ms"],
                 "refine_step_ms_torch_backend": refine_timing["torch_backend_step_ms"],
                 "refine_forward_share": refine_timing["forward_kernel_share"]}
@@ -3226,6 +3836,7 @@ def main() -> int:
                          "train_bf16_step_convs": ring_train["convs"],
                          "train_bf16_worst_bf16_ulps": train_mixed["bf16_card_vs_cpu"]["ring_worst_bf16_ulps"],
                          "launches_by_path": {"reflect": launches["border_lines"],
+                                              "parallel": parallel_info["launches"]["border_lines"],
                                               "train_step_cuda_ring": train_ring["launches"],
                                               "train_bf16_step_cuda_ring": remat_launches["plain"],
                                               "train_bf16_remat_step_cuda_ring": remat_launches["remat"]},

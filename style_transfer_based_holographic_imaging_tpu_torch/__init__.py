@@ -29,6 +29,9 @@ Subpackages mirror the JAX package's layout:
                   train state (Adam, clip, EMA, checkpoints) and the loop.
 - ``interop``   — carrying JAX parameter trees (as numpy) across, and a
                   release's weights from its numpy file.
+- ``parallel``  — the device mesh and its process world (one process a
+                  position), batch data parallelism, ZeRO-1/FSDP and channel
+                  tensor parallelism with explicit collectives.
 - ``cli``       — ``python -m style_transfer_based_holographic_imaging_tpu_torch.cli
                   eval|train|extract-style|stream|autofocus|serve|export|
                   sweep|synth-bench|doctor``.

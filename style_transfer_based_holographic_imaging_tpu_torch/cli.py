@@ -8,14 +8,15 @@
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli train \\
       --iterations 6000 --bank golden --adv-weight 1 --ema-decay 0.999 --train-encoder [--cpu]
       [--domain D] [--bank bead|rbc] [--mat-root DIR]
+      [--devices N [--partition dp|zero1|fsdp|tp|tp_fsdp] [--model-devices M]]
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli extract-style \\
       --checkpoint RUN [--bank sklearn|bead|rbc] [--domain D] [--mat-root DIR] --out sv.npz
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli stream \\
-      --checkpoint RUN --root DIR [--domain D] [--batch-size B] [--refine STEPS]
+      --checkpoint RUN --root DIR [--domain D] [--batch-size B] [--refine STEPS] [--devices N]
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli autofocus \\
       --golden | --input holos.npz --d-min A --d-max B [--domain D]
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli serve \\
-      --checkpoint checkpoints/fast [--quant] [--refine STEPS] [--fp32] [--cpu]
+      --checkpoint checkpoints/fast [--quant] [--refine STEPS] [--fp32] [--devices N] [--cpu]
       | --artifact model.hstx [--cpu]
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli export \\
       --checkpoint checkpoints/fast --out model.hstx [--platforms cpu,cuda] [--bf16] [--quant]
@@ -41,11 +42,17 @@ the ``asm_const`` kernel (a card-only file), as the JAX command maps
 
 Each command takes the JAX package's flags that the port implements and
 prints its lines (``train --dtype bfloat16`` is mixed-precision training,
-``--tensorboard-dir`` mirrors its scalars). argparse refuses the rest with a
-message and exit code 2: the device mesh (``train
---devices/--partition/--model-devices``, ``stream --devices`` over 1,
-``serve --devices``) and ``extract-style --pt-out`` (the reference's ``.pt``
-layout).
+``--tensorboard-dir`` mirrors its scalars). argparse refuses the one left,
+``extract-style --pt-out`` (the reference's ``.pt`` layout), with a message
+and exit code 2.
+
+The device mesh (``parallel/``): ``train --devices N`` trains in N
+processes, one a card (``nccl``; with ``--cpu``, N ``gloo`` ranks on the
+CPU), the batch split over them; ``--partition`` picks the state's layout
+(``zero1``/``fsdp`` shard the Adam moments / the whole state,
+``tp``/``tp_fsdp`` split the layers' output channels over ``--model-devices``
+of them, all N by default). ``serve --devices N`` and ``stream --devices N``
+split each batch over N cards from one process.
 """
 
 from __future__ import annotations
@@ -334,6 +341,14 @@ def _ready(service):
     return ready
 
 
+def _mesh(args, **kw):
+    """The mesh over the first ``--devices`` cards, or as many positions on
+    the CPU with ``--cpu``."""
+    from style_transfer_based_holographic_imaging_tpu_torch.parallel import make_mesh
+
+    return make_mesh(args.devices, devices=["cpu"] * args.devices if args.cpu else None, **kw)
+
+
 def cmd_serve(args):
     """Long-lived retrieval server (pipelines/server.py): the weights on the
     card, npz requests over HTTP; with ``--artifact`` a frozen export file
@@ -347,9 +362,9 @@ def cmd_serve(args):
 
     if args.artifact:
         # Everything comes from the one file.
-        if args.refine:
-            print("--artifact serving is network-only (--refine needs the live program)",
-                  file=sys.stderr)
+        if args.refine or (args.devices and args.devices > 1):
+            print("--artifact serving is single-device, network-only "
+                  "(--refine/--devices need the live program)", file=sys.stderr)
             return 1
         if args.quant or args.checkpoint or args.style_vector:
             print("--artifact serving takes the program, weights, style vector and "
@@ -383,6 +398,7 @@ def cmd_serve(args):
         quant_scales=_load_quant_scales(args),
         refine_steps=args.refine,
         device=device,
+        mesh=_mesh(args) if args.devices and args.devices > 1 else None,
     )
     print("warming up ...", file=sys.stderr)
     service.warmup()
@@ -608,7 +624,45 @@ def cmd_doctor(args):
 
 def cmd_train(args):
     """Train on synthesized holograms, or on a measured ``.mat`` train tree
-    (``--mat-root``), on the card (``train/loop.py``)."""
+    (``--mat-root``), on the card (``train/loop.py``); with ``--devices N``
+    in N processes over a mesh (``parallel.launch``), rank 0 writing the
+    logs and snapshots."""
+    if args.partition != "dp" and (not args.devices or args.devices < 2):
+        print(f"--partition {args.partition} needs --devices N (N >= 2)", file=sys.stderr)
+        return 1
+    if not args.devices or args.devices < 2:
+        return _train(args)
+    from style_transfer_based_holographic_imaging_tpu_torch.parallel import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        launch,
+    )
+
+    if not args.cpu and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass --cpu to run on the CPU")
+    if args.partition in ("tp", "tp_fsdp"):
+        # Channel TP needs a model axis: all the devices on it (data=1)
+        # unless --model-devices splits them.
+        m = args.model_devices or args.devices
+        if args.devices % m:
+            print(f"--devices {args.devices} must divide by --model-devices {m}", file=sys.stderr)
+            return 1
+        mesh = _mesh(args, axis_names=(DATA_AXIS, MODEL_AXIS), shape=(args.devices // m, m))
+    else:
+        mesh = _mesh(args)
+    # No deadline for the run (a schedule of any length); each collective
+    # keeps its own time limit.
+    return launch(_train_rank, mesh, args, mesh, timeout=None)[0]
+
+
+def _train_rank(rank: int, args, mesh) -> int:
+    """One rank of ``cmd_train``'s world."""
+    return _train(args, mesh)
+
+
+def _train(args, mesh=None) -> int:
+    """``cmd_train`` in this process: alone, or as one rank of ``mesh``'s
+    world (``train()`` reads the rank; rank 0 alone prints and saves)."""
     import dataclasses
 
     from style_transfer_based_holographic_imaging_tpu_torch.config import DataConfig, TrainConfig
@@ -622,6 +676,12 @@ def cmd_train(args):
     )
 
     device = _setup_backend(args)
+    rank = 0
+    if mesh is not None:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+        device = mesh.device_list[rank]
     set_reflect_backend(args.reflect_backend)
     model_cfg = ModelConfig(dtype=args.dtype, with_phase_decoder=args.phase_decoder)
     train_cfg = TrainConfig(
@@ -661,13 +721,16 @@ def cmd_train(args):
             return 1
         if cfg.train.supervised_weight:
             # A measured tree has no complex ground truth to supervise on.
-            print("note: --mat-root training has no ground truth; forcing "
-                  "supervised_weight=0 (physics cycle + style + content + "
-                  "distance)", file=sys.stderr)
+            if rank == 0:
+                print("note: --mat-root training has no ground truth; forcing "
+                      "supervised_weight=0 (physics cycle + style + content + "
+                      "distance)", file=sys.stderr)
             cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, supervised_weight=0.0))
         sampler = MeasuredHologramSampler(args.mat_root, cfg.data, cfg.physics, domain=args.domain)
-        print(f"measured train tree: {len(sampler.ds)} frames "
-              f"({sampler.n_content} content / {sampler.n_style} style candidates)", file=sys.stderr)
+        if rank == 0:
+            print(f"measured train tree: {len(sampler.ds)} frames "
+                  f"({sampler.n_content} content / {sampler.n_style} style candidates)",
+                  file=sys.stderr)
 
     bank = None
     if args.digit_bank:
@@ -710,13 +773,16 @@ def cmd_train(args):
                                           torch.Generator().manual_seed(args.seed + 1))
             state = restore_checkpoint(
                 snap, create_train_state(params, cfg.train, disc_params=disc_params, device=device))
-            print(f"resumed from {os.path.basename(snap)} (step {state.step})", file=sys.stderr)
-        else:
+            if rank == 0:
+                print(f"resumed from {os.path.basename(snap)} (step {state.step})", file=sys.stderr)
+        elif rank == 0:
             print("no iter_* snapshot found; training from scratch", file=sys.stderr)
 
-    state = train(cfg, bank=bank, sampler=sampler, state=state, device=device)
-    path = save_checkpoint(state, cfg.train.checkpoint_dir)
-    print(f"final checkpoint: {path}")
+    state = train(cfg, bank=bank, sampler=sampler, state=state, device=device, mesh=mesh,
+                  partition=args.partition, log_fn=print if rank == 0 else lambda _: None)
+    if rank == 0:
+        path = save_checkpoint(state, cfg.train.checkpoint_dir)
+        print(f"final checkpoint: {path}", flush=True)
     return 0
 
 
@@ -784,6 +850,15 @@ def cmd_stream(args):
         print(f"no .mat records under {args.root}", file=sys.stderr)
         return 1
     print(f"streaming {len(ds)} frames from {args.root}", file=sys.stderr)
+    sharding = None
+    if args.devices and args.devices > 1:
+        from style_transfer_based_holographic_imaging_tpu_torch.parallel import batch_sharding
+
+        if args.batch_size % args.devices:
+            print(f"--batch-size {args.batch_size} must divide by --devices {args.devices}",
+                  file=sys.stderr)
+            return 1
+        sharding = batch_sharding(_mesh(args))
 
     n, n_steady, t_steady, last = 0, 0, None, None
     t_start = time.perf_counter()
@@ -796,6 +871,7 @@ def cmd_stream(args):
         refine_steps=args.refine,
         quant_scales=_load_quant_scales(args),
         device=device,
+        sharding=sharding,
     ):
         b = int(out["amp_field"].shape[0])
         n += b
@@ -964,6 +1040,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "the supervised loss is forced off")
     p.add_argument("--reflect-backend", choices=("auto", "matpad", "einsum", "cuda"), default="auto",
                    help="border handling of the reflect convs (cuda: the ring kernel)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="train in one process over each of the first N cards (with --cpu: N "
+                        "CPU processes), the batch split along the data mesh axis")
+    p.add_argument("--partition", default="dp", choices=("dp", "zero1", "fsdp", "tp", "tp_fsdp"),
+                   help="train-state layout on the mesh: whole on every rank (dp), ZeRO-1 "
+                        "sharded optimizer moments, FSDP fully sharded state, channel tensor "
+                        "parallelism (tp), or TP x FSDP on a 2-D mesh")
+    p.add_argument("--model-devices", type=int, default=0,
+                   help="with --partition tp/tp_fsdp: size of the 'model' mesh axis "
+                        "(default: all of --devices)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("extract-style", help="mint a representative style vector")
@@ -1020,8 +1106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--refine", type=int, default=0, metavar="STEPS",
                    help="physics-consistent refinement steps per frame batch")
-    p.add_argument("--devices", type=int, default=0, choices=(0, 1),
-                   help="devices to stream over (one card; more is not ported)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="batch data-parallel streaming over the first N cards")
     p.set_defaults(fn=cmd_stream)
 
     p = sub.add_parser("serve", help="HTTP retrieval server (fixed batch shape; npz in/out)")
@@ -1035,6 +1121,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16 conv path (default on)")
     p.add_argument("--fp32", dest="bf16", action="store_false")
     p.add_argument("--refine", type=int, default=0, metavar="STEPS")
+    p.add_argument("--devices", type=int, default=0,
+                   help="batch data-parallel serving over the first N cards")
     p.add_argument("--artifact", type=str, default=None, metavar="HSTX",
                    help="serve a frozen export artifact instead of a checkpoint "
                         "(see the 'export' command)")

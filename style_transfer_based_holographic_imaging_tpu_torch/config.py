@@ -119,6 +119,7 @@ class TrainConfig:
     freeze_encoder: bool = True         # the encoder gets no update
     ema_decay: float = 0.0              # Polyak averaging of the generator; 0 = off
     tensorboard_dir: str = ""           # mirror the logged scalars to this event dir; "" = off
+    dp_axis: str = "data"               # the mesh axis the batch is split over
 
 
 @dataclass(frozen=True)

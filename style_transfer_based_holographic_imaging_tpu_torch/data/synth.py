@@ -459,23 +459,32 @@ def synth_interpolation_batch(key: np.ndarray, bank: torch.Tensor, *, data: Data
 
 class InfiniteHologramSampler:
     """Endless reproducible batch stream: batch N comes from the generator
-    of ``(data.seed, N)``, the same across runs, devices and resumes."""
+    of ``(data.seed, N)``, the same across runs, devices and resumes.
+
+    With ``rows`` (a rank's share of the batch on a mesh,
+    ``parallel.local_rows``) the whole batch's draws are taken on the host
+    and only those rows are rendered, in that order: the rank's rows of the
+    one-process batch."""
 
     def __init__(self, bank, data: DataConfig, physics: PhysicsConfig, *,
                  return_gt: bool = False, start_iteration: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", rows: Optional[np.ndarray] = None):
         self.bank = torch.as_tensor(np.asarray(bank, np.float32), device=device)
         self.data = data
         self.physics = physics
         self.return_gt = return_gt
         self.iteration = start_iteration
+        self.rows = None if rows is None else torch.as_tensor(np.asarray(rows), dtype=torch.int64)
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        batch = synth_batch(self.iteration, self.bank, self.data, self.physics,
-                            return_gt=self.return_gt)
+        draws = draw_batch(stream_generator(self.data.seed, self.iteration), self.bank.shape[0],
+                           self.data)
+        if self.rows is not None:
+            draws = {k: v[:, self.rows] for k, v in draws.items()}
+        batch = render_batch(self.bank, draws, self.data, self.physics, return_gt=self.return_gt)
         self.iteration += 1
         return batch
 

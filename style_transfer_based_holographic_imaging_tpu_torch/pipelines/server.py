@@ -157,6 +157,14 @@ class RetrievalService:
     ``net`` is moved to ``device``. ``dtype`` is the fp net's compute dtype
     (fp32 when None; ``cli serve`` passes bf16 by default); ``quant_scales``
     serves the int8 path instead, in ``dtype`` (bf16 when None).
+
+    With a ``mesh`` (``parallel.make_mesh``; ``device`` is then not read)
+    the batch is split over its ``data`` axis, as the JAX package's single
+    controller shards it: this process keeps a replica of the net and of
+    the style vector on each mesh device, launches each chunk on the device
+    of its ``data`` position (the first along the other axes) and
+    concatenates the answers. Serving takes no gradient, so no collective;
+    the batch size must divide by the axis.
     """
 
     def __init__(
@@ -170,10 +178,10 @@ class RetrievalService:
         quant_scales: Optional[Dict[str, float]] = None,
         refine_steps: int = 0,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
-        from style_transfer_based_holographic_imaging_tpu_torch.models.net import style_stats_nchw
         from style_transfer_based_holographic_imaging_tpu_torch.pipelines.field_retrieval import (
-            make_retrieval_fn,
+            retrieval_replicas,
         )
         from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import (
             refine_retrieval,
@@ -181,26 +189,37 @@ class RetrievalService:
 
         self._refine = refine_retrieval
         self.config = config or ExperimentConfig()
-        self.device = torch.device(device)
         self.batch_size = int(batch_size)
+        self.mesh = mesh
+        if mesh is None:
+            devices = [torch.device(device)]
+        else:
+            from style_transfer_based_holographic_imaging_tpu_torch.data.prefetch import data_devices
+            from style_transfer_based_holographic_imaging_tpu_torch.parallel.mesh import (
+                DATA_AXIS,
+                batch_sharding,
+            )
+
+            if DATA_AXIS not in mesh.shape:
+                raise ValueError(f"serving mesh axes {tuple(mesh.axis_names)} lack the batch "
+                                 f"axis {DATA_AXIS!r}")
+            if self.batch_size % mesh.shape[DATA_AXIS]:
+                raise ValueError(f"batch_size {self.batch_size} must be divisible by the "
+                                 f"'{DATA_AXIS}' mesh axis size ({mesh.shape[DATA_AXIS]})")
+            devices = data_devices(batch_sharding(mesh))
+        self.device = devices[0]
         self.image_size = int(self.config.model.image_size)
         self.refine_steps = int(refine_steps)
         self.quantized = quant_scales is not None
-        self.net = net.to(self.device).eval()
-        f32 = dict(dtype=torch.float32, device=self.device)
-        self._sm = style_stats_nchw(torch.as_tensor(np.asarray(style_vector[0]), **f32))
-        self._ss = style_stats_nchw(torch.as_tensor(np.asarray(style_vector[1]), **f32))
         # millimetres -> network units, as the training synthesizer does. A
         # host float: the refocus takes the constant-distance kernel.
         physics = self.config.physics
         self._d_style = float(physics.to_network_units(self.config.data.style_distances[0]))
-        self._fn = make_retrieval_fn(
-            self.config.physics,
-            alpha=self.config.eval.alpha,
-            dtype=dtype,
-            quant_scales=quant_scales,
-            device=self.device,
-        )
+        replicas = retrieval_replicas(net.to(self.device).eval(), style_vector, physics, devices,
+                                      alpha=self.config.eval.alpha, dtype=dtype,
+                                      quant_scales=quant_scales)
+        self._chunks = [(dev, replicas[dev]) for dev in devices]
+        self.net = self._chunks[0][1][0]
         self._lock = threading.Lock()
         self.n_served = 0
 
@@ -211,12 +230,18 @@ class RetrievalService:
         self.n_served = 0
 
     def _run_one(self, holo_np: np.ndarray) -> Dict[str, np.ndarray]:
-        holo = torch.from_numpy(holo_np).to(self.device)
-        out = self._fn(self.net, holo, self._sm, self._ss, self._d_style)
-        if self.refine_steps:
-            out = self._refine(
-                out, holo, self.config.physics, steps=self.refine_steps, device=self.device)
-        return {k: out[k].detach().float().cpu().numpy() for k in _RESULT_KEYS if k in out}
+        """One batch: each data position's chunk launched on its device, all
+        before the first is read back, the chunks joined in order."""
+        outs = []
+        for (dev, (net, sm, ss, fn)), chunk in zip(self._chunks,
+                                                   np.split(holo_np, len(self._chunks))):
+            holo = torch.from_numpy(chunk).to(dev)
+            out = fn(net, holo, sm, ss, self._d_style)
+            if self.refine_steps:
+                out = self._refine(out, holo, self.config.physics, steps=self.refine_steps, device=dev)
+            outs.append(out)
+        keys = [k for k in _RESULT_KEYS if k in outs[0]]
+        return {k: np.concatenate([o[k].detach().float().cpu().numpy() for o in outs]) for k in keys}
 
     def retrieve(self, holo: np.ndarray) -> Dict[str, np.ndarray]:
         """Run retrieval on (B, 1, H, W) intensity holograms, any B >= 1.
@@ -238,7 +263,7 @@ class RetrievalService:
             "width": self.net.width,
             "quantized": self.quantized,
             "refine_steps": self.refine_steps,
-            "n_devices": 1,
+            "n_devices": 1 if self.mesh is None else self.mesh.size,
             "n_served": self.n_served,
         }
 

@@ -3,7 +3,11 @@ package's ``pipelines/streaming.py``).
 
 A prefetched host -> card input stream (``data.prefetch``) feeds one
 retrieval fn and yields the reconstructed fields batch by batch, with
-throughput accounting.
+throughput accounting. With a ``sharding`` (``parallel.batch_sharding`` of a
+mesh) each batch is split over the mesh's ``data`` axis, each chunk
+retrieved on its position's device by a replica of the net there, and the
+chunks joined on the first device (batch data parallelism with one
+controller, as the JAX package streams over a mesh).
 """
 
 from __future__ import annotations
@@ -15,13 +19,13 @@ import numpy as np
 import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.config import ExperimentConfig
-from style_transfer_based_holographic_imaging_tpu_torch.data.prefetch import prefetch_to_device
-from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
-    StyleTransferNet,
-    style_stats_nchw,
+from style_transfer_based_holographic_imaging_tpu_torch.data.prefetch import (
+    data_devices,
+    prefetch_to_device,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.models.net import StyleTransferNet
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines.field_retrieval import (
-    make_retrieval_fn,
+    retrieval_replicas,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines.refine import refine_retrieval
 
@@ -56,6 +60,7 @@ def stream_retrieval(
     refine_steps: int = 0,
     quant_scales: Optional[Dict[str, float]] = None,
     device: str | torch.device = "cuda",
+    sharding=None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Stream batches of intensity holograms through field retrieval.
 
@@ -72,19 +77,15 @@ def stream_retrieval(
     None). ``refine_steps > 0`` refines each chunk's
     refocused field against its frames (amplitude and phase jointly: the
     experimental domains have no known-amplitude prior).
+
+    ``sharding`` splits each batch over a mesh's ``data`` axis (the module
+    docstring; ``device`` is then the first chunk's device, where the
+    outputs are joined); the first batch's size must divide by the axis.
     """
     config = config or ExperimentConfig()
-    device = torch.device(device)
-    fn = make_retrieval_fn(
-        config.physics,
-        alpha=config.eval.alpha,
-        dtype=dtype,
-        quant_scales=quant_scales,
-        device=device,
-    )
-    f32 = dict(dtype=torch.float32, device=device)
-    sm = style_stats_nchw(torch.as_tensor(np.asarray(style_vector[0]), **f32))
-    ss = style_stats_nchw(torch.as_tensor(np.asarray(style_vector[1]), **f32))
+    devices = [torch.device(device)] if sharding is None else data_devices(sharding)
+    replicas = retrieval_replicas(net, style_vector, config.physics, devices, alpha=config.eval.alpha,
+                                  dtype=dtype, quant_scales=quant_scales)
     # The style distance in millimetres -> network units, a host float: the
     # refocus takes the constant-distance kernel.
     d_s_mm = config.data.style_distances[0] if style_distance is None else style_distance
@@ -100,6 +101,9 @@ def stream_retrieval(
             b = next(iter(batch.values())).shape[0]
             if first_b is None:
                 first_b = b
+                if first_b % len(devices):
+                    raise ValueError(f"batch size {first_b} must divide by the {len(devices)} "
+                                     f"devices of the 'data' mesh axis")
             for lo in range(0, b, first_b):
                 chunk = {k: np.asarray(v[lo : lo + first_b]) for k, v in batch.items()}
                 cb = next(iter(chunk.values())).shape[0]
@@ -112,13 +116,20 @@ def stream_retrieval(
                 valid_counts.append(cb)
                 yield chunk
 
-    for batch in prefetch_to_device(padded(batches), device=device):
-        holo = batch["holo"]
+    for parts in prefetch_to_device(padded(batches), device=devices[0], sharding=sharding):
+        parts = [parts] if sharding is None else parts
+        outs = []
+        for dev, part in zip(devices, parts):
+            net_d, sm, ss, fn = replicas[dev]
+            out = fn(net_d, part["holo"], sm, ss, d_s)
+            if refine_steps:
+                out = refine_retrieval(out, part["holo"], config.physics, steps=refine_steps,
+                                       device=dev)
+            outs.append(out)
+        out = outs[0] if len(outs) == 1 else {
+            k: torch.cat([o[k].to(devices[0]) for o in outs]) for k in outs[0]}
         b_valid = valid_counts.pop(0)
-        out = fn(net, holo, sm, ss, d_s)
-        if refine_steps:
-            out = refine_retrieval(out, holo, config.physics, steps=refine_steps, device=device)
-        if b_valid < holo.shape[0]:
+        if b_valid < sum(part["holo"].shape[0] for part in parts):
             out = {k: v[:b_valid] for k, v in out.items()}
         if stats is not None:
             stats.n_frames += b_valid

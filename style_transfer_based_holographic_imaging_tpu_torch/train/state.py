@@ -20,7 +20,11 @@ does, so that a JAX run and a port run take the same steps:
 Parameters are flat state dicts (the port's module names), as in
 ``interop.convert_params``; the updates run in place with ``torch._foreach``
 ops, as the JAX step donates its state. Checkpoints are ``iter_<n>``
-directories holding one ``state.pt`` (``torch.save`` of CPU tensors).
+directories holding one ``state.pt`` (``torch.save`` of CPU tensors), the
+whole state whatever the partition it was trained under: a run on a mesh
+gathers its shards first (``parallel.gather_state``), and a snapshot
+restores into any partition (``restore_checkpoint``, then
+``parallel.shard_state``).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import dataclasses
 import os
 import sys
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ __all__ = [
     "create_train_state",
     "apply_gradients",
     "apply_disc_gradients",
+    "update_ema",
     "save_checkpoint",
     "restore_checkpoint",
     "latest_snapshot",
@@ -106,13 +111,20 @@ class Adam:
         return AdamState(0, {k: torch.zeros_like(params[k]) for k in names},
                          {k: torch.zeros_like(params[k]) for k in names})
 
-    def update(self, grads: Params, state: AdamState, params: Params) -> None:
+    def update(self, grads: Params, state: AdamState, params: Params, *,
+               sum_sq: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None) -> None:
         """One step in place: ``params`` and ``state`` take the new values.
-        ``grads`` holds the optimized names of ``state.mu``."""
+        ``grads`` holds the optimized names of ``state.mu``. ``sum_sq``, given
+        ``{name: sum of the squares of its gradient}``, returns the squared
+        global norm the clip takes; the default adds them up. A step on
+        sharded gradients passes the sum over their shards
+        (``train.loop.TrainStep``): each element counted once, the same
+        total on every rank, so that every rank takes one decision."""
         names = list(state.mu)
         g = [grads[k] for k in names]
         if self.clip_norm:
-            norm = torch.sqrt(sum(torch.sum(t * t) for t in g))
+            squares = {k: torch.sum(t * t) for k, t in zip(names, g)}
+            norm = torch.sqrt(sum(squares.values()) if sum_sq is None else sum_sq(squares))
             if not bool(norm < self.clip_norm):
                 g = torch._foreach_mul(torch._foreach_div(g, norm), self.clip_norm)
         mu = [state.mu[k] for k in names]
@@ -173,6 +185,11 @@ def apply_gradients(state: TrainState, grads: Params, tx: Adam, ema_decay: float
     the optimizer, the step count, then the EMA of the updated params."""
     tx.update(grads, state.opt_state, state.params)
     state.step += 1
+    update_ema(state, ema_decay)
+
+
+def update_ema(state: TrainState, ema_decay: float) -> None:
+    """``ema = d ema + (1 - d) params`` in place, where the state keeps one."""
     if state.ema_params is not None:
         names = list(state.params)
         ema = [state.ema_params[k] for k in names]

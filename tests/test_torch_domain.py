@@ -59,8 +59,7 @@ DB_TOL = 0.005
 UM_TOL = 0.5
 STYLE_TOL = 1e-5
 CORAL_TOL = 1e-5
-NOT_PORTED = {"ModelConfig": {"disc_conv_dim", "disc_repeat_num", "disc_class_dim"},
-              "TrainConfig": {"dp_axis"}}
+NOT_PORTED = {"ModelConfig": {"disc_conv_dim", "disc_repeat_num", "disc_class_dim"}}
 _cache = {}
 
 

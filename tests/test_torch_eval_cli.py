@@ -22,8 +22,12 @@
   ``stream --root`` from the same snapshot.
 * ``autofocus --input`` against the JAX package's command on four golden
   holograms.
-* argparse: the new flags are taken; every flag and command still refused
-  exits with code 2; no card and no ``--cpu`` raises.
+* argparse: the new flags are taken (the device mesh's too: ``train
+  --devices/--partition/--model-devices``, ``stream --devices``, ``serve
+  --devices``); every flag and command still refused exits with code 2; the
+  JAX package's errors of the mesh flags; ``train --devices N`` launches
+  its world with no deadline for the run; ``train --cpu --devices 2
+  --partition zero1`` on two CPU ranks; no card and no ``--cpu`` raises.
 * ``utils/profiling.py``: ``trace`` writes a Chrome trace holding an
   ``annotate`` region; ``timeit`` returns its rate.
 """
@@ -62,6 +66,7 @@ GREY_LEVELS = 1
 GREY_SHARE = 1e-3
 MAT_DB_TOL = 0.005
 MAT_UM_TOL = 0.5
+WORLD_TIMEOUT_S = 300.0
 _NUM = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
 
 
@@ -303,16 +308,16 @@ NEW_FLAGS = [
     ["doctor", "--cpu"],
     ["train", "--dtype", "bfloat16"],
     ["train", "--tensorboard-dir", "tb"],
-]
-REFUSED = [
     ["train", "--devices", "2"],
     ["train", "--partition", "zero1"],
     ["train", "--model-devices", "2"],
-    ["stream", "--root", "r", "--devices", "2"],
+    ["stream", "--devices", "2", "--root", "r"],
+    ["serve", "--devices", "2"],
+]
+REFUSED = [
     ["extract-style", "--pt-out", "sv.pt"],
     ["eval", "--domain", "mars"],
     ["extract-style", "--bank", "golden"],
-    ["serve", "--devices", "2"],
 ]
 
 
@@ -327,6 +332,57 @@ def test_unported_flags_exit_2(argv):
     with pytest.raises(SystemExit) as e, contextlib.redirect_stderr(io.StringIO()):
         cli.main(argv)
     assert e.value.code == 2
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["train", "--cpu", "--partition", "zero1"], "--partition zero1 needs --devices N (N >= 2)"),
+    (["train", "--cpu", "--devices", "3", "--partition", "tp", "--model-devices", "2"],
+     "--devices 3 must divide by --model-devices 2"),
+    (["serve", "--cpu", "--artifact", "model.hstx", "--devices", "2"],
+     "--artifact serving is single-device"),
+], ids=["partition without devices", "indivisible model devices", "artifact on a mesh"])
+def test_mesh_flag_errors_are_the_jax_packages(argv, message):
+    """The JAX package's own checks of the mesh flags: exit status 1 and its
+    message, before any work starts."""
+    rc, _, err = run(cli.main, argv)
+    assert rc == 1 and message in err
+
+
+def test_cli_train_sets_no_deadline_on_the_run(monkeypatch):
+    """``train --devices N`` launches its world with no deadline for the
+    whole run (``timeout=None``): a schedule of any length runs to its end,
+    each collective keeping its own time limit."""
+    from style_transfer_based_holographic_imaging_tpu_torch import parallel
+
+    calls = []
+    monkeypatch.setattr(parallel, "launch", lambda fn, mesh, *a, **kw: calls.append((mesh, kw)) or [0])
+    rc, _, _ = run(cli.main, ["train", "--cpu", "--devices", "2", "--partition", "zero1"])
+    assert rc == 0 and len(calls) == 1
+    mesh, kw = calls[0]
+    assert mesh.size == 2 and kw == {"timeout": None}
+
+
+def test_cli_train_on_two_cpu_ranks(tmp_path, monkeypatch):
+    """``train --cpu --devices 2 --partition zero1``: two gloo ranks on the
+    CPU (``parallel.launch``) train two steps; rank 0 alone writes the
+    metrics, a snapshot a step and the final checkpoint. The test gives the
+    world a deadline the command does not, so that a hung collective fails
+    it within the run."""
+    from style_transfer_based_holographic_imaging_tpu_torch import parallel
+
+    launch = parallel.launch
+    monkeypatch.setattr(parallel, "launch",
+                        lambda *a, **kw: launch(*a, **{**kw, "timeout": WORLD_TIMEOUT_S}))
+    ckpt = tmp_path / "run"
+    rc, _, _ = run(cli.main, ["train", "--cpu", "--devices", "2", "--partition", "zero1",
+                              "--iterations", "2", "--batch-size", "2", "--bank", "golden",
+                              "--checkpoint-dir", str(ckpt), "--log-every", "1",
+                              "--checkpoint-every", "1"])
+    assert rc == 0
+    rows = [json.loads(line) for line in open(ckpt / "train_metrics.jsonl")]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(v) for r in rows for v in r.values())
+    assert sorted(os.listdir(ckpt)) == ["iter_1", "iter_2", "train_metrics.jsonl"]
 
 
 @pytest.mark.parametrize("argv", [["eval"], ["extract-style"], ["stream", "--root", TREE],
