@@ -226,7 +226,20 @@ line naming it and ends the run with exit code 3; nothing hangs):
    whole gradients and params against the one-process step on the card,
    each rank's ``asm_dynamic`` and ``border_lines`` launches counted; the
    collectives gloo carries on CUDA tensors, a partition whose collectives
-   it refuses named with the error; and a 2-position serving mesh on
+   it refuses named with the error; then, in the same world, the
+   FOV-sharded refocus (``parallel.sharded_propagate``) of a
+   (2, 1, 1024, 1024) field padded to 2048^2 on each rank's rows against
+   ``propagate_torch`` of the whole field, with and without the band limit,
+   and the GPipe pipeline on a 2-stage ``pipe`` mesh at the flagship's width
+   and 128^2 (seed-0 weights): the retrieval at B = 8, 4 microbatches,
+   against the one-process ``retrieval_step`` with the torch refocus, the
+   fine-tune and the full training with the adversarial term (its
+   discriminator replicated), 2 steps each at B = 4, 2 microbatches, the
+   first step's loss terms and whole gradient against the one-process
+   objective's; each rank's ``ppermute``, ``all_to_all`` and
+   ``exchange_rows`` calls and bytes, a part whose collective gloo refuses
+   skipped and named; the 1-rank NCCL world runs the 1-shard refocus and
+   the 1-stage retrieval; and a 2-position serving mesh on
    ``cuda:0`` (``RetrievalService(mesh=...)``, ``fast`` in fp32, batch 32)
    against one device, one ``asm_const`` a chunk.
 
@@ -390,6 +403,10 @@ from style_transfer_based_holographic_imaging_tpu_torch.train import (  # noqa: 
     load_train_params,
     lsgan_d_loss,
     train,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.train.losses import (  # noqa: E402
+    distance_loss,
+    style_plane_target,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.train.state import (  # noqa: E402
     Adam,
@@ -749,6 +766,34 @@ PARALLEL_LATER_GRAD_TOL = 1e-2
 PARALLEL_SPREAD = 2.0
 PARALLEL_SERVE_BATCH = 32
 PARALLEL_TIMEOUT_S = 120.0
+# The FOV-sharded refocus and the GPipe pipeline (parallel/fft_sharding.py,
+# pp.py) in the same 2-rank gloo world on cuda:0, after the partitions, and
+# in the 1-rank NCCL world (one shard, one stage). The refocus: a field a
+# user would shard, (2, 1, 1024, 1024) complex64 padded to 2048^2, on the
+# rank's rows, against propagate_torch of the whole field on the card
+# within SHARDED_FFT_TOL of its max (the CPU tests' rule), with and
+# without the band limit. The pipeline at the flagship's width and 128^2,
+# seed-0 weights: retrieval on 2 stages at B = 8, n_micro 4, against the
+# one-process retrieval_step with the torch refocus (the pipeline mirrors
+# the JAX package's "xla" refocus): the fields, the distance and amp_foc by
+# the CPU tests' tolerances (PP_RETRIEVAL_TOL), ph_foc by the serving
+# mesh's rule (hold_retrieval says why); the fine-tune and the full
+# training (the flagship's recipe, adversarial term on, its discriminator
+# replicated, no collective), PP_STEPS steps each at B = 4, n_micro 2: the
+# first step's loss terms within PARALLEL_LOSS_RTOL of the one-process
+# objective's and its whole gradient (the stages' joined) within
+# PARALLEL_GRAD_TOL of each leaf's max of the one-process gradient; the
+# fine-tune's reference takes its forward in the pipeline's microbatches
+# (finetune_objective: on one batch of 4 cuDNN sums in other orders, 9.2e-5
+# of the leaf's max on the decoder's first layers, printed beside it).
+PP_FIELD = (2, 1, 1024, 1024)
+PP_FIELD_CASES = {"no_band_limit": ((3e-4, 7e-4), {}), "band_limit": ((6e-3, 1.2e-2), {"band_limit": True})}
+SHARDED_FFT_TOL = 1e-5
+PP_RETRIEVAL_BATCH, PP_RETRIEVAL_MICRO = 8, 4
+PP_TRAIN_BATCH, PP_TRAIN_MICRO, PP_STEPS = 4, 2, 2
+PP_LR = 1e-4
+PP_D_STYLE = 0.2
+PP_RETRIEVAL_TOL = {"amp_field": 1e-5, "ph_field": 1e-5, "distance_pred": 1e-5, "amp_foc": 1e-5}
 # Peaks by card (NVIDIA data sheets, dense): fp32 FLOP/s outside the tensor
 # cores, bf16 FLOP/s on the tensor cores, bytes/s.
 PEAKS = {
@@ -2507,17 +2552,24 @@ def drive_train_mixed(cfg, bank, cmp, fp32_timed, device, peak_flops, peak_bytes
 
 def gloo_support(device) -> dict:
     """Each collective of the mesh layer on a small tensor on ``device`` in
-    this rank's world: "ok" or the first line of its error. (send/recv,
-    which the mesh layer does not use, is left out: on CUDA tensors gloo
-    aborts the process there; scripts/port_probe_gloo_cuda.py tries each
-    collective in a world of its own.)"""
+    this rank's world: "ok" or the first line of its error; ``all_to_all``
+    and ``ppermute`` are the mesh layer's (``all_to_all_single`` with even
+    and uneven splits). (send/recv, which the mesh layer does not use, is
+    left out: on CUDA tensors gloo aborts the process there;
+    scripts/port_probe_gloo_cuda.py tries each collective in a world of its
+    own, scripts/port_probe_gloo_a2a.py each split.)"""
     world = torch.distributed.group.WORLD
-    n = torch.distributed.get_world_size()
+    n, r = torch.distributed.get_world_size(), torch.distributed.get_rank()
     x = torch.arange(2.0 * n, device=device)
     ops = {
         "all_reduce": lambda: parallel.mesh.all_reduce(x.clone(), world),
         "all_gather": lambda: parallel.mesh.all_gather(x, 0, world),
         "reduce_scatter": lambda: parallel.mesh.reduce_scatter(x, 0, world),
+        "broadcast": lambda: torch.distributed.broadcast(x.clone(), 0),
+        "all_to_all": lambda: parallel.mesh.all_to_all(x.reshape(n, 2), 0, 1, world),
+        # uneven: rank 0's 3 elements to rank 1 alone, nothing back
+        "ppermute": lambda: parallel.mesh.ppermute(x[:3] if r == 0 else x[:0], [(0, 1)], world,
+                                                   (3,) if r == 1 else (0,)),
         "barrier": lambda: torch.distributed.barrier(),
     }
     out = {}
@@ -2574,6 +2626,130 @@ def parallel_step_pair(cfg, params, bank, device, mesh=None, partition="dp", ran
     return out
 
 
+def _reset_counts() -> None:
+    """The mesh layer's collective counts and every kernel's launches to 0."""
+    parallel.mesh.reset_collective_counts()
+    asm_cuda.reset_launches()
+    reflect_border.reset_launches()
+
+
+def _counts() -> dict:
+    """The collectives' calls and the bytes this rank sent, and the kernels'
+    launches, since ``_reset_counts``."""
+    return {"calls": dict(parallel.mesh.COLLECTIVE_CALLS), "bytes": dict(parallel.mesh.COLLECTIVE_BYTES),
+            "launches": {**asm_cuda.LAUNCHES, **reflect_border.LAUNCHES}}
+
+
+def _timed(fn):
+    """(fn(), its seconds), the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharded_refocus_field(device) -> torch.Tensor:
+    """PP_FIELD's complex64 field: real and imaginary parts uniform in
+    [0, 1) from a seeded generator on ``device`` (the same on every rank)."""
+    g = torch.Generator(device=device).manual_seed(7)
+    re = torch.rand(PP_FIELD, generator=g, device=device)
+    return torch.complex(re, torch.rand(PP_FIELD, generator=g, device=device))
+
+
+def check_sharded_refocus(mesh, physics, device, axis: str = parallel.DATA_AXIS) -> dict:
+    """``sharded_propagate`` on this rank's rows of ``sharded_refocus_field``
+    for each PP_FIELD_CASES case, against ``propagate_torch`` of the whole
+    field on this card: the error over this rank's rows relative to the
+    reference's max, the seconds of two sharded calls and two one-device
+    calls (the first of each plans cuFFT's transforms), and a sharded
+    call's collectives and launches (``_counts``)."""
+    field = sharded_refocus_field(device)
+    n = mesh.shape[axis]
+    r = mesh.coords(torch.distributed.get_rank())[axis]
+    rows = slice(r * PP_FIELD[-2] // n, (r + 1) * PP_FIELD[-2] // n)
+    mine = field[..., rows, :].contiguous()
+    kw = dict(wavelength=physics.wavelength, pixel_size=physics.pixel_size)
+    out = {}
+    for name, (dists, extra) in PP_FIELD_CASES.items():
+        d = torch.tensor(dists, device=device).reshape(-1, 1, 1, 1)
+        sharded, one = [], []
+        for _ in range(2):
+            _reset_counts()
+            got, sec = _timed(lambda: parallel.sharded_propagate(mine, d, mesh=mesh, axis=axis, **kw, **extra))
+            sharded.append(sec)
+            counts = _counts()
+            ref, sec = _timed(lambda: propagate_torch(field, d, **kw, **extra))
+            one.append(sec)
+        err = float((got - ref[..., rows, :]).abs().max() / ref.abs().max())
+        out[name] = {"rel_err": err, "sharded_seconds": sharded, "one_device_seconds": one, **counts}
+    return out
+
+
+def pipeline_inputs() -> dict:
+    """The pipeline's retrieval inputs: the golden suite's first
+    PP_RETRIEVAL_BATCH holograms and its style vector."""
+    goldens = load_golden_suite()
+    return {"holo": goldens.content_holo.reshape(-1, 1, IMAGE, IMAGE)[:PP_RETRIEVAL_BATCH],
+            "sm": goldens.style_mean, "ss": goldens.style_std}
+
+
+def pipeline_disc(device):
+    """The flagship's discriminator and its seed-1 weights on ``device``."""
+    disc = PatchDiscriminator(image_size=IMAGE)
+    return disc.to(device), {k: v.to(device) for k, v in init_params(disc, torch.Generator().manual_seed(1)).items()}
+
+
+def _pipeline_steps(step, state) -> dict:
+    """PP_STEPS steps of a pipeline step function (``step(state,
+    with_grads)``): each step's aux and seconds, the first step's gradients
+    of this rank's stage, a step's collectives and launches."""
+    _reset_counts()
+    out = {"aux": [], "seconds": []}
+    start = state
+    for i in range(PP_STEPS):
+        res, sec = _timed(lambda: step(state, i == 0))
+        state, aux = res[0], res[1]
+        out["seconds"].append(sec)
+        out["aux"].append({k: float(v) for k, v in aux.items()})
+        if i == 0:
+            out["grads"] = {k: v.cpu() for k, v in res[2].items()}
+            out.update(_counts())
+    if len(state) > 4:
+        out["disc_moved"] = max(float((state[4][k] - start[4][k]).abs().max()) for k in start[4])
+    return out
+
+
+def pipeline_parts(cfg, params, pp, device_name) -> dict:
+    """This rank's side of the pipeline on a ``pipe`` mesh of the whole
+    world: the retrieval (the output and its seconds), then PP_STEPS
+    fine-tune and full-training steps (``_pipeline_steps``) on ``pp``'s
+    batch, the adversarial term at ``pp``'s weight; each part's collectives
+    and launches."""
+    device = torch.device(device_name)
+    n = torch.distributed.get_world_size()
+    mesh = parallel.make_mesh(devices=[device_name] * n, axis_names=(parallel.PIPE_AXIS,))
+    physics, width = cfg.physics, cfg.model.width
+    inp = pipeline_inputs()
+    fn = parallel.make_pipeline_retrieval_fn(params, mesh, n_micro=PP_RETRIEVAL_MICRO, image_size=IMAGE,
+                                             physics=physics, width=width)
+    _reset_counts()
+    res, sec = _timed(lambda: fn(inp["holo"], inp["sm"], inp["ss"], PP_D_STYLE))
+    out = {"retrieval": {"out": {k: v.cpu() for k, v in res.items()}, "seconds": sec, "stages": fn.stages,
+                         **_counts()}}
+    batch = pp["batch"]
+    step, state = parallel.make_pipeline_finetune_fn(params, mesh, n_micro=PP_TRAIN_MICRO, image_size=IMAGE,
+                                                     physics=physics, lr=PP_LR, width=width)
+    out["finetune"] = _pipeline_steps(lambda st, g: step(st, batch, inp["sm"], inp["ss"], with_grads=g), state)
+    disc, disc_params = pipeline_disc(device)
+    train_cfg = dataclasses.replace(cfg.train, adv_weight=float(pp["adv_weight"]))
+    step, state = parallel.make_pipeline_train_fn(params, mesh, n_micro=PP_TRAIN_MICRO, image_size=IMAGE,
+                                                  physics=physics, cfg=train_cfg, lr=PP_LR, width=width,
+                                                  disc=disc, disc_params=disc_params)
+    out["train"] = _pipeline_steps(lambda st, g: step(st, batch, with_grads=g), state)
+    return out
+
+
 def parallel_rank(rank, cfg, params, bank, device_name, t_launch, want_path, go):
     """One rank of the phase's gloo world. Started before the phase (after
     ``conv_kernels``), it first pays a process's cold start off the clock of the
@@ -2597,6 +2773,7 @@ def parallel_rank(rank, cfg, params, bank, device_name, t_launch, want_path, go)
     t0 = time.time()
     seconds["released"] = t0 - t_launch
     want = torch.load(want_path, weights_only=True) if rank == 0 else None
+    pp = torch.load(os.path.join(os.path.dirname(want_path), "pp.pt"), weights_only=True)
     support = gloo_support(device)
     out = {"support": support, "partitions": {}, "seconds": seconds}
     for name, (axes, shape) in PARALLEL_PARTITIONS.items():
@@ -2613,6 +2790,19 @@ def parallel_rank(rank, cfg, params, bank, device_name, t_launch, want_path, go)
         res.pop("grads")
         res.pop("params")
         out["partitions"][name] = res
+    # the FOV-sharded refocus and the pipeline, each skipped (and named with
+    # gloo's error) where gloo refuses a collective it takes
+    parts = {"sharded_refocus": (("all_to_all",), lambda: check_sharded_refocus(
+                 parallel.make_mesh(devices=[device_name] * n), cfg.physics, device)),
+             "pipeline": (("ppermute", "broadcast"), lambda: pipeline_parts(cfg, params, pp, device_name))}
+    for name, (needs, run) in parts.items():
+        refused = {op: support[op] for op in needs if support[op] != "ok"}
+        if refused:
+            out[name] = {"skipped": refused}
+            continue
+        t = time.time()
+        out[name] = run()
+        seconds[name] = time.time() - t
     seconds["work"] = time.time() - t0
     return out
 
@@ -2643,8 +2833,9 @@ class ParallelWorld:
         except (RuntimeError, TimeoutError) as e:
             self.error = e
 
-    def release(self, want) -> None:
+    def release(self, want, pp) -> None:
         torch.save({k: want[k] for k in ("aux", "grads", "params")}, self.want_path)
+        torch.save(pp, os.path.join(self.tmp, "pp.pt"))
         self.go.set()
 
     def join(self):
@@ -2835,6 +3026,172 @@ def nccl_world_runs(cfg, bank, device) -> dict:
     return out
 
 
+def pipeline_batch(cfg, bank, device) -> dict:
+    """The pipeline's training batch (the stream's first at PP_TRAIN_BATCH,
+    with the ground truth) on the host, and the flagship's adversarial
+    weight: what ``ParallelWorld.release`` hands every rank."""
+    data = dataclasses.replace(cfg.data, batch_size=PP_TRAIN_BATCH)
+    batch = next(synth.InfiniteHologramSampler(bank, data, cfg.physics, return_gt=True, device=device))
+    return {"batch": {k: v.to("cpu", copy=True) for k, v in batch.items()}, "adv_weight": cfg.train.adv_weight}
+
+
+def finetune_objective(net, batch, style, physics, micro: int) -> dict:
+    """The fine-tune's objective (the supervised fields and 10 times the
+    content distance's MSE) on the whole batch, its forward taken in
+    ``micro`` microbatches (the pipeline's shapes: cuDNN picks its
+    algorithms, and so its summation orders, by shape), and its gradient."""
+    outs = [net.field_retrieval(c, *style, unknown_distance=True) for c in batch["content_holo"].chunk(micro)]
+    amp, ph, d = (torch.cat(x) for x in zip(*outs))
+    gt_amp, gt_ph = style_plane_target(batch["amplitude"], batch["phase_content"], batch["distance_style"], physics)
+    l_sup = torch.mean((amp - gt_amp) ** 2) + torch.mean((ph - gt_ph / physics.phase_normalize) ** 2)
+    l_d = distance_loss(d, batch["distance_content"])
+    loss = l_sup + 10.0 * l_d
+    names, tensors = zip(*net.named_parameters())
+    return {"aux": {"loss_supervised": float(l_sup.detach()), "loss_distance": float(l_d.detach()),
+                    "loss_total": float(loss.detach())},
+            "grads": dict(zip(names, torch.autograd.grad(loss, tensors)))}
+
+
+def pipeline_one_process(cfg, params, pp, device) -> dict:
+    """The one-process references of the pipeline's parts on the card:
+    ``retrieval_step`` with the torch refocus on ``pipeline_inputs``; the
+    fine-tune's objective and its gradient (``finetune_objective``, its
+    forward in the pipeline's microbatches and in one batch); the
+    flagship's generator loss with the adversarial term
+    (``pipeline_disc``) on the whole batch and its gradient."""
+    physics = cfg.physics
+    inp = pipeline_inputs()
+    net = StyleTransferNet(width=cfg.model.width).to(device)
+    net.load_state_dict(params)
+    out = {"retrieval": retrieval_step(net.eval(), inp["holo"], inp["sm"], inp["ss"], PP_D_STYLE, physics,
+                                       device=device, asm_backend="torch")}
+    batch = {k: v.to(device) for k, v in pp["batch"].items()}
+    style = [t.to(device) for t in split_style_vector(np.concatenate([inp["sm"], inp["ss"]]))]
+    out["finetune"] = finetune_objective(net, batch, style, physics, PP_TRAIN_MICRO)
+    out["finetune_whole_batch"] = finetune_objective(net, batch, style, physics, 1)
+    disc, disc_params = pipeline_disc(device)
+    train_cfg = dataclasses.replace(cfg.train, adv_weight=float(pp["adv_weight"]))
+    whole = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+    loss, aux = generator_loss_fn(whole, batch, net=StyleTransferNet(width=cfg.model.width).to(device),
+                                  physics=physics, cfg=train_cfg, disc=disc, disc_params=disc_params)
+    out["train"] = {"aux": {k: float(v.detach()) for k, v in aux.items() if k.startswith("loss_")},
+                    "grads": dict(zip(whole, torch.autograd.grad(loss, list(whole.values()))))}
+    return out
+
+
+def grad_shares(got: dict, want: dict) -> tuple:
+    """(the worst leaf's max |got - want| over its max |want|, in units of
+    PARALLEL_GRAD_TOL; that leaf)."""
+    shares = {k: float((got[k].to(w.device) - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+              / PARALLEL_GRAD_TOL for k, w in want.items()}
+    worst = max(shares, key=shares.get)
+    return shares[worst], worst
+
+
+def hold_pipeline_steps(got: dict, want: dict, label: str) -> dict:
+    """A pipeline's first step against the one-process objective: each loss
+    term within PARALLEL_LOSS_RTOL, the whole gradient (``got['grads']``,
+    the stages' joined) within PARALLEL_GRAD_TOL of each leaf's max."""
+    first = {k: v for k, v in got["aux"][0].items() if k != "loss_disc"}
+    if set(first) != set(want["aux"]):
+        _die(f"{label}: loss terms {sorted(first)}, the one-process objective's {sorted(want['aux'])}", 1)
+    aux_err = max(abs(first[k] - v) / max(abs(v), 1e-30) for k, v in want["aux"].items())
+    if set(got["grads"]) != set(want["grads"]):
+        _die(f"{label}: the stages' gradients do not cover the net", 1)
+    share, worst = grad_shares(got["grads"], want["grads"])
+    result = {"aux_rel_err": aux_err, "grad_worst_share_of_tol": share, "grad_worst_leaf": worst}
+    if not (aux_err < PARALLEL_LOSS_RTOL and share < 1.0):
+        _die(f"{label}: the first step is not the one-process step: {json.dumps(result)}", 1)
+    return result
+
+
+def hold_retrieval(out: dict, ref: dict, label: str) -> dict:
+    """A pipeline retrieval's outputs against ``retrieval_step``'s: the
+    fields, the distance and ``amp_foc`` by PP_RETRIEVAL_TOL (each key's max
+    |difference|), ``ph_foc`` by the serving mesh's rule (the zero-meaned
+    phase within SLICE_PHASE_TOL modulo 2 pi in SLICE_PHASE_FRACTION of
+    the pixels, ``compare_outputs``; its max |difference| beside it): on
+    seeded weights the refocused field is near zero at many pixels, where
+    its angle turns by 1e-2 rad for inputs 1e-10 apart (measured on the
+    card: 0.0106 rad, the fields 9e-11 apart)."""
+    if set(out) != set(ref):
+        _die(f"{label}: keys {sorted(out)}, retrieval_step's {sorted(ref)}", 1)
+    diffs = {k: float((out[k].to(ref[k].device) - ref[k]).abs().max()) for k in ref}
+    if not all(diffs[k] < tol for k, tol in PP_RETRIEVAL_TOL.items()):
+        _die(f"{label}: not retrieval_step's outputs: {json.dumps(diffs)}", 1)
+    phase = compare_outputs(out, ref, math.inf, math.inf, SLICE_PHASE_TOL, SLICE_PHASE_FRACTION, label)
+    return {"max_abs_diff": diffs, "ph_foc_frac_within_tol_mod_2pi": phase["ph_foc_frac_within_tol_mod_2pi"]}
+
+
+def hold_sharded_refocus(rows: list, label: str) -> dict:
+    """Every rank's ``check_sharded_refocus`` within SHARDED_FFT_TOL."""
+    worst = {case: max(r[case]["rel_err"] for r in rows) for case in PP_FIELD_CASES}
+    if not all(e < SHARDED_FFT_TOL for e in worst.values()):
+        _die(f"{label}: the sharded refocus is not the one-device refocus: {json.dumps(worst)}", 1)
+    return {"rel_err": worst, "by_rank": rows}
+
+
+def hold_gloo_pipeline(ranks, refs) -> dict:
+    """The gloo world's sharded refocus and pipeline parts, each held (a
+    part gloo refused is named with its error)."""
+    out = {}
+    if "skipped" in ranks[0]["sharded_refocus"]:
+        out["sharded_refocus"] = ranks[0]["sharded_refocus"]
+    else:
+        out["sharded_refocus"] = hold_sharded_refocus([r["sharded_refocus"] for r in ranks],
+                                                      "gloo world sharded refocus")
+    if "skipped" in ranks[0]["pipeline"]:
+        out["pipeline"] = ranks[0]["pipeline"]
+        return out
+    parts = [r["pipeline"] for r in ranks]
+    rows = {"stages": parts[0]["retrieval"]["stages"],
+            "retrieval": {"vs_one_process_by_rank": [hold_retrieval(p["retrieval"]["out"], refs["retrieval"],
+                                                                    f"gloo pipeline retrieval rank {i}")
+                                                     for i, p in enumerate(parts)],
+                          **{k: [p["retrieval"][k] for p in parts] for k in ("seconds", "calls", "bytes",
+                                                                             "launches")}}}
+    for name in ("finetune", "train"):
+        joined = {"aux": parts[0][name]["aux"], "grads": {k: v for p in parts for k, v in p[name]["grads"].items()}}
+        rows[name] = {**hold_pipeline_steps(joined, refs[name], f"gloo pipeline {name}"),
+                      "aux_by_step": parts[0][name]["aux"],
+                      **{k: [p[name].get(k) for p in parts] for k in ("seconds", "calls", "bytes", "launches",
+                                                                      "disc_moved")}}
+    # not held: the one-process gradient on one batch of PP_TRAIN_BATCH (its
+    # distance from the microbatched one is the partition's rounding)
+    ft_grads = {k: v for p in parts for k, v in p["finetune"]["grads"].items()}
+    rows["finetune"]["whole_batch_grad_share"] = grad_shares(ft_grads, refs["finetune_whole_batch"]["grads"])
+    rows["finetune"]["partition_grad_share"] = grad_shares(refs["finetune"]["grads"],
+                                                           refs["finetune_whole_batch"]["grads"])
+    if not all(m > 0.0 for m in rows["train"]["disc_moved"]):
+        _die(f"gloo pipeline train: a rank's discriminator did not move: {rows['train']['disc_moved']}", 1)
+    out["pipeline"] = rows
+    return out
+
+
+def nccl_world_pipeline(cfg, params, refs, device) -> dict:
+    """The 1-rank nccl world on a (data 1, pipe 1) mesh in this process:
+    the 1-shard sharded refocus and the 1-stage pipeline retrieval, held as
+    the gloo world's."""
+    mesh = parallel.make_mesh(axis_names=(parallel.DATA_AXIS, parallel.PIPE_AXIS), shape=(1, 1))
+    parallel.init_world(mesh, 0, timeout=PARALLEL_TIMEOUT_S)
+    try:
+        backend = torch.distributed.get_backend()
+        fft = check_sharded_refocus(mesh, cfg.physics, device)
+        inp = pipeline_inputs()
+        fn = parallel.make_pipeline_retrieval_fn(params, mesh, n_micro=PP_RETRIEVAL_MICRO, image_size=IMAGE,
+                                                 physics=cfg.physics, width=cfg.model.width)
+        _reset_counts()
+        res, sec = _timed(lambda: fn(inp["holo"], inp["sm"], inp["ss"], PP_D_STYLE))
+        counts = _counts()
+    finally:
+        parallel.close_world()
+    if backend != "nccl":
+        _die(f"nccl world pipeline: the world's backend is {backend}", 1)
+    return {"backend": backend, "sharded_refocus": hold_sharded_refocus([fft], "nccl world sharded refocus"),
+            "retrieval": {"vs_one_process": hold_retrieval(res, refs["retrieval"], "nccl pipeline retrieval"),
+                          "seconds": sec, **counts}}
+
+
 def parallel_inputs(cfg):
     """(the gloo world's config, the params): the flagship's at
     PARALLEL_BATCH without the adversarial term, init_net_params seed 0."""
@@ -2853,8 +3210,9 @@ def drive_parallel(cfg, bank, world, fast_net, fast_cfg, fast_style, goldens, de
     # The 2-rank gloo world on cuda:0 against the one-process steps.
     plain, params = parallel_inputs(cfg)
     want = parallel_step_pair(plain, params, bank, dev)
+    pp = pipeline_batch(cfg, bank, dev)
     t0 = time.time()
-    world.release(want)
+    world.release(want, pp)
     ranks = world.join()
     mesh = world.mesh
     gloo = {"backend": parallel.default_backend(mesh), "released_to_joined_seconds": time.time() - t0,
@@ -2874,6 +3232,13 @@ def drive_parallel(cfg, bank, world, fast_net, fast_cfg, fast_style, goldens, de
                 _die(f"gloo world {name} rank {r}: launched {launches}", 1)
         gloo["partitions"][name] = row
     info["gloo_2_ranks_cuda0"] = gloo
+
+    # The sharded refocus and the pipeline against their one-process references.
+    t0 = time.time()
+    refs = pipeline_one_process(cfg, params, pp, dev)
+    info["one_process_references_seconds"] = time.time() - t0
+    info["pipeline_gloo_2_ranks_cuda0"] = hold_gloo_pipeline(ranks, refs)
+    info["pipeline_nccl_1_rank"] = nccl_world_pipeline(cfg, params, refs, dev)
 
     # A serving mesh of two positions on cuda:0.
     holo = goldens.content_holo.reshape(-1, 1, IMAGE, IMAGE)[50:50 + PARALLEL_SERVE_BATCH]
@@ -2904,6 +3269,13 @@ def drive_parallel(cfg, bank, world, fast_net, fast_cfg, fast_style, goldens, de
         + sum(lr["asm_dynamic"] for p in ran for lr in p["launches_by_rank"]),
         "border_lines": sum(lr["border_lines"] for p in ran for lr in p["launches_by_rank"]),
     }
+    # the refocus and the pipeline mirror the JAX package's "xla" choices:
+    # torch.fft and matpad convs, no kernel (0 expected, counted all the same)
+    rank_parts = [r[part] for r in ranks for part in ("sharded_refocus", "pipeline") if "skipped" not in r[part]]
+    nccl = info["pipeline_nccl_1_rank"]
+    counted = [v["launches"] for p in rank_parts for v in p.values() if isinstance(v, dict) and "launches" in v]
+    counted += [nccl["retrieval"]["launches"]] + [c["launches"] for c in nccl["sharded_refocus"]["by_rank"][0].values()]
+    info["pipeline_launches"] = {k: sum(c[k] for c in counted) for k in ("asm_const", "asm_dynamic", "border_lines")}
     return info
 
 
@@ -3809,7 +4181,8 @@ def main() -> int:
                                  "synth_bench": commands_info["synth_bench"]["launches"][k],
                                  "sweep": commands_info["sweep"]["launches"][k],
                                  "train": train_run["launches"][k],
-                                 "parallel": parallel_info["launches"][k]},
+                                 "parallel": parallel_info["launches"][k],
+                                 "pipeline_and_sharded_refocus": parallel_info["pipeline_launches"][k]},
             **({"refine_step_ms": refine_timing["step_ms"],
                 "refine_step_ms_torch_backend": refine_timing["torch_backend_step_ms"],
                 "refine_forward_share": refine_timing["forward_kernel_share"]}
@@ -3837,6 +4210,8 @@ def main() -> int:
                          "train_bf16_worst_bf16_ulps": train_mixed["bf16_card_vs_cpu"]["ring_worst_bf16_ulps"],
                          "launches_by_path": {"reflect": launches["border_lines"],
                                               "parallel": parallel_info["launches"]["border_lines"],
+                                              "pipeline_and_sharded_refocus":
+                                                  parallel_info["pipeline_launches"]["border_lines"],
                                               "train_step_cuda_ring": train_ring["launches"],
                                               "train_bf16_step_cuda_ring": remat_launches["plain"],
                                               "train_bf16_remat_step_cuda_ring": remat_launches["remat"]},

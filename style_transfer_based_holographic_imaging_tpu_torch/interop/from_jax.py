@@ -26,6 +26,12 @@ mixed-precision run (``ModelConfig.dtype`` bfloat16) keeps its params, Adam
 moments and EMA in fp32 in both packages: its state converts the same way,
 and resumes under the port's bf16 ``TrainStep``.
 
+``convert_pipeline_state`` splits the JAX package's pipeline state (the
+``(S, Pmax)`` packed parameters and Adam moments of ``parallel/pp.py``'s
+fine-tune and training steps) into one state a stage, in the port's layout,
+so that a JAX pipeline run resumes in the port's pipeline; its inverse
+``pipeline_state_to_jax`` packs the stages' states back, bit for bit.
+
 ``load_release_weights`` reads a release's state dict back from the numpy
 file that ``scripts/port_golden_eval.py --export-npz`` writes (one fp32
 array per state-dict key), where orbax cannot run: on the card machine,
@@ -39,7 +45,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["convert_params", "convert_train_state", "load_release_weights", "load_style_vector"]
+__all__ = ["convert_params", "convert_train_state", "convert_pipeline_state", "pipeline_state_to_jax",
+           "load_release_weights", "load_style_vector"]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -69,6 +76,69 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.nda
     else:
         raise ValueError(f"kernel {'/'.join(path)} has unexpected shape {value.shape}")
     return ".".join(modules + ["weight"]), out
+
+
+def _jax_leaf(path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    """The inverse of ``_convert_leaf``'s layout change: a port tensor of
+    the JAX leaf ``path`` back in the JAX package's layout."""
+    *modules, leaf = path
+    if leaf == "kernel" and value.ndim == 4 and not modules[-1].startswith("up"):
+        return np.transpose(value, (2, 3, 1, 0))     # OIHW -> HWIO
+    if leaf == "kernel" and value.ndim == 2:
+        return value.T
+    return value
+
+
+def convert_pipeline_state(packed, m, v, t, *, image_size: int, width: float, n_stages: int,
+                           with_phase_decoder: bool = False):
+    """A JAX pipeline state ``(packed, m, v, t)`` (``make_pipeline_finetune_fn``'s
+    ``state0`` and steps, the first four fields of ``make_pipeline_train_fn``'s;
+    numpy leaves) -> one ``(params, m, v, t)`` a stage, the port's
+    pipeline state of that stage's rank: fp32 tensors on the CPU by state
+    dict name, and ``t`` a 0-dim fp32 tensor. The stages are read by the
+    offsets the JAX package packs them with (``parallel.pp.stage_leaves``)."""
+    from style_transfer_based_holographic_imaging_tpu_torch.parallel.pp import stage_leaves
+
+    arrays = [np.asarray(a, dtype=np.float32) for a in (packed, m, v)]
+    if any(a.ndim != 2 or a.shape[0] != n_stages for a in arrays):
+        raise ValueError(f"a {n_stages}-stage state needs (S, Pmax) arrays, got "
+                         f"{[a.shape for a in arrays]}")
+    out = []
+    for s, leaves in enumerate(stage_leaves(image_size, width, n_stages, with_phase_decoder)):
+        trees = []
+        for a in arrays:
+            tree, pos = {}, 0
+            for path, shape in leaves:
+                n = int(np.prod(shape))
+                name, val = _convert_leaf(path, a[s, pos:pos + n].reshape(shape))
+                tree[name] = torch.tensor(np.ascontiguousarray(val))
+                pos += n
+            trees.append(tree)
+        out.append((*trees, torch.tensor(np.float32(np.asarray(t)))))
+    return out
+
+
+def pipeline_state_to_jax(states, *, image_size: int, width: float, n_stages: int,
+                          with_phase_decoder: bool = False):
+    """The inverse of ``convert_pipeline_state``: the stages' ``(params, m,
+    v, t)`` (in stage order) -> the JAX package's ``(packed, m, v, t)`` numpy
+    arrays, each stage's leaves at their offsets, zero beyond them."""
+    from style_transfer_based_holographic_imaging_tpu_torch.parallel.pp import stage_leaves
+
+    layout = stage_leaves(image_size, width, n_stages, with_phase_decoder)
+    if len(states) != n_stages:
+        raise ValueError(f"{len(states)} stage states for {n_stages} stages")
+    sizes = [max(sum(int(np.prod(shape)) for _, shape in leaves), 1) for leaves in layout]
+    packed = [np.zeros((n_stages, max(sizes)), np.float32) for _ in range(3)]
+    for s, (leaves, state) in enumerate(zip(layout, states)):
+        for arr, tree in zip(packed, state[:3]):
+            pos = 0
+            for path, shape in leaves:
+                name, _ = _convert_leaf(path, np.zeros(shape, np.float32))
+                val = _jax_leaf(path, tree[name].detach().cpu().numpy())
+                arr[s, pos:pos + val.size] = val.reshape(-1)
+                pos += val.size
+    return (*packed, np.float32(np.asarray(states[0][3].detach().cpu())))
 
 
 def convert_params(tree: Mapping) -> Dict[str, torch.Tensor]:

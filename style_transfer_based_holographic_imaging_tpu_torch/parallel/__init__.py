@@ -1,7 +1,7 @@
 """The mesh layer (port of the JAX package's ``parallel/``): the device mesh
-and its process world, batch data parallelism, ZeRO-1/FSDP and channel
-tensor parallelism. The FOV-sharded refocus (``fft_sharding``) and the GPipe
-pipeline (``pp``) are not ported yet."""
+and its process world, batch data parallelism, ZeRO-1/FSDP, channel tensor
+parallelism, the FOV-sharded refocus (``fft_sharding``) and the GPipe
+pipeline (``pp``)."""
 
 from style_transfer_based_holographic_imaging_tpu_torch.parallel.mesh import (
     COLLECTIVE_TIMEOUT_S,
@@ -18,6 +18,17 @@ from style_transfer_based_holographic_imaging_tpu_torch.parallel.mesh import (
     make_mesh,
     replicated,
     shard_batch,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.parallel.fft_sharding import (
+    fov_sharding,
+    sharded_propagate,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.parallel.pp import (
+    PIPE_AXIS,
+    make_pipeline_finetune_fn,
+    make_pipeline_retrieval_fn,
+    make_pipeline_train_fn,
+    pipeline_plan,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.parallel.tp import (
     MODEL_AXIS,
@@ -55,6 +66,13 @@ __all__ = [
     "tp_shard_params",
     "tp_state_shardings",
     "column_parallel",
+    "PIPE_AXIS",
+    "make_pipeline_finetune_fn",
+    "make_pipeline_retrieval_fn",
+    "make_pipeline_train_fn",
+    "pipeline_plan",
+    "sharded_propagate",
+    "fov_sharding",
     "zero_state_shardings",
     "merge_state_shardings",
     "partition_state_shardings",

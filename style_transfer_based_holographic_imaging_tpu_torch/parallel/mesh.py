@@ -22,7 +22,16 @@ a process of a ``torch.distributed`` world:
   does the same for the calling process alone (a 1-rank world).
 * ``Mesh.groups()`` makes one process group per axis (the ranks that differ
   only along it); ``all_reduce``, ``all_gather`` and ``reduce_scatter`` run
-  over one of them along one dim of a tensor.
+  over one of them along one dim of a tensor. ``all_to_all`` (the tiled
+  ``lax.all_to_all``), ``ppermute`` (``lax.ppermute``) and ``exchange_rows``
+  (each rank's rows of a dim from the ranks that hold them) differentiate:
+  each is a ``torch.autograd.Function`` whose backward is its transpose.
+  All three ride ``all_to_all_single`` with per-peer split sizes, which
+  ``gloo`` carries on CPU and CUDA tensors alike and ``nccl`` on the card
+  (``gloo`` aborts the process on a CUDA tensor's ``send``/``recv``);
+  complex tensors travel as their real view. ``COLLECTIVE_CALLS`` and
+  ``COLLECTIVE_BYTES`` count each one's calls (backward included) and the
+  bytes this rank sends to the others.
 
 Single-device work needs no mesh: entry points take ``mesh=None`` for it.
 """
@@ -64,6 +73,12 @@ __all__ = [
     "all_reduce",
     "all_gather",
     "reduce_scatter",
+    "all_to_all",
+    "ppermute",
+    "exchange_rows",
+    "COLLECTIVE_CALLS",
+    "COLLECTIVE_BYTES",
+    "reset_collective_counts",
 ]
 
 DATA_AXIS = "data"
@@ -473,3 +488,196 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=x.dtype, device=x.device)
     _REDUCE_SCATTER(out, src, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim)
+
+
+#: Calls of the differentiable collectives in this process (forward and
+#: backward each count), and the bytes each sent to the other ranks.
+COLLECTIVE_CALLS = {"all_to_all": 0, "ppermute": 0, "exchange_rows": 0}
+COLLECTIVE_BYTES = {"all_to_all": 0, "ppermute": 0, "exchange_rows": 0}
+
+
+def reset_collective_counts() -> None:
+    for d in (COLLECTIVE_CALLS, COLLECTIVE_BYTES):
+        for k in d:
+            d[k] = 0
+
+
+def _exchange(name: str, x: torch.Tensor, send: Sequence[int], recv: Sequence[int], group) -> torch.Tensor:
+    """``all_to_all_single`` of the flat float buffer ``x``: ``send[j]``
+    elements (in order) to group rank ``j``, ``recv[j]`` from it. Returns
+    the received elements, in group-rank order."""
+    me = dist.get_rank(group)
+    out = torch.empty(sum(recv), dtype=x.dtype, device=x.device)
+    dist.all_to_all_single(out, x.contiguous(), output_split_sizes=list(recv),
+                           input_split_sizes=list(send), group=group)
+    COLLECTIVE_CALLS[name] += 1
+    COLLECTIVE_BYTES[name] += (sum(send) - send[me]) * x.element_size()
+    return out
+
+
+def _real(x: torch.Tensor) -> torch.Tensor:
+    """A complex tensor's real view (a trailing dim of 2), else ``x``."""
+    return torch.view_as_real(x.contiguous()) if x.is_complex() else x
+
+
+def _as(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``y`` (a real view's layout) back in ``like``'s complex dtype."""
+    return torch.view_as_complex(y.contiguous()) if like.is_complex() else y
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    split_dim, concat_dim = split_dim % x.ndim, concat_dim % x.ndim
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not split over {n} ranks")
+    r = _real(x)
+    chunks = torch.stack(r.chunk(n, split_dim))           # (n, ...chunk): chunk j to rank j
+    each = chunks[0].numel()
+    got = _exchange("all_to_all", chunks.reshape(-1), [each] * n, [each] * n, group)
+    parts = got.view((n,) + tuple(chunks.shape[1:])).unbind(0)
+    return _as(torch.cat(parts, dim=concat_dim), x)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim % x.ndim, concat_dim % x.ndim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    """The tiled ``lax.all_to_all``: ``x`` cut into N equal chunks along
+    ``split_dim``, chunk j sent to group rank j, and the chunks received
+    joined along ``concat_dim`` in rank order. Its backward is the same
+    exchange with the two dims swapped."""
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+def _ppermute(x: torch.Tensor, perm, group, recv_shape) -> torch.Tensor:
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    dst = dict(perm)
+    src = {d: s for s, d in perm}
+    flat = _real(x).reshape(-1)
+    size = int(np.prod(recv_shape)) * (2 if x.is_complex() else 1)
+    send, recv = [0] * n, [0] * n
+    if me in dst:
+        send[dst[me]] = flat.numel()
+    if me in src:
+        recv[src[me]] = size
+    got = _exchange("ppermute", flat if me in dst else flat[:0], send, recv, group)
+    if me not in src:
+        return torch.zeros(tuple(recv_shape), dtype=x.dtype, device=x.device)
+    shape = tuple(recv_shape) + ((2,) if x.is_complex() else ())
+    return _as(got.view(shape), x)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group, recv_shape):
+        ctx.perm, ctx.group, ctx.shape = perm, group, tuple(x.shape)
+        return _ppermute(x, perm, group, recv_shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _ppermute(g, inverse, ctx.group, ctx.shape), None, None, None
+
+
+def ppermute(x: torch.Tensor, perm, group, recv_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``lax.ppermute``: ``perm`` is a sequence of (source, destination)
+    group ranks, each rank the source and the destination of at most one
+    pair; each source's whole ``x`` goes to its destination, and a rank that
+    no pair reaches gets zeros. ``recv_shape`` (default ``x.shape``) is the
+    shape this rank receives: a rank may send and receive buffers of other
+    sizes, an empty one too (a pipeline's bubble). Its backward is the
+    inverse permutation. On the wire the whole buffer goes to one peer and
+    zero elements to every other rank, every rank taking part in the call."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    return _PPermute.apply(x, perm, group, tuple(x.shape) if recv_shape is None else tuple(recv_shape))
+
+
+def _exchange_rows(x: torch.Tensor, dim: int, held, wanted, group) -> torch.Tensor:
+    """``x`` holds rows ``held[me]`` (a half-open range) of a global tensor
+    along ``dim``; returns rows ``wanted[me]``, each from the rank that
+    holds it. The ``held`` ranges are disjoint."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    r = _real(x).movedim(dim, 0)
+    row = int(np.prod(r.shape[1:]))
+    lo, hi = held[me]
+    parts, send, recv = [], [0] * n, [0] * n
+    for j in range(n):
+        a, b = max(lo, wanted[j][0]), min(hi, wanted[j][1])
+        if a < b:
+            parts.append(r[a - lo : b - lo].reshape(-1))
+            send[j] = (b - a) * row
+        a, b = max(held[j][0], wanted[me][0]), min(held[j][1], wanted[me][1])
+        recv[j] = max(b - a, 0) * row
+    flat = torch.cat(parts) if parts else r.reshape(-1)[:0]
+    got = _exchange("exchange_rows", flat, send, recv, group)
+    # got holds the pieces in group-rank order; ordered by the rows their
+    # (disjoint) sources hold, they are the rows of wanted[me] in order
+    starts = np.concatenate([[0], np.cumsum(recv)])
+    order = sorted((j for j in range(n) if recv[j]), key=lambda j: held[j][0])
+    rows = torch.cat([got[starts[j] : starts[j + 1]] for j in order]) if order else got
+    shape = (wanted[me][1] - wanted[me][0],) + tuple(r.shape[1:])
+    return _as(rows.view(shape).movedim(0, dim), x)
+
+
+class _ExchangeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, held, wanted, group):
+        dim = dim % x.ndim      # a dim of x, before a complex x's real view
+        ctx.args, ctx.shape = (dim, held, wanted, group), tuple(x.shape)
+        return _exchange_rows(x, dim, held, wanted, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, held, wanted, group = ctx.args
+        return _rows_transpose(g, dim, held, wanted, group, ctx.shape), None, None, None, None
+
+
+def _rows_transpose(g, dim, held, wanted, group, shape):
+    """The transpose of ``_exchange_rows``: each rank sends back the
+    gradient of the rows it received, one piece a source, and a source sums
+    the pieces of a row that went to several ranks."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    out = torch.zeros(shape, dtype=g.dtype, device=g.device)
+    gr = _real(g).movedim(dim, 0)
+    o = _real(out).movedim(dim, 0)
+    row = int(np.prod(gr.shape[1:]))
+    wlo, lo = wanted[me][0], held[me][0]
+    parts, send, recv, spans = [], [0] * n, [0] * n, []
+    for j in range(n):
+        a, b = max(held[j][0], wanted[me][0]), min(held[j][1], wanted[me][1])
+        if a < b:
+            parts.append(gr[a - wlo : b - wlo].reshape(-1))
+            send[j] = (b - a) * row
+        a, b = max(lo, wanted[j][0]), min(held[me][1], wanted[j][1])
+        recv[j] = max(b - a, 0) * row
+        spans.append((a, b))
+    flat = torch.cat(parts) if parts else gr.reshape(-1)[:0]
+    got = _exchange("exchange_rows", flat, send, recv, group)
+    pos = 0
+    for j in range(n):
+        if recv[j]:
+            a, b = spans[j]
+            o[a - lo : b - lo] += got[pos : pos + recv[j]].view((b - a,) + tuple(o.shape[1:]))
+            pos += recv[j]
+    return out
+
+
+def exchange_rows(x: torch.Tensor, dim: int, held, wanted, group) -> torch.Tensor:
+    """Each group rank's rows ``wanted[rank]`` (half-open ranges along
+    ``dim`` of a global tensor) from the ranks that hold them: this rank's
+    ``x`` is rows ``held[rank]`` of it, the ``held`` ranges disjoint; the
+    ``wanted`` ranges may overlap (a row sent to several ranks). Its
+    backward sends each received row's gradient back to its holder, which
+    sums them."""
+    held = tuple((int(a), int(b)) for a, b in held)
+    wanted = tuple((int(a), int(b)) for a, b in wanted)
+    return _ExchangeRows.apply(x, dim, held, wanted, group)

@@ -604,12 +604,17 @@ def test_cli_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
             "--checkpoint-dir", str(ckpt), "--log-every", "1", "--checkpoint-every", "0",
             "--ema-decay", "0.999", "--train-encoder", "--rotate-deg", "20",
             "--elastic-px", "2.5", "--reflect-backend", "einsum"]
-    assert cli.main(argv) == 0
-    out = capsys.readouterr().out
-    assert "step 1 |" in out and "final checkpoint:" in out
-    assert latest_snapshot(str(ckpt)).endswith("iter_1")
-    # --resume continues the stream and the schedule from the snapshot
-    assert cli.main(argv[:2] + ["--iterations", "2"] + argv[4:] + ["--resume"]) == 0
+    # --reflect-backend sets the process-wide border backend: restore it, or
+    # every later test in this process runs its convs on the einsum border
+    try:
+        assert cli.main(argv) == 0
+        out = capsys.readouterr().out
+        assert "step 1 |" in out and "final checkpoint:" in out
+        assert latest_snapshot(str(ckpt)).endswith("iter_1")
+        # --resume continues the stream and the schedule from the snapshot
+        assert cli.main(argv[:2] + ["--iterations", "2"] + argv[4:] + ["--resume"]) == 0
+    finally:
+        set_reflect_backend("auto")
     assert "resumed from iter_1 (step 1)" in capsys.readouterr().err
     assert latest_snapshot(str(ckpt)).endswith("iter_2")
     rows = [json.loads(line) for line in open(ckpt / "train_metrics.jsonl")]
