@@ -137,11 +137,12 @@ line naming it and ends the run with exit code 3; nothing hangs):
 14. ``mat``    — the committed measured RBC tree
    (``tests/fixtures/rbc_mat_tree``) through the CLI: ``train --mat-root
    --domain red_blood_cell`` for 2 steps at 64^2 (the supervised term
-   forced off), ``extract-style --mat-root`` and ``eval --mat-root`` from its
-   snapshot, ``stream --root``; the same snapshot's ``evaluate_mat_tree``
-   and style vector on the CPU: each batch's PSNR within 0.005 dB (the
-   golden phase's fp32 limit) and each distance within 0.05 µm, the style
-   vector within 1e-4 of max. The domain's band limit keeps every kernel off this path.
+   forced off), ``extract-style --mat-root --pt-out`` (the reference's
+   ``.pt`` read back equal to the ``.npz``'s mean and std bit for bit) and
+   ``eval --mat-root`` from its snapshot, ``stream --root``; the same
+   snapshot's ``evaluate_mat_tree`` and style vector on the CPU: each
+   batch's PSNR within 0.005 dB (the golden phase's fp32 limit) and each
+   distance within 0.05 µm, the style vector within 1e-4 of max. The domain's band limit keeps every kernel off this path.
 15. ``domain`` — ``evaluate_synth_domain`` on the seeded width-1.0 net, one
    batch of 32 of the rbc and bead streams (the records' protocol: the JAX
    package's ``jax.random`` stream, seed 7777, bank seed 7919), card against
@@ -206,7 +207,8 @@ line naming it and ends the run with exit code 3; nothing hangs):
 18. ``commands`` — ``cli synth-bench`` at batch 256 (its line, 51
    ``asm_dynamic`` launches); ``cli sweep`` on ``fast`` (3 ``asm_dynamic``
    launches), its functions card against CPU and its montage against the
-   CPU's; ``cli doctor`` lists the card; ``stylize`` card against CPU.
+   CPU's; ``cli doctor`` lists the card and reports ``transport_ready`` not
+   applicable; ``stylize`` card against CPU.
 
 19. ``parallel`` — (after ``train``, before ``timing``) the mesh layer
    (``parallel/``): a 1-rank ``nccl`` world in this process
@@ -242,6 +244,25 @@ line naming it and ends the run with exit code 3; nothing hangs):
    the 1-stage retrieval; and a 2-position serving mesh on
    ``cuda:0`` (``RetrievalService(mesh=...)``, ``fast`` in fp32, batch 32)
    against one device, one ``asm_const`` a chunk.
+20. ``ablations`` — (after ``parallel``, before ``timing``) the last
+   modules of the port: (a) ``TrivialSolutionNet`` (width 1.0, weights from
+   ``torch.Generator`` seed 0) on golden batch 10 tiled to B = 32 with the
+   reflect backend ``cuda``, the ring's launches counted from 0 just before
+   and read just after (exactly 20 a forward, one a reflect conv), against
+   the same forward with ``matpad`` and, on the batch of 5, against the
+   port on the CPU, both by the slice phase's rules; (b) ``HoloAutoEncoder()``
+   at its full widths (64..1024) at B = 8, instance norm with skips (at
+   B = 1 against the CPU within 1e-4 of max), group norm, batch norm in
+   train mode (its running averages move) and without skips; (c) the
+   refocused phase of (a)'s outputs unwrapped on the card by the matmul DCT
+   in ``highest`` and ``high`` and by the fft DCT, each congruent to its
+   input and, snapped, equal to ``highest``'s in 99.9 % of the pixels; the
+   fft and the matmul DCT, and the card and the CPU, within 1e-4 of max
+   before the snap (``high``'s distance printed); ``unwrap_phase_native`` on
+   the host beside them, printed; (d) the
+   reference's checkpoint files written at full width from seeded tensors
+   (its stem RGB) through ``load_reference_checkpoint`` and
+   ``retrieval_step`` on golden batch 10, on the card against the CPU.
 
 Then the ``nvidia-smi`` line, one JSON line listing every kernel, and the
 final JSON line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -342,8 +363,10 @@ from style_transfer_based_holographic_imaging_tpu_torch.data.mat_sampler import 
     MeasuredHologramSampler,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.interop import (  # noqa: E402
+    load_reference_checkpoint,
     load_release_weights,
     load_style_vector,
+    load_style_vector_pt,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.eval import psnr, zero_mean  # noqa: E402
 
@@ -357,6 +380,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.kernels import (  # noqa
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models import (  # noqa: E402
     ConvTranspose2x2,
+    HoloAutoEncoder,
     PatchDiscriminator,
     ReflectConv,
     StyleTransferNet,
@@ -364,9 +388,16 @@ from style_transfer_based_holographic_imaging_tpu_torch.models import (  # noqa:
     init_params,
     set_reflect_backend,
     split_style_vector,
+    TrivialSolutionNet,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.models import layers, quant  # noqa: E402
-from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward, unwrap_phase  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch.ops import (  # noqa: E402
+    holo_forward,
+    set_dct_backend,
+    set_dct_precision,
+    unwrap_phase,
+    unwrap_phase_native,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import propagate, propagate_torch  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # noqa: E402
     adain_with_stats,
@@ -442,7 +473,7 @@ BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
     "conv_kernels": 90.0, "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
     "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "export": 45.0, "commands": 30.0,
-    "train": 90.0, "parallel": 45.0, "timing": 120.0,
+    "train": 90.0, "parallel": 45.0, "ablations": 20.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
 # (B, H, W) where the ASM kernels' tensor-core tiles are ragged: the card
@@ -794,6 +825,41 @@ PP_TRAIN_BATCH, PP_TRAIN_MICRO, PP_STEPS = 4, 2, 2
 PP_LR = 1e-4
 PP_D_STYLE = 0.2
 PP_RETRIEVAL_TOL = {"amp_field": 1e-5, "ph_field": 1e-5, "distance_pred": 1e-5, "amp_foc": 1e-5}
+# The ablations phase (models/ablations.py, the DCT switches, the native
+# unwrap, the reference's checkpoints): TrivialSolutionNet at its one width
+# on golden batch ABLATION_GOLDEN tiled to ABLATION_BATCH, the border ring
+# launched once a reflect conv (REFLECT_CONVS) with the cuda backend, the
+# cuda and matpad forwards and the card against the CPU held by the slice
+# phase's SLICE_* rules (compare_ablation); HoloAutoEncoder at its full
+# widths on the card at ABLATION_AE_BATCH, its instance-norm forward at B = 1
+# against the CPU within ABLATION_AE_TOL of max (cuDNN fp32, TF32 off); the
+# unwraps of the refocused phase of the golden batch's outputs: the fft and
+# the matmul DCT, and the card and the CPU, within UNWRAP_TOL of max before
+# the snap; every run's snapped phase equal to the matmul's in highest in
+# SLICE_PHASE_FRACTION of the pixels (a pixel whose least-squares value sits
+# at a half cycle may snap either way). high's error before the snap is
+# printed, not bounded: the seeded net's phase is noise-like, and the Poisson
+# solve amplifies the three bf16 products' rounding in its lowest modes
+# (1.06e-4 of max on the card, 5.8e-5 on the CPU's slightly other input); the
+# snap absorbs it, which is what high is for. The reference's checkpoint
+# files at full width from Generator seed REFERENCE_SEED through
+# retrieval_step, card against CPU by compare_outputs.
+ABLATION_GOLDEN = 10
+ABLATION_BATCH = 32
+ABLATION_AE_BATCH = 8
+ABLATION_AE_TOL = 1e-4
+UNWRAP_TOL = 1e-4
+REFERENCE_SEED = 1
+# The reference's `net.vgg` up to relu4_1 (its stem RGB) and `net.decoder`
+# as (Sequential index, C_out, C_in, k), the transposed convs (C_in, C_out,
+# 2, 2); the distance MLP's Linear layers (out, in).
+REFERENCE_VGG = ((0, 3, 3, 1), (2, 64, 3, 3), (5, 64, 64, 3), (9, 128, 64, 3), (12, 128, 128, 3),
+                 (16, 256, 128, 3), (19, 256, 256, 3), (22, 256, 256, 3), (25, 256, 256, 3), (29, 512, 256, 3))
+REFERENCE_DECODER = ((1, 512, 512, 3), (4, 256, 512, 3), (6, 256, 256, 2), (9, 256, 256, 3), (12, 256, 256, 3),
+                     (15, 256, 256, 3), (18, 128, 256, 3), (20, 128, 128, 2), (23, 128, 128, 3),
+                     (26, 64, 128, 3), (28, 64, 64, 2), (31, 64, 64, 3), (34, 64, 64, 3), (37, 2, 64, 3))
+REFERENCE_TRANSPOSED = (6, 20, 28)
+REFERENCE_DISTANCE = {"l1": (1024, 1024), "l2": (1024, 1024), "l3": (512, 1024), "out": (1, 512)}
 # Peaks by card (NVIDIA data sheets, dense): fp32 FLOP/s outside the tensor
 # cores, bf16 FLOP/s on the tensor cores, bytes/s.
 PEAKS = {
@@ -891,13 +957,14 @@ def seeded_weights_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
     orbax files that this machine cannot read."""
     g = torch.Generator().manual_seed(seed)
     for module in net.modules():
-        if not isinstance(module, (torch.nn.Conv2d, torch.nn.Linear, ConvTranspose2x2)):
+        if not isinstance(module, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Linear, ConvTranspose2x2)):
             continue
         w = module.weight
         # a transposed conv's output sums C_in taps; the others sum a row of w
         fan_in = w.shape[0] if isinstance(module, ConvTranspose2x2) else w[0].numel()
         w.copy_(torch.randn(w.shape, generator=g) * (2.0 / fan_in) ** 0.5)
-        module.bias.copy_(0.01 * torch.randn(module.bias.shape, generator=g))
+        if module.bias is not None:
+            module.bias.copy_(0.01 * torch.randn(module.bias.shape, generator=g))
     return net
 
 
@@ -3370,13 +3437,14 @@ def drive_mat(dev):
     """The mat phase (see the module docstring); returns its readings."""
     tree = ["--mat-root", MAT_TREE, "--domain", "red_blood_cell"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mat_") as tmp:
-        run_dir, sv = os.path.join(tmp, "run"), os.path.join(tmp, "sv.npz")
+        run_dir, sv, sv_pt = os.path.join(tmp, "run"), os.path.join(tmp, "sv.npz"), os.path.join(tmp, "sv.pt")
         asm_cuda.reset_launches()
         t0 = time.monotonic()
         run_cli(["train", *tree, "--iterations", str(MAT_TRAIN_STEPS), "--batch-size", "2",
                  "--image-size", str(MAT_IMAGE), "--checkpoint-every", str(MAT_TRAIN_STEPS),
                  "--checkpoint-dir", run_dir, "--log-every", "1"])
-        run_cli(["extract-style", *tree, "--checkpoint", run_dir, "--n-batches", "2", "--out", sv])
+        style_lines, _ = run_cli(["extract-style", *tree, "--checkpoint", run_dir, "--n-batches", "2",
+                                  "--out", sv, "--pt-out", sv_pt])
         lines, _ = run_cli(["eval", *tree, "--image-size", str(MAT_IMAGE), "--checkpoint", run_dir,
                             "--style-vector", sv, "--batch-size", "4", "--save-dir", tmp,
                             "--exp-name", "mat", "--json"])
@@ -3390,6 +3458,7 @@ def drive_mat(dev):
         with open(os.path.join(run_dir, "train_metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
         card_style = load_style_vector(sv)
+        pt_equal = all(np.array_equal(a, b) for a, b in zip(load_style_vector_pt(sv_pt), card_style))
         state = load_train_params(latest_snapshot(run_dir), ema=False)
     # The port on the CPU with the same weights.
     cfg = DOMAIN_PRESETS["red_blood_cell"]()
@@ -3408,10 +3477,12 @@ def drive_mat(dev):
     }
     held = (readings["psnr_db"] < GOLDEN_FP32_BATCH_DB and readings["distance_um"] < CARD_CPU_UM
             and readings["style_vector"] < STYLE_TOL and card["n_gt_scored"] == 9
+            and pt_equal and style_lines[-2] == f"torch-layout style vector written to {sv_pt}"
             and len(rows) == MAT_TRAIN_STEPS and "loss_supervised" not in rows[0]
             and all(math.isfinite(v) for r in rows for v in r.values()) and stream["frames"] == 9)
     info = {"card_minus_cpu": readings, "limits": [GOLDEN_FP32_BATCH_DB, CARD_CPU_UM, STYLE_TOL],
-            "printed": lines, "card": {k: card[k] for k in ("mean_psnr", "r2", "n_samples", "n_gt_scored")},
+            "printed": lines, "extract_style_printed": style_lines, "pt_equals_npz_bit_for_bit": pt_equal,
+            "card": {k: card[k] for k in ("mean_psnr", "r2", "n_samples", "n_gt_scored")},
             "cpu": {k: cpu[k] for k in ("mean_psnr", "r2")}, "train_last": rows[-1], "stream": stream,
             "launches": launches, "seconds": seconds}
     if not held:
@@ -3714,7 +3785,8 @@ def drive_commands(fast_net, fast_cfg, fast_style, goldens, dev, card_name, smi)
     # A copy without the orbax directories lists no release; where `fast`
     # is listed, its numpy weights are beside it.
     if card_name not in doctor["devices"] or not doctor["releases"].get(
-            "fast", {"torch_weights": True})["torch_weights"]:
+            "fast", {"torch_weights": True})["torch_weights"] or not str(
+            doctor.get("transport_ready")).startswith("not applicable"):
         misses.append("doctor")
 
     content, style = np.sqrt(goldens.content_holo[10]), np.sqrt(goldens.content_holo[0])
@@ -3725,11 +3797,221 @@ def drive_commands(fast_net, fast_cfg, fast_style, goldens, dev, card_name, smi)
         misses.append("stylize")
     info = {"nvidia_smi": smi, "synth_bench": bench, "sweep": sweep,
             "doctor_devices": doctor["devices"], "doctor_releases": sorted(doctor["releases"]),
+            "doctor_transport_ready": doctor.get("transport_ready"),
             "stylize_rel_err": styl, "stylize_tol": SLICE_AMP_TOL}
     if misses:
         emit({"commands_readings": info})
         _die(f"the commands phase missed {misses}", 1)
     return info
+
+
+def compare_ablation(got, ref, label):
+    """Two (amp, phase, dist) outputs of an ablation net by the slice phase's
+    rules: amp relative to max|ref|, the distance absolute, the phase (the
+    decoder's channel, not wrapped) within SLICE_PHASE_TOL in
+    SLICE_PHASE_FRACTION of the pixels."""
+    amp, phase, dist = (t.cpu() for t in got)
+    amp_ref, phase_ref, dist_ref = (t.cpu() for t in ref)
+    result = {"amp_rel_err": rel_err(amp, amp_ref), "amp_tol": SLICE_AMP_TOL,
+              "distance_abs_err": float((dist - dist_ref).abs().max()), "distance_tol": SLICE_DIST_TOL,
+              "phase_frac_within_tol": float(((phase - phase_ref).abs() < SLICE_PHASE_TOL).float().mean()),
+              "phase_max_abs_err": float((phase - phase_ref).abs().max()), "phase_tol": SLICE_PHASE_TOL,
+              "phase_fraction": SLICE_PHASE_FRACTION}
+    if not (result["amp_rel_err"] < SLICE_AMP_TOL and result["distance_abs_err"] < SLICE_DIST_TOL
+            and result["phase_frac_within_tol"] >= SLICE_PHASE_FRACTION):
+        _die(f"{label} disagree: {json.dumps(result)}", 1)
+    return result
+
+
+def trivial_net_card_vs_cpu(goldens, dev):
+    """(a): TrivialSolutionNet on the golden batch tiled to ABLATION_BATCH:
+    the ring's launches of the cuda forward, cuda against matpad, and the
+    batch of 5 on the card against the CPU. Returns the readings and the
+    card's matpad outputs."""
+    net = seeded_weights_(TrivialSolutionNet(), seed=0).to(dev).eval()
+    holo = goldens.content_holo[ABLATION_GOLDEN]
+    content = torch.as_tensor(np.sqrt(np.resize(holo, (ABLATION_BATCH,) + holo.shape[1:])), device=dev)
+    with torch.inference_mode():
+        try:
+            set_reflect_backend("cuda")
+            reflect_border.reset_launches()
+            with recording_ring_layers() as ring_layers:
+                out_cuda = net(content)
+            torch.cuda.synchronize()
+            launches = reflect_border.LAUNCHES["border_lines"]
+            set_reflect_backend("matpad")
+            out_matpad = net(content)
+            torch.cuda.synchronize()
+        finally:
+            set_reflect_backend("auto")
+        if launches != REFLECT_CONVS:
+            _die(f"TrivialSolutionNet launched the ring {launches} times a forward, want {REFLECT_CONVS}", 1)
+        b = holo.shape[0]
+        out_cpu = copy.deepcopy(net).cpu()(content[:b].cpu())
+    shapes = [tuple(t.shape) for t in out_cuda]
+    if shapes != [(ABLATION_BATCH, 1, IMAGE, IMAGE)] * 2 + [(ABLATION_BATCH, 1)] or not all(
+            bool(torch.isfinite(t).all()) for t in out_cuda):
+        _die(f"TrivialSolutionNet outputs: shapes {shapes} or non-finite", 1)
+    info = {"B": ABLATION_BATCH, "golden_batch": ABLATION_GOLDEN, "ring_launches": launches,
+            "ring_layers": ring_layers,
+            "cuda_vs_matpad": compare_ablation(out_cuda, out_matpad, "TrivialSolutionNet's cuda and matpad rings"),
+            "card_vs_cpu": compare_ablation([t[:b] for t in out_matpad], out_cpu,
+                                            "TrivialSolutionNet on the card and the CPU"),
+            "distance_range": [float(out_matpad[2].min()), float(out_matpad[2].max())]}
+    return info, out_matpad
+
+
+def seeded_autoencoder(seed: int, **kw) -> torch.nn.Module:
+    """HoloAutoEncoder(**kw) with its lazy convs shaped by one 16^2 call on
+    the CPU, every conv from ``torch.Generator`` seed ``seed``."""
+    net = HoloAutoEncoder(**kw)
+    with torch.no_grad():
+        net(torch.zeros(1, 1, 16, 16))
+    return seeded_weights_(net, seed)
+
+
+def autoencoder_card_vs_cpu(dev):
+    """(b): HoloAutoEncoder at its full widths on the card: instance norm with
+    skips at ABLATION_AE_BATCH and at B = 1 against the CPU; group norm,
+    batch norm in train mode (its running averages move) and no skips, one
+    call each."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(ABLATION_AE_BATCH, 1, IMAGE, IMAGE, generator=g)
+    info = {}
+    for name, kw, train in (("instance", {}, False), ("group", {"norm": "group"}, False),
+                            ("batch_train", {"norm": "batch"}, True), ("no_skip", {"skip": False}, False)):
+        net = seeded_autoencoder(3, **kw).to(dev)
+        before = {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
+        with torch.no_grad():
+            y = net(x.to(dev), train=train)
+        torch.cuda.synchronize()
+        row = {"shape": list(y.shape), "finite": bool(torch.isfinite(y).all()), "max_abs": float(y.abs().max())}
+        if before:
+            moved = [float((net.state_dict()[k] - v).abs().max()) for k, v in before.items()]
+            row["running_stats_moved"] = min(moved) > 0 and all(math.isfinite(m) for m in moved)
+        if name == "instance":
+            with torch.no_grad():
+                one = net(x[:1].to(dev)).cpu()
+                ref = copy.deepcopy(net).cpu()(x[:1])
+            row["card_vs_cpu_b1_rel_err"], row["tol"] = rel_err(one, ref), ABLATION_AE_TOL
+        info[name] = row
+        if (row["shape"] != [ABLATION_AE_BATCH, 2, IMAGE, IMAGE] or not row["finite"]
+                or not row.get("running_stats_moved", True)
+                or not row.get("card_vs_cpu_b1_rel_err", 0.0) < ABLATION_AE_TOL):
+            _die(f"HoloAutoEncoder ({name}) on the card missed its checks: {json.dumps(row)}", 1)
+    return info
+
+
+def check_unwraps(amp, phase, physics, dev):
+    """(c): the refocused phase of (a)'s outputs (-0.2 mm, as retrieval_step
+    refocuses), unwrapped on the card by the matmul DCT in highest and high
+    and by the fft DCT, against each other and against the CPU; the native
+    unwrap on the host beside them."""
+    with torch.inference_mode():
+        _, wrapped = holo_forward(amp, phase, -0.2, physics, return_field=True)
+    runs = {}
+    try:
+        for name, backend, precision, device in (("matmul_highest", "matmul", "highest", dev),
+                                                 ("matmul_high", "matmul", "high", dev),
+                                                 ("fft", "fft", "highest", dev),
+                                                 ("cpu_matmul_highest", "matmul", "highest", "cpu")):
+            set_dct_backend(backend)
+            set_dct_precision(precision)
+            w = wrapped.to(device)
+            runs[name] = (unwrap_phase(w, congruent=False).cpu(), unwrap_phase(w).cpu())
+        torch.cuda.synchronize()
+    finally:
+        set_dct_backend("auto")
+        set_dct_precision("highest")
+    w = wrapped.cpu()
+    ref_raw, ref = runs["matmul_highest"]
+    info = {"shape": list(w.shape), "raw_tol": UNWRAP_TOL, "snapped_fraction": SLICE_PHASE_FRACTION}
+    held = True
+    for name, (raw, snapped) in runs.items():
+        k = (snapped - w) / (2 * math.pi)
+        row = {"congruence_max_err": float((k - torch.round(k)).abs().max())}
+        if name != "matmul_highest":
+            row["raw_rel_err_vs_matmul_highest"] = rel_err(raw, ref_raw)
+            row["snapped_equal_fraction"] = float((snapped == ref).float().mean())
+            held &= row["snapped_equal_fraction"] >= SLICE_PHASE_FRACTION
+            held &= name == "matmul_high" or row["raw_rel_err_vs_matmul_highest"] < UNWRAP_TOL
+        held &= row["congruence_max_err"] < 1e-3
+        info[name] = row
+    t0 = time.monotonic()
+    native = torch.from_numpy(unwrap_phase_native(w))
+    k = (native - w) / (2 * math.pi)
+    d = zero_mean(native) - zero_mean(ref)
+    info["native_host"] = {"seconds": time.monotonic() - t0,
+                           "congruence_max_err": float((k - torch.round(k)).abs().max()),
+                           "vs_dct_max_abs_rad": float(d.abs().max()),
+                           "vs_dct_frac_within_0.05_rad": float((d.abs() < 0.05).float().mean())}
+    if not held:
+        _die(f"the unwraps on the card missed their checks: {json.dumps(info)}", 1)
+    return info
+
+
+def write_reference_files(root: str, seed: int) -> dict:
+    """The reference's checkpoint files (``nn.Sequential`` keys, the VGG's
+    stem RGB) at full width from ``torch.Generator`` seed ``seed``: He-normal
+    kernels, N(0, 0.01^2) biases."""
+    g = torch.Generator().manual_seed(seed)
+
+    def convs(layers, transposed=()):
+        state = {}
+        for idx, c_out, c_in, k in layers:
+            shape = (c_in, c_out, k, k) if idx in transposed else (c_out, c_in, k, k)
+            fan_in = c_in if idx in transposed else c_in * k * k
+            state[f"{idx}.weight"] = torch.randn(shape, generator=g) * (2.0 / fan_in) ** 0.5
+            state[f"{idx}.bias"] = 0.01 * torch.randn(c_out, generator=g)
+        return state
+
+    dist = {}
+    for name, (n_out, n_in) in REFERENCE_DISTANCE.items():
+        dist[f"{name}.weight"] = torch.randn(n_out, n_in, generator=g) * (2.0 / n_in) ** 0.5
+        dist[f"{name}.bias"] = 0.01 * torch.randn(n_out, generator=g)
+    paths = {}
+    for name, state in (("vgg", convs(REFERENCE_VGG)), ("decoder", convs(REFERENCE_DECODER, REFERENCE_TRANSPOSED)),
+                        ("distance", dist)):
+        paths[name] = os.path.join(root, f"{name}.pth")
+        torch.save(state, paths[name])
+    return paths
+
+
+def reference_card_vs_cpu(goldens, physics, dev):
+    """(d): the reference's files through ``load_reference_checkpoint`` and
+    ``retrieval_step`` on one golden batch, on the card against the same
+    files on the CPU."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reference_") as tmp:
+        paths = write_reference_files(tmp, REFERENCE_SEED)
+        files = (paths["vgg"], paths["decoder"], paths["distance"])
+        net, net_cpu = (load_reference_checkpoint(*files, device=d) for d in (dev, "cpu"))
+    if tuple(net.encoder.stem.weight.shape) != (3, 1, 1, 1):
+        _die(f"the reference's RGB stem was not collapsed: {tuple(net.encoder.stem.weight.shape)}", 1)
+    args = (goldens.content_holo[ABLATION_GOLDEN], goldens.style_mean, goldens.style_std,
+            float(goldens.distance_style[ABLATION_GOLDEN].reshape(-1)[0]), physics)
+    card = retrieval_step(net, *args, device=dev)
+    cpu = retrieval_step(net_cpu, *args, device="cpu")
+    return compare_outputs(card, cpu, SLICE_AMP_TOL, SLICE_DIST_TOL, SLICE_PHASE_TOL, SLICE_PHASE_FRACTION,
+                           "the reference checkpoint on the card and the CPU")
+
+
+def drive_ablations(goldens, physics, dev, smi):
+    """The ablations phase (see the module docstring); returns its readings."""
+    part_seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        part_seconds[name] = time.monotonic() - t0
+        return out
+
+    trivial, (amp, phase, _) = part("a", trivial_net_card_vs_cpu, goldens, dev)
+    autoencoder = part("b", autoencoder_card_vs_cpu, dev)
+    unwraps = part("c", check_unwraps, amp, phase, physics, dev)
+    reference = part("d", reference_card_vs_cpu, goldens, physics, dev)
+    return {"nvidia_smi": smi, "part_seconds": part_seconds, "trivial_solution_net": trivial,
+            "holo_autoencoder": autoencoder, "unwraps": unwraps, "reference_checkpoint": reference,
+            "launches": {"border_lines": trivial["ring_launches"]}}
 
 
 def main() -> int:
@@ -3968,6 +4250,10 @@ def main() -> int:
         parallel_info = drive_parallel(cfg, train_bank, parallel_world, fast_net, fast_cfg, fast_style,
                                        goldens, dev, smi)
         phase.info = parallel_info
+
+    with Phase("ablations") as phase:
+        ablation_info = drive_ablations(goldens, physics, dev, smi)
+        phase.info = ablation_info
 
     with Phase("timing") as phase:
         refine_timing = time_refine(goldens, physics, dev)
@@ -4209,6 +4495,7 @@ def main() -> int:
                          "train_bf16_step_convs": ring_train["convs"],
                          "train_bf16_worst_bf16_ulps": train_mixed["bf16_card_vs_cpu"]["ring_worst_bf16_ulps"],
                          "launches_by_path": {"reflect": launches["border_lines"],
+                                              "ablations": ablation_info["launches"]["border_lines"],
                                               "parallel": parallel_info["launches"]["border_lines"],
                                               "pipeline_and_sharded_refocus":
                                                   parallel_info["pipeline_launches"]["border_lines"],

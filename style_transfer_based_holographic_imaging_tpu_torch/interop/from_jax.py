@@ -32,6 +32,15 @@ fine-tune and training steps) into one state a stage, in the port's layout,
 so that a JAX pipeline run resumes in the port's pipeline; its inverse
 ``pipeline_state_to_jax`` packs the stages' states back, bit for bit.
 
+``convert_ablation_variables`` carries the variables of the JAX package's
+ablation modules (``models/ablations.py``: ``params`` and, with batch norm,
+``batch_stats``) into the state dict of the port's counterpart: a norm's
+``scale`` becomes its ``weight``, the running ``mean``/``var`` the buffers
+``running_mean``/``running_var``, ECA's ``(k, 1, 1)`` kernel a ``Conv1d``
+weight ``(1, 1, k)``; every other leaf converts as ``convert_params``
+converts it (a ``CBR(sampling="up")`` kernel HWIO -> OIHW, unflipped, the
+layout the port's up-conv correlates with).
+
 ``load_release_weights`` reads a release's state dict back from the numpy
 file that ``scripts/port_golden_eval.py --export-npz`` writes (one fp32
 array per state-dict key), where orbax cannot run: on the card machine,
@@ -46,7 +55,7 @@ import numpy as np
 import torch
 
 __all__ = ["convert_params", "convert_train_state", "convert_pipeline_state", "pipeline_state_to_jax",
-           "load_release_weights", "load_style_vector"]
+           "convert_ablation_variables", "load_release_weights", "load_style_vector"]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -148,6 +157,29 @@ def convert_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     for path, value in _flatten(inner):
         name, arr = _convert_leaf(path, value)
         state[name] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    return state
+
+
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def convert_ablation_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX variables of an ablation module (``params`` and, where
+    present, ``batch_stats``; numpy leaves) -> the port's state dict, which
+    the port's module of ``models/ablations.py`` loads with ``strict=True``."""
+    state = {}
+    for path, value in _flatten(variables["params"]):
+        *modules, leaf = path
+        if leaf == "scale":
+            name, arr = ".".join(modules + ["weight"]), value
+        elif leaf == "kernel" and value.ndim == 3:
+            name, arr = ".".join(modules + ["weight"]), np.transpose(value, (2, 1, 0))  # (k,1,1) -> (1,1,k)
+        else:
+            name, arr = _convert_leaf(path, value)
+        state[name] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    for path, value in _flatten(variables.get("batch_stats", {})):
+        *modules, leaf = path
+        state[".".join(modules + [_BATCH_STATS[leaf]])] = torch.tensor(value, dtype=torch.float32)
     return state
 
 

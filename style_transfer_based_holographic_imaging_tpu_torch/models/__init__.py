@@ -1,5 +1,10 @@
-"""``nn.Module`` networks: the field-retrieval net and the discriminator."""
+"""``nn.Module`` networks: the field-retrieval net, the discriminator and
+the reference's ablation families."""
 
+from style_transfer_based_holographic_imaging_tpu_torch.models.ablations import (
+    HoloAutoEncoder,
+    TrivialSolutionNet,
+)
 from style_transfer_based_holographic_imaging_tpu_torch.models.decoder import AmpPhaseDecoder
 from style_transfer_based_holographic_imaging_tpu_torch.models.discriminator import PatchDiscriminator
 from style_transfer_based_holographic_imaging_tpu_torch.models.distance import DistanceMLP
@@ -20,6 +25,8 @@ from style_transfer_based_holographic_imaging_tpu_torch.models.net import (
 from style_transfer_based_holographic_imaging_tpu_torch.models.vgg import VggEncoder
 
 __all__ = [
+    "HoloAutoEncoder",
+    "TrivialSolutionNet",
     "AmpPhaseDecoder",
     "DistanceMLP",
     "ConvTranspose2x2",

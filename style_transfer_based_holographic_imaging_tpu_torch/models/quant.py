@@ -110,21 +110,22 @@ def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _int8_conv(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
-    """VALID 3x3 conv of padded int8 ``xq`` ``(B, C, H+2, W+2)`` by int8 ``kq``
-    ``(O, C, 3, 3)`` with int32 sums: ``(B, O, H, W)`` int32, exact.
+    """VALID conv of int8 ``xq`` ``(B, C, H + kh - 1, W + kw - 1)`` by int8
+    ``kq`` ``(O, C, kh, kw)`` with int32 sums: ``(B, O, H, W)`` int32, exact.
 
-    im2col, then ``torch._int_mm``; K = 9 C and N = O are padded with zeros to
-    the multiples of 8 that ``_int_mm`` needs on CUDA (zeros keep it exact).
+    im2col, then ``torch._int_mm``; K = kh kw C and N = O are padded with
+    zeros to the multiples of 8 that ``_int_mm`` needs on CUDA (zeros keep it
+    exact).
     """
     b, c, hp, wp = xq.shape
-    o = kq.shape[0]
-    h, w = hp - 2, wp - 2
+    o, _, kh, kw = kq.shape
+    h, w = hp - kh + 1, wp - kw + 1
     x_hwc = xq.permute(0, 2, 3, 1)
     cols = torch.cat(
-        [x_hwc[:, di : di + h, dj : dj + w, :] for di in range(3) for dj in range(3)], dim=-1
-    ).reshape(b * h * w, 9 * c)
-    kmat = kq.permute(2, 3, 1, 0).reshape(9 * c, o)  # rows (di, dj, c), as the columns
-    pad_k, pad_n = -(9 * c) % 8, -o % 8
+        [x_hwc[:, di : di + h, dj : dj + w, :] for di in range(kh) for dj in range(kw)], dim=-1
+    ).reshape(b * h * w, kh * kw * c)
+    kmat = kq.permute(2, 3, 1, 0).reshape(kh * kw * c, o)  # rows (di, dj, c), as the columns
+    pad_k, pad_n = -(kh * kw * c) % 8, -o % 8
     if pad_k:
         cols = F.pad(cols, (0, pad_k))
         kmat = F.pad(kmat, (0, 0, 0, pad_k))
@@ -142,18 +143,23 @@ def int8_conv_valid(
     dt: torch.dtype,
     act_max: torch.Tensor,
     relu: bool,
+    reflect_pad: bool = True,
 ) -> torch.Tensor:
     """The int8 serving epilogue: a per-tensor activation scale from the
     calibrated absmax, per-output-channel kernel scales, int8 quantize (the
-    reflect pad applied to the quantized activations), the int32 VALID conv,
-    then ``acc * 1/(sx sk) + bias`` in ``dt`` and the relu."""
+    reflect pad applied to the quantized activations; ``reflect_pad=False``
+    for an input padded already, as the packed convs of
+    ``kernels/packed_conv.py`` give it), the int32 VALID conv, then
+    ``acc * 1/(sx sk) + bias`` in ``dt`` and the relu."""
     # Tensor / tensor divisions: ``127.0 / t`` would be ``reciprocal(t) * 127``
     # in torch, two roundings where XLA's division has one.
     c127 = torch.tensor(127.0, device=x.device)
     sx = c127 / torch.clamp(act_max.float().to(x.device), min=1e-8)
     k32 = kernel.float()
     sk = c127 / torch.clamp(k32.abs().amax(dim=(1, 2, 3)), min=1e-8)  # (O,)
-    xq = F.pad(_quantize(x.float(), sx), (1, 1, 1, 1), mode="reflect")
+    xq = _quantize(x.float(), sx)
+    if reflect_pad:
+        xq = F.pad(xq, (1, 1, 1, 1), mode="reflect")
     kq = _quantize(k32, sk.view(-1, 1, 1, 1))
     acc = _int8_conv(xq, kq)
     m = (1.0 / (sx * sk)).to(dt).view(1, -1, 1, 1)

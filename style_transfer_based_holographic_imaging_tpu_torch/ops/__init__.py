@@ -15,7 +15,13 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (
     calc_mean_std,
     coral,
 )
-from style_transfer_based_holographic_imaging_tpu_torch.ops.unwrap import unwrap_phase, wrap_phase
+from style_transfer_based_holographic_imaging_tpu_torch.ops.unwrap import (
+    set_dct_backend,
+    set_dct_precision,
+    unwrap_phase,
+    wrap_phase,
+)
+from style_transfer_based_holographic_imaging_tpu_torch.ops.unwrap_native import unwrap_phase_native
 
 __all__ = [
     "kz_rel_grid",
@@ -32,4 +38,7 @@ __all__ = [
     "coral",
     "unwrap_phase",
     "wrap_phase",
+    "set_dct_backend",
+    "set_dct_precision",
+    "unwrap_phase_native",
 ]

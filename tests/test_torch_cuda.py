@@ -35,6 +35,11 @@ output and gradients within the bf16 budget, one ring launch a forward; a
 dropout on): within twice the spread of two plain steps (cuDNN's backward
 need not be deterministic) plus 1e-6 of each leaf's max, and the ring
 launched again by the recompute (up to twice as often).
+The ablation families: ``TrivialSolutionNet`` (width 1.0, 32^2) with the
+``cuda`` ring launches it once for each of its 20 reflect convs and agrees
+with ``matpad`` and with the CPU (1e-4 of max: cuDNN's fp32 sums against
+the CPU's through 20 layers); ``HoloAutoEncoder()`` at its full widths,
+64^2, on the card against the CPU within 1e-4 of max.
 Each kernel is a ``holostyle::`` custom op: ``torch.library.opcheck`` passes
 for each on CUDA tensors. A ``torch.export`` artifact whose refocus is the
 ``asm_const`` op answers as the live path does, bit for bit.
@@ -774,3 +779,53 @@ def test_artifact_with_the_kernels_equals_the_live_path(card, tmp_path, path):
                 assert np.array_equal(got[key][lo:lo + n], v[:n].cpu().numpy()), key
     finally:
         quant.set_fused_stacks("auto")
+
+
+def _seeded_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every conv and dense weight He-normal, every bias N(0, 0.01^2), from
+    ``torch.Generator`` seed ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("weight") and p.ndim > 1:
+                p.copy_(torch.randn(p.shape, generator=g) * (2.0 / p[0].numel()) ** 0.5)
+            elif name.endswith("bias"):
+                p.copy_(0.01 * torch.randn(p.shape, generator=g))
+    return net
+
+
+def test_trivial_solution_net_launches_the_ring_on_the_card(card):
+    from style_transfer_based_holographic_imaging_tpu_torch.models import TrivialSolutionNet, set_reflect_backend
+
+    net = _seeded_(TrivialSolutionNet(), 0).eval()
+    x = torch.rand(2, 1, 32, 32, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = net(x)
+        net = net.to(card)
+        out = {}
+        try:
+            for backend in ("cuda", "matpad"):
+                set_reflect_backend(backend)
+                before = reflect_border.LAUNCHES["border_lines"]
+                out[backend] = net(x.to(card))
+                torch.cuda.synchronize()
+                assert reflect_border.LAUNCHES["border_lines"] - before == (20 if backend == "cuda" else 0)
+        finally:
+            set_reflect_backend("auto")
+    for backend, got in out.items():
+        for a, e in zip(got, want):
+            assert _rel(a.cpu(), e) < 1e-4, backend
+
+
+def test_holo_autoencoder_on_the_card_matches_the_cpu(card):
+    from style_transfer_based_holographic_imaging_tpu_torch.models import HoloAutoEncoder
+
+    net = HoloAutoEncoder()
+    x = torch.rand(1, 1, 64, 64, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        net(x)  # the lazy convs take their input channels
+        want = _seeded_(net, 3)(x)
+        got = net.to(card)(x.to(card))
+    torch.cuda.synchronize()
+    assert got.shape == (1, 2, 64, 64) and _rel(got.cpu(), want) < 1e-4
+

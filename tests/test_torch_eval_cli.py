@@ -24,7 +24,8 @@
   holograms.
 * argparse: the new flags are taken (the device mesh's too: ``train
   --devices/--partition/--model-devices``, ``stream --devices``, ``serve
-  --devices``); every flag and command still refused exits with code 2; the
+  --devices``; and ``extract-style --pt-out``); a value outside a flag's
+  choices exits with code 2; the
   JAX package's errors of the mesh flags; ``train --devices N`` launches
   its world with no deadline for the run; ``train --cpu --devices 2
   --partition zero1`` on two CPU ranks; no card and no ``--cpu`` raises.
@@ -313,9 +314,9 @@ NEW_FLAGS = [
     ["train", "--model-devices", "2"],
     ["stream", "--devices", "2", "--root", "r"],
     ["serve", "--devices", "2"],
+    ["extract-style", "--pt-out", "sv.pt"],
 ]
 REFUSED = [
-    ["extract-style", "--pt-out", "sv.pt"],
     ["eval", "--domain", "mars"],
     ["extract-style", "--bank", "golden"],
 ]
