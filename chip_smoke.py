@@ -11,9 +11,11 @@ line naming it and ends the run with exit code 3; nothing hangs):
 2. ``build``   — the script removes stale build files and starts one
    ``nvcc`` for each of the four kernel sources, all together, before it
    imports torch (``kernels/_build.py`` imports no torch): the ASM source
-   on one thread, the other three on another. The phase waits for the ASM
-   library and loads it with ``ctypes``; prints its ``nvcc`` seconds and
-   its ``-Xptxas -v`` lines (registers, shared memory, spills). The three
+   on one thread, the other three on another, and the host compiler on the
+   zstd decoder (``interop/csrc/zstd_decode.cc``) on a third. The phase
+   waits for the ASM library and loads it with ``ctypes``, and for the
+   decoder; prints their seconds and the ASM source's ``-Xptxas -v``
+   lines (registers, shared memory, spills). The three
    others compile on while phases 3-5, which launch only the ASM kernels,
    run.
 3. ``kernels`` — the ASM kernels against their plain PyTorch version and
@@ -106,6 +108,16 @@ line naming it and ends the run with exit code 3; nothing hangs):
    ``refined_*`` records; the fp net in bf16, held to the JAX package's
    ``bf16_golden_metrics.json`` with the int8 rule. A miss prints every
    reading and fails the phase.
+10b. ``release`` — the flagship release (``checkpoints/release``, width
+   1.0) read by the port's own orbax reader (``interop/orbax_read.py``:
+   OCDBT, zarr and the C++ zstd decoder built in phase 2); its seconds and
+   the bytes it read. ``cli._load_params`` with no
+   ``--checkpoint`` must give the same state dict. Then the ``golden``
+   phase's paths and rules on the flagship with ``checkpoints/
+   style_vector.npz``, ``quant_scales.json``, ``golden_metrics.json`` and
+   ``quant_golden_metrics.json``; it has no bf16 record, so its bf16 mean
+   is printed and not held. ``asm_const`` 20 launches a path (100),
+   ``asm_dynamic`` 2,020, the head and tail 20 each with the stacks on.
 11. ``serve``  — ``RetrievalService`` on the ``fast`` weights (bf16, batch
    32) behind ``serve_forever`` on 127.0.0.1, port 0, in a daemon thread:
    requests of B = 1, 5 (a golden batch) and 37 (chunked and padded) through
@@ -273,6 +285,7 @@ only.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import copy
@@ -333,7 +346,9 @@ def _start_builds() -> dict:
     torch, so it is loaded here by its path, under its package name, where
     the port's kernel modules find it when they import it. Stale build files
     go first. The ASM source builds on one thread (the first phases launch
-    only its kernels), the other three on another."""
+    only its kernels), the other three on another, the zstd decoder (a host
+    C++ source, ``interop/csrc/zstd_decode.cc``, the orbax reader's) on a
+    third."""
     name = f"{PORT}.kernels._build"
     spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, PORT, "kernels", "_build.py"))
     module = importlib.util.module_from_spec(spec)
@@ -341,7 +356,8 @@ def _start_builds() -> dict:
     spec.loader.exec_module(module)
     removed = module.remove_stale()
     return {"removed_stale": removed, "asm": _Build(module, "asm_propagate"),
-            "rest": _Build(module, *(s for s in module.SOURCES if s != "asm_propagate"))}
+            "rest": _Build(module, *(s for s in module.SOURCES if s != "asm_propagate")),
+            "zstd": _Build(module, *module.HOST_SOURCES)}
 
 
 _BUILDS = _start_builds() if __name__ == "__main__" else None
@@ -363,10 +379,13 @@ from style_transfer_based_holographic_imaging_tpu_torch.data.mat_sampler import 
     MeasuredHologramSampler,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.interop import (  # noqa: E402
+    convert_params,
     load_reference_checkpoint,
     load_release_weights,
     load_style_vector,
     load_style_vector_pt,
+    ocdbt,
+    orbax_read,
 )
 from style_transfer_based_holographic_imaging_tpu_torch.eval import psnr, zero_mean  # noqa: E402
 
@@ -472,7 +491,7 @@ TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
     "conv_kernels": 90.0, "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
-    "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "export": 45.0, "commands": 30.0,
+    "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "release": 25.0, "export": 45.0, "commands": 30.0,
     "train": 90.0, "parallel": 45.0, "ablations": 20.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
@@ -539,6 +558,9 @@ SERVING_REFOCUS_M = -2e-4  # -d_style = -0.2 mm, the golden suite's style plane
 # mean within SUITE_DB and R² within SUITE_R2; refined the mean and held-out
 # within REFINE_DB_TOL (tests/test_torch_refine.py).
 FAST = os.path.join(REPO, "checkpoints", "fast")
+# The flagship release (the `release` phase): its orbax weights, config,
+# style vector, int8 scales and records.
+FLAGSHIP = os.path.join(REPO, "checkpoints")
 GOLDEN_BATCH_DB = 0.3
 # fp32 every batch also within GOLDEN_FP32_BATCH_DB, tight enough to tell
 # fp32 from bf16: the card's fp32 reads 4.4e-5 dB at most on a batch, the
@@ -1626,7 +1648,8 @@ def suite_rule(metrics, record):
 
 def run_golden(net, goldens, cfg, style, scales, records, device):
     """Every path of the release over the suite on the card, each against
-    its record. Returns (readings, launches, seconds by path)."""
+    its record (the bf16 path only where the release has a bf16 record).
+    Returns (readings, launches, seconds by path)."""
     bf16 = torch.bfloat16
     paths = {
         "fp32": ("off", {}),
@@ -1674,7 +1697,11 @@ def run_golden(net, goldens, cfg, style, scales, records, device):
                     "record_heldout_mean_psnr": rec["refined_heldout_mean_psnr"],
                     "mean_psnr_diff_db": d_ref, "heldout_diff_db": d_held,
                     "held": abs(d_ref) < REFINE_DB_TOL and abs(d_held) < REFINE_DB_TOL},
-        "bf16": suite_rule(runs["bf16"], records["bf16"]),
+        # a release without a bf16 record (the flagship): printed, not held
+        "bf16": (suite_rule(runs["bf16"], records["bf16"]) if "bf16" in records
+                 else {"mean_psnr": runs["bf16"]["mean_psnr"], "r2": runs["bf16"]["r2"],
+                       "heldout_mean_psnr": runs["bf16"]["heldout_mean_psnr"],
+                       "minus_fp32_db": runs["bf16"]["mean_psnr"] - fp["mean_psnr"], "gated": False}),
     }
     n = goldens.n_batches
     want = {"asm_const": len(paths) * n, "asm_dynamic": n * (REFINE_STEPS + 1),
@@ -1682,8 +1709,40 @@ def run_golden(net, goldens, cfg, style, scales, records, device):
     misses = [p for p, r in readings.items() if not r.get("held", True)]
     if launches != want or tc != conv_stack.LAUNCHES or misses:
         emit({"golden_readings": readings, "launches": launches, "want_launches": want})
-        _die(f"the fast release on the card missed {misses or 'its launch counts'}", 1)
+        _die(f"the release on the card missed {misses or 'its launch counts'}", 1)
     return readings, launches, seconds
+
+
+def drive_release(goldens, device, smi) -> dict:
+    """The flagship release (``checkpoints/release``, width 1.0) read by
+    the port's own orbax reader and held to its records on the card: fp32,
+    int8 with the stacks off and on, refined (``run_golden``; the flagship
+    has no bf16 record: its bf16 mean is printed). The CLI's loader with no
+    ``--checkpoint`` must give the same state dict."""
+    path = os.path.join(FLAGSHIP, "release")
+    t0 = time.monotonic()
+    store = ocdbt.Store(path)
+    tree = orbax_read.restore(path, store=store)
+    read = {"seconds": time.monotonic() - t0,
+            "bytes": store.bytes_read + os.path.getsize(os.path.join(path, "_METADATA"))}
+    state = convert_params(tree["params"])
+    with open(os.path.join(FLAGSHIP, "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    net = StyleTransferNet.from_state_dict(state, cfg.model.width).to(device)
+    style = load_style_vector(os.path.join(FLAGSHIP, "style_vector.npz"))
+    scales = quant.load_scales(os.path.join(FLAGSHIP, "quant_scales.json"))
+    records = {}
+    for kind, name in (("fp32", "golden_metrics.json"), ("int8", "quant_golden_metrics.json")):
+        with open(os.path.join(FLAGSHIP, name)) as f:
+            records[kind] = json.load(f)
+    with contextlib.chdir(REPO):
+        default = port_cli._load_params(argparse.Namespace(checkpoint=None))
+    if default.keys() != state.keys() or not all(torch.equal(default[k], state[k]) for k in state):
+        _die("cli._load_params with no --checkpoint differs from the flagship release", 1)
+    readings, launches, seconds = run_golden(net, goldens, cfg, style, scales, records, device)
+    return {"release": "checkpoints/release", "width": cfg.model.width, "read": read,
+            "leaves": len(state), "default_load_params_equal": True, "readings": readings,
+            "launches": launches, "seconds_by_path": seconds, "nvidia_smi": smi}
 
 
 @contextlib.contextmanager
@@ -3782,11 +3841,13 @@ def drive_commands(fast_net, fast_cfg, fast_style, goldens, dev, card_name, smi)
 
     doctor_lines, _ = run_cli(["doctor"])
     doctor = json.loads("\n".join(doctor_lines))
-    # A copy without the orbax directories lists no release; where `fast`
-    # is listed, its numpy weights are beside it.
-    if card_name not in doctor["devices"] or not doctor["releases"].get(
-            "fast", {"torch_weights": True})["torch_weights"] or not str(
-            doctor.get("transport_ready")).startswith("not applicable"):
+    # The card's copy holds the flagship's orbax release (checkpoints/
+    # release), which the port reads; every release listed has weights the
+    # port loads.
+    releases = doctor["releases"]
+    if (card_name not in doctor["devices"] or releases.get("flagship", {}).get("weights") != "orbax"
+            or not all(r.get("weights") for r in releases.values())
+            or not str(doctor.get("transport_ready")).startswith("not applicable")):
         misses.append("doctor")
 
     content, style = np.sqrt(goldens.content_holo[10]), np.sqrt(goldens.content_holo[0])
@@ -4033,7 +4094,9 @@ def main() -> int:
     with Phase("build") as phase:
         seconds = _BUILDS["asm"].result()
         asm_cuda._lib()
-        phase.info = {"nvcc_seconds": seconds, "removed_stale": _BUILDS["removed_stale"],
+        zstd_seconds = _BUILDS["zstd"].result()
+        phase.info = {"nvcc_seconds": seconds, "cxx_seconds": zstd_seconds,
+                      "removed_stale": _BUILDS["removed_stale"],
                       "build_dir": _build.BUILD_DIR, "asm_propagate_ptxas": _build.ptxas_lines("asm_propagate")}
 
     with open(os.path.join(REPO, "checkpoints", "config.json")) as f:
@@ -4191,6 +4254,10 @@ def main() -> int:
         phase.info = {"release": "checkpoints/fast", "width": fast_cfg.model.width,
                       "readings": golden_readings, "launches": golden_launches,
                       "seconds_by_path": golden_seconds}
+
+    with Phase("release") as phase:
+        release_info = drive_release(goldens, dev, smi)
+        phase.info = release_info
 
     with Phase("serve") as phase:
         serve_info = drive_serve(fast_net, fast_cfg, fast_style, fast_scales, goldens, dev, name, smi)
@@ -4457,7 +4524,8 @@ def main() -> int:
             "bound_ms_by_precision": {p: bounds[k, p][0] for p in PRODUCTS},
             "library_ms": timings[k][2],
             "launches_by_path": {"slice": launches[k], "refine": refine_launches[k],
-                                 "golden": golden_launches[k], "serve": serve_info["launches"][k],
+                                 "golden": golden_launches[k], "release": release_info["launches"][k],
+                                 "serve": serve_info["launches"][k],
                                  "stream": stream_info["launches"][k],
                                  "eval": eval_info["launches"][k],
                                  "eval_refine": eval_info["refine_launches"][k],
@@ -4528,6 +4596,7 @@ def main() -> int:
             "library_ms": conv_timings[k, dt][2],
             "library_ms_by_dtype": {_dt(d): conv_timings[k, d][2] for d in CONV_TOLERANCES},
             **({"launches_by_path": {"quant": launches[k], "golden": golden_launches[k],
+                                     "release": release_info["launches"][k],
                                      "export_int8": export_info["int8_launches"][k]}}
                if k in golden_launches else {}),
             **extras.get(k, {}),
@@ -4573,6 +4642,12 @@ if __name__ == "__main__":
     watchdog = threading.Timer(TOTAL_BUDGET_S + 5.0, _die, args=("the run overran its total budget", 3))
     watchdog.daemon = True
     watchdog.start()
-    code = main()
+    try:
+        code = main()
+    except Exception as e:  # noqa: BLE001 — the children go too, with a line naming the error
+        import traceback
+
+        traceback.print_exc()
+        _die(f"the run failed: {type(e).__name__}: {e}", 1)
     watchdog.cancel()
     sys.exit(code)

@@ -27,14 +27,17 @@
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli synth-bench [--batch-size 512]
   python -m style_transfer_based_holographic_imaging_tpu_torch.cli doctor [--cpu]
 
-The weights: a release's ``torch_weights.npz`` (written by
-``scripts/port_golden_eval.py --export-npz``) in the checkpoint directory,
-else the newest ``iter_<n>/state.pt`` snapshot of a training directory (its
-params, as the JAX package takes a train state's), else the release's file
-in the parent directory. The run config, style vector and int8 scales are
-looked up beside the checkpoint in the JAX package's order. Without
-``--cpu`` every command runs on the card, and raises when there is none
-(``doctor`` reports that there is none instead).
+The weights: an orbax release (``checkpoints/release`` by default, as in
+the JAX command), read by the port's own reader (``interop/orbax_read.py``:
+OCDBT, zarr and a zstd decoder in C++ built at first use); else a release's
+``torch_weights.npz`` (written by ``scripts/port_golden_eval.py
+--export-npz``) in the checkpoint directory; else the newest ``iter_<n>``
+snapshot of a training directory, the port's ``state.pt`` or a JAX orbax
+snapshot (its params, as the JAX package takes a train state's); else the
+release's file in the parent directory. The run config, style vector and
+int8 scales are looked up beside the checkpoint in the JAX package's order.
+Without ``--cpu`` every command runs on the card, and raises when there is
+none (``doctor`` reports that there is none instead).
 
 ``export`` writes a ``torch.export`` artifact (pipelines/export_artifact.py);
 ``--asm-backend auto`` exports the portable ``torch.fft`` refocus, ``cuda``
@@ -77,8 +80,8 @@ _DOMAINS = sorted(set(DOMAIN_PRESETS))
 
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="release directory holding torch_weights.npz, or its orbax "
-                        "subdirectory (default: checkpoints/release if present)")
+                   help="orbax release directory, or one holding torch_weights.npz or "
+                        "iter_<n> snapshots (default: checkpoints/release if present)")
     p.add_argument("--style-vector", type=str, default=None,
                    help=".npz with mean/std arrays (default: alongside checkpoint)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
@@ -141,21 +144,30 @@ def _default_ckpt() -> str | None:
 
 
 def _load_params(args):
-    """The weights as a state dict: ``torch_weights.npz`` in the checkpoint
-    directory; else, for a training directory (or one snapshot), the params
-    of its newest ``iter_<n>/state.pt``; else ``torch_weights.npz`` in the
-    parent directory. A checkpoint directory with none of them raises (its
-    orbax weights cannot be read here); no checkpoint at all gives the random
-    init of width 1.0 from ``torch.manual_seed(0)``."""
+    """The weights as a state dict, from the checkpoint directory (by
+    default ``checkpoints/release``, as the JAX command): an orbax release
+    (a directory holding ``manifest.ocdbt``: its params, read by the port's
+    own reader); else ``torch_weights.npz``; else a snapshot (a port
+    ``state.pt``, or for a training directory the params of its newest
+    ``iter_<n>``, the port's or a JAX orbax one); else ``torch_weights.npz``
+    in the parent directory. A checkpoint directory with none of them
+    raises; no checkpoint at all gives the random init of width 1.0 from
+    ``torch.manual_seed(0)``."""
     from style_transfer_based_holographic_imaging_tpu_torch.interop import load_release_weights
+    from style_transfer_based_holographic_imaging_tpu_torch.interop.orbax_read import is_orbax_checkpoint
     from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
     from style_transfer_based_holographic_imaging_tpu_torch.train import (
         latest_snapshot,
+        load_release_params,
         load_train_params,
     )
 
     ckpt = args.checkpoint or _default_ckpt()
     if ckpt and os.path.isdir(ckpt):
+        if is_orbax_checkpoint(ckpt):
+            state = load_release_params(ckpt)
+            print(f"loaded checkpoint {ckpt}", file=sys.stderr)
+            return state
         own = os.path.join(ckpt, _NPZ)
         snap = ckpt if os.path.isfile(os.path.join(ckpt, "state.pt")) else latest_snapshot(ckpt)
         parent = os.path.join(os.path.dirname(os.path.abspath(ckpt)), _NPZ)
@@ -169,10 +181,8 @@ def _load_params(args):
                 print(f"loaded weights {cand}", file=sys.stderr)
                 return state
         raise FileNotFoundError(
-            f"{ckpt} holds no {_NPZ} and no iter_<n>/state.pt (nor does its parent hold "
-            f"{_NPZ}): the port cannot read orbax weights. Write it where JAX runs: "
-            f"python scripts/port_golden_eval.py --release <orbax dir> "
-            f"--export-npz {os.path.join(ckpt, _NPZ)}"
+            f"{ckpt} holds no weights the port reads: no manifest.ocdbt (an orbax checkpoint), "
+            f"no {_NPZ}, no iter_<n> snapshot, and its parent holds no {_NPZ}"
         )
     print("no checkpoint found; using random init", file=sys.stderr)
     with torch.random.fork_rng():
@@ -557,16 +567,22 @@ def _repo_root() -> str:
 
 def _release_inventory(root: str) -> dict:
     """The JAX doctor's release inventory of ``root`` (``checkpoints/``),
-    each release also saying whether the port's weights file, which the
-    port loads (``_load_params``), is beside it."""
+    each release also saying which weights the port loads from it
+    (``_load_params``): ``orbax`` (the release itself), ``npz`` (a
+    ``torch_weights.npz`` in it or its parent) or None."""
+    from style_transfer_based_holographic_imaging_tpu_torch.interop.orbax_read import is_orbax_checkpoint
+
     def scores(path, keys=("mean_psnr", "r2", "refined_mean_psnr")):
         with open(path) as f:
             m = json.load(f)
         return {k: round(m[k], 4) for k in keys if k in m}
 
-    def torch_weights(release):
-        return any(os.path.isfile(os.path.join(d, _NPZ))
-                   for d in (release, os.path.dirname(release.rstrip("/"))))
+    def weights(release):
+        if is_orbax_checkpoint(release):
+            return "orbax"
+        if any(os.path.isfile(os.path.join(d, _NPZ)) for d in (release, os.path.dirname(release.rstrip("/")))):
+            return "npz"
+        return None
 
     tiers = {}
     cands = [("flagship", root)] + [
@@ -581,7 +597,7 @@ def _release_inventory(root: str) -> dict:
         if os.path.isfile(gm):
             t["golden"] = scores(gm)
         t["int8_scales"] = os.path.isfile(os.path.join(d, "quant_scales.json"))
-        t["torch_weights"] = torch_weights(t["path"])
+        t["weights"] = weights(t["path"])
         tiers[name] = t
     for tag in ("rbc", "bead"):
         rel = os.path.join(root, f"{tag}_release")
@@ -591,7 +607,7 @@ def _release_inventory(root: str) -> dict:
             if os.path.isfile(dm):
                 t["domain"] = scores(dm)
             t["int8_scales"] = os.path.isfile(os.path.join(root, f"{tag}_quant_scales.json"))
-            t["torch_weights"] = torch_weights(rel)
+            t["weights"] = weights(rel)
             tiers[tag] = t
     return tiers
 

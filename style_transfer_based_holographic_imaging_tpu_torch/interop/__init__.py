@@ -1,7 +1,9 @@
-"""Converters from the JAX package's artifacts (numpy in, torch out), and
-the reference's torch checkpoints (``torch_weights.py``; its ``.pt`` style
-vector reader is ``load_style_vector_pt`` here, ``load_style_vector`` the
-``.npz`` one)."""
+"""Converters from the JAX package's artifacts (numpy in, torch out), the
+reader of its orbax checkpoints (``orbax_read.py`` over ``ocdbt.py`` and
+the C++ zstd decoder of ``zstd.py``; no orbax, TensorStore or zstd library),
+and the reference's torch checkpoints (``torch_weights.py``; its ``.pt``
+style vector reader is ``load_style_vector_pt`` here, ``load_style_vector``
+the ``.npz`` one)."""
 
 from style_transfer_based_holographic_imaging_tpu_torch.interop.from_jax import (
     convert_ablation_variables,

@@ -43,8 +43,9 @@ layout the port's up-conv correlates with).
 
 ``load_release_weights`` reads a release's state dict back from the numpy
 file that ``scripts/port_golden_eval.py --export-npz`` writes (one fp32
-array per state-dict key), where orbax cannot run: on the card machine,
-and in ``cli serve``.
+array per state-dict key). The orbax release itself needs no such copy:
+``orbax_read.restore`` reads it without orbax, and
+``train.load_release_params`` converts it.
 """
 
 from __future__ import annotations

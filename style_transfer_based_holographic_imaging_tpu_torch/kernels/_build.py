@@ -22,6 +22,13 @@ writes to a
 temporary name that is renamed into place when its build succeeds: a build
 that was cut off leaves no partial library under the final name, and
 ``remove_stale`` deletes what such a build left. Nothing here runs at import.
+
+``HOST_SOURCES`` are C++ sources for the host with the same plain C
+interface (``interop/csrc/zstd_decode.cc``, the orbax reader's decoder),
+built by the same rules into the same directory with the host compiler,
+the one ``nvcc`` itself drives:
+
+    c++ -std=c++17 -O2 -shared -fPIC -o build/lib<name>-<hash>.so <source>
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import time
 
 __all__ = [
     "build", "load", "remove_stale", "kill_build", "check_status", "SOURCES", "BUILD_DIR", "CSRC_DIR",
-    "LOGS", "ptxas_lines",
+    "LOGS", "ptxas_lines", "HOST_SOURCES",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -51,6 +58,9 @@ NVCC_FLAGS = (
 _BUILD_TIMEOUT_S = 240.0
 # Every kernel source of the port, by name (csrc/<name>.cu).
 SOURCES = ("asm_propagate", "conv_stack", "halo_conv", "reflect_border")
+# Host C++ sources, by name, and their flags.
+HOST_SOURCES = {"zstd_decode": os.path.join(os.path.dirname(_HERE), "interop", "csrc", "zstd_decode.cc")}
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -67,6 +77,27 @@ def _nvcc() -> str:
         if cand and os.path.isfile(cand):
             return cand
     raise FileNotFoundError("nvcc not found on PATH or under $CUDA_HOME/bin")
+
+
+def _cxx() -> str:
+    for cand in ("c++", "g++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise FileNotFoundError("no host C++ compiler: neither c++ nor g++ is on PATH")
+
+
+def _source(name: str) -> tuple[str, tuple[str, ...]]:
+    """The source file of ``name`` and its compiler flags."""
+    if name in HOST_SOURCES:
+        return HOST_SOURCES[name], HOST_FLAGS
+    return os.path.join(CSRC_DIR, f"{name}.cu"), NVCC_FLAGS
+
+
+def _command(name: str, out: str) -> list[str]:
+    src, flags = _source(name)
+    compiler = _cxx() if name in HOST_SOURCES else _nvcc()
+    return [compiler, *flags, "-o", out, src]
 
 
 _LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
@@ -86,9 +117,15 @@ def _source_text(path: str, seen: set) -> bytes:
     return b"".join(parts)
 
 
+def _file(name: str) -> str:
+    """The compiler and source of ``name``'s build, for messages."""
+    return f"{'c++' if name in HOST_SOURCES else 'nvcc'} on {os.path.basename(_source(name)[0])}"
+
+
 def _lib_path(name: str) -> str:
-    text = _source_text(os.path.join(CSRC_DIR, f"{name}.cu"), set())
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src, flags = _source(name)
+    text = _source_text(src, set())
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
@@ -103,17 +140,18 @@ def remove_stale() -> list[str]:
 
 
 def kill_build() -> None:
-    """Kill every ``nvcc`` this process started that is still running."""
+    """Kill every compiler this process started that is still running."""
     for proc in list(_running.values()):
         if proc.poll() is None:
             proc.kill()
 
 
 def build(*names: str) -> dict[str, float]:
-    """Compile ``csrc/<name>.cu`` for each name whose library does not exist,
-    one ``nvcc`` per source, all started together, then wait for each in
-    turn. Returns, for each name, the seconds from the start until its
-    ``nvcc`` was seen done (0.0 for a library that was already built).
+    """Compile ``csrc/<name>.cu`` (or the host source of ``name``) for each
+    name whose library does not exist, one compiler per source, all started
+    together, then wait for each in turn. Returns, for each name, the
+    seconds from the start until its compiler was seen done (0.0 for a
+    library that was already built).
     Calls on other threads may build other names at the same time.
 
     A failed or timed-out build raises with the compiler's output.
@@ -128,7 +166,7 @@ def build(*names: str) -> dict[str, float]:
             if os.path.isfile(out):
                 continue
             tmp = f"{out}.tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+            cmd = _command(name, tmp)
             # The compiler's output goes to a file: a pipe nobody reads
             # while waiting could fill and stall nvcc.
             with open(f"{tmp}.log", "w") as log:
@@ -139,11 +177,11 @@ def build(*names: str) -> dict[str, float]:
             try:
                 proc.wait(timeout=max(_BUILD_TIMEOUT_S - (time.perf_counter() - t0), 0.0))
             except subprocess.TimeoutExpired:
-                raise RuntimeError(f"nvcc timed out after {_BUILD_TIMEOUT_S:.0f} s on {name}.cu") from None
+                raise RuntimeError(f"{_file(name)} timed out after {_BUILD_TIMEOUT_S:.0f} s") from None
             with open(f"{tmp}.log") as log:
                 LOGS[name] = log.read()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{LOGS[name]}")
+                raise RuntimeError(f"{_file(name)} failed (exit {proc.returncode}):\n{LOGS[name]}")
             os.replace(tmp, out)
             seconds[name] = time.perf_counter() - t0
     finally:
@@ -174,7 +212,8 @@ def check_status(status: int, name: str) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or of the host source of
+    ``name``), built first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

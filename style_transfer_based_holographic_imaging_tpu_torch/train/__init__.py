@@ -13,6 +13,7 @@ from style_transfer_based_holographic_imaging_tpu_torch.train.state import (
     TrainState,
     create_train_state,
     latest_snapshot,
+    load_release_params,
     load_train_params,
     restore_checkpoint,
     save_checkpoint,
@@ -38,6 +39,7 @@ __all__ = [
     "restore_checkpoint",
     "latest_snapshot",
     "load_train_params",
+    "load_release_params",
     "generator_loss_fn",
     "TrainStep",
     "train",

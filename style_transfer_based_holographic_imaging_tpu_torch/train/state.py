@@ -25,6 +25,14 @@ whole state whatever the partition it was trained under: a run on a mesh
 gathers its shards first (``parallel.gather_state``), and a snapshot
 restores into any partition (``restore_checkpoint``, then
 ``parallel.shard_state``).
+
+A snapshot the JAX package wrote (an orbax ``iter_<n>`` directory) is read
+too, by the port's own reader (``interop.orbax_read``) and converted
+(``interop.convert_train_state``): ``latest_snapshot`` finds it,
+``load_train_params`` takes its params, ``restore_checkpoint`` resumes
+from it, so ``cli train --resume`` continues a JAX run. A release
+(``checkpoints/release``: an orbax directory of the params alone) loads
+through ``load_release_params``. The port writes ``state.pt`` only.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from style_transfer_based_holographic_imaging_tpu_torch.config import TrainConfig
+from style_transfer_based_holographic_imaging_tpu_torch.interop.orbax_read import is_orbax_checkpoint, restore
 
 __all__ = [
     "AdamState",
@@ -54,6 +63,7 @@ __all__ = [
     "restore_checkpoint",
     "latest_snapshot",
     "load_train_params",
+    "load_release_params",
 ]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -236,12 +246,29 @@ def _adam_to(tree, device) -> AdamState:
     return AdamState(int(tree["count"]), _params_to(tree["mu"], device), _params_to(tree["nu"], device))
 
 
+def _snapshot_tree(path: str, groups=None) -> dict:
+    """A snapshot's groups in ``save_checkpoint``'s layout, on the CPU: a
+    port ``state.pt``, or a JAX orbax snapshot converted (``groups``, the
+    top-level keys to read from the latter; all by default)."""
+    if not is_orbax_checkpoint(path):
+        return torch.load(os.path.join(path, "state.pt"), map_location="cpu", weights_only=True)
+    from style_transfer_based_holographic_imaging_tpu_torch.interop import convert_params, convert_train_state
+
+    tree = restore(path, keys=groups)
+    if groups is not None and "opt_state" not in groups:
+        return {k: convert_params(v) for k, v in tree.items()}
+    state = convert_train_state(tree, device="cpu")
+    return {f.name: _cpu(getattr(state, f.name)) for f in dataclasses.fields(state)
+            if getattr(state, f.name) is not None}
+
+
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
-    """The snapshot at ``path`` in ``state``'s structure and devices. A group
-    the snapshot lacks (discriminator, EMA) restarts: the discriminator from
-    ``state``'s, the EMA from the restored params; a group ``state`` lacks
-    is ignored. Both print a notice."""
-    tree = torch.load(os.path.join(path, "state.pt"), map_location="cpu", weights_only=True)
+    """The snapshot at ``path`` (the port's or the JAX package's) in
+    ``state``'s structure and devices. A group the snapshot lacks
+    (discriminator, EMA) restarts: the discriminator from ``state``'s, the
+    EMA from the restored params; a group ``state`` lacks is ignored. Both
+    print a notice."""
+    tree = _snapshot_tree(path)
     missing = [g for g in ("disc_params", "ema_params") if getattr(state, g) is not None and g not in tree]
     extra = [g for g in ("disc_params", "ema_params") if getattr(state, g) is None and g in tree]
     if missing or extra:
@@ -263,21 +290,31 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
 
 
 def latest_snapshot(ckpt_dir: str) -> Optional[str]:
-    """The newest complete ``iter_<n>`` snapshot in ``ckpt_dir``, or None."""
+    """The newest complete ``iter_<n>`` snapshot in ``ckpt_dir`` (a port
+    ``state.pt`` or a JAX orbax snapshot), or None."""
     if not os.path.isdir(ckpt_dir):
         return None
     iters = sorted(
         (d for d in os.listdir(ckpt_dir)
          if d.startswith("iter_") and d.split("_", 1)[1].isdigit()
-         and os.path.isfile(os.path.join(ckpt_dir, d, "state.pt"))),
+         and (os.path.isfile(os.path.join(ckpt_dir, d, "state.pt"))
+              or is_orbax_checkpoint(os.path.join(ckpt_dir, d)))),
         key=lambda s: int(s.split("_")[1]),
     )
     return os.path.join(ckpt_dir, iters[-1]) if iters else None
 
 
 def load_train_params(path: str, *, ema: bool = True) -> Params:
-    """The generator's state dict of a snapshot, for
-    ``StyleTransferNet.from_state_dict``: the EMA where the run kept one and
-    ``ema`` is set, else the params."""
-    tree = torch.load(os.path.join(path, "state.pt"), map_location="cpu", weights_only=True)
+    """The generator's state dict of a snapshot (the port's or the JAX
+    package's), for ``StyleTransferNet.from_state_dict``: the EMA where the
+    run kept one and ``ema`` is set, else the params."""
+    tree = _snapshot_tree(path, groups=("params", "ema_params"))
     return dict(tree["ema_params"] if ema and "ema_params" in tree else tree["params"])
+
+
+def load_release_params(path: str) -> Params:
+    """The state dict of an orbax release (``checkpoints/release``, or the
+    params of any orbax checkpoint), read without orbax: the counterpart of
+    the JAX package's ``load_release_params``. A release saved on a TPU
+    reads the same way; its device shardings are not needed."""
+    return _snapshot_tree(path, groups=("params",))["params"]

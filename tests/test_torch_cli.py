@@ -114,11 +114,13 @@ def test_weights_come_from_the_directory_then_its_parent(tmp_path, where):
 
 
 def test_an_orbax_only_checkpoint_raises(tmp_path):
+    """An orbax directory without its ``manifest.ocdbt`` holds nothing the
+    port reads (a whole release loads: tests/test_torch_orbax.py)."""
     rel = tmp_path / "ultra" / "release"
     os.makedirs(rel / "d")
     (rel / "_METADATA").write_text("{}")
     for ckpt in (rel, tmp_path / "ultra"):
-        with pytest.raises(FileNotFoundError, match="--export-npz"):
+        with pytest.raises(FileNotFoundError, match="no manifest.ocdbt"):
             cli._load_params(_args(checkpoint=str(ckpt)))
 
 

@@ -13,7 +13,8 @@ import style_transfer_based_holographic_imaging_tpu_torch as port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(port.__file__)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "style_transfer_based_holographic_imaging_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+             "style_transfer_based_holographic_imaging_tpu")
 # Scripts of the port that run where JAX is absent.
 SCRIPTS = ("chip_smoke.py", os.path.join("scripts", "port_exp_halo_conv.py"),
            os.path.join("scripts", "port_exp_asm_host.py"))
@@ -41,8 +42,8 @@ def test_every_module_imports_with_jax_blocked():
     assert len(modules) > 20
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'orbax.checkpoint',"
-        " 'style_transfer_based_holographic_imaging_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'orbax.checkpoint', 'tensorstore',"
+        " 'zstandard', 'style_transfer_based_holographic_imaging_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib, runpy\n"
         f"for m in {modules!r}:\n"
