@@ -118,6 +118,9 @@ line naming it and ends the run with exit code 3; nothing hangs):
    ``quant_golden_metrics.json``; it has no bf16 record, so its bf16 mean
    is printed and not held. ``asm_const`` 20 launches a path (100),
    ``asm_dynamic`` 2,020, the head and tail 20 each with the stacks on.
+   Then the two domain releases, ``checkpoints/rbc_release`` and
+   ``bead_release`` (``bead``'s, saved on a TPU, with no target), read by
+   the same reader for phases 11, 14 and 15.
 11. ``serve``  — ``RetrievalService`` on the ``fast`` weights (bf16, batch
    32) behind ``serve_forever`` on 127.0.0.1, port 0, in a daemon thread:
    requests of B = 1, 5 (a golden batch) and 37 (chunked and padded) through
@@ -132,7 +135,15 @@ line naming it and ends the run with exit code 3; nothing hangs):
    timings run outside the counts). Holograms/s at batch 32 over HTTP,
    through ``RetrievalService.retrieve`` in process, and by the direct call
    on a batch already on the card, in bf16 and int8 (and fp32 direct), with
-   the host's time for the npz wire format of a request.
+   the host's time for the npz wire format of a request. Then the service
+   that ``serve --checkpoint checkpoints/rbc_release --quant auto`` runs
+   (``cli.build_service``): its ``loaded`` lines must name rbc's release,
+   sibling ``rbc_style_vector.npz`` and band-limited ``rbc_config.json``;
+   requests of 5 and 37 holograms of the rbc stream over HTTP, each
+   launching no kernel and equal bit for bit to the direct int8 call on the
+   service's net with rbc's ``rbc_quant_scales.json`` and style vector,
+   which the flagship's scales or style vector would each change; the
+   requests' seconds and the direct call's ms at batch 32 printed.
 12. ``stream`` — the golden suite through ``stream_retrieval`` and its
    pinned prefetch in batches of 8 (the last batch of 4 padded and
    trimmed), equal bit for bit to the per-batch retrieval, one
@@ -155,13 +166,34 @@ line naming it and ends the run with exit code 3; nothing hangs):
    snapshot's ``evaluate_mat_tree`` and style vector on the CPU: each
    batch's PSNR within 0.005 dB (the golden phase's fp32 limit) and each
    distance within 0.05 µm, the style vector within 1e-4 of max. The domain's band limit keeps every kernel off this path.
-15. ``domain`` — ``evaluate_synth_domain`` on the seeded width-1.0 net, one
-   batch of 32 of the rbc and bead streams (the records' protocol: the JAX
-   package's ``jax.random`` stream, seed 7777, bank seed 7919), card against
-   CPU with the same limits, no kernel launched (band-limited); the
-   band-limited refocus at B = 32 timed through ``torch.fft`` beside the
-   same refocus without the band limit, through ``torch.fft`` and
-   ``asm_const``.
+   Then ``eval --checkpoint checkpoints/rbc_release --mat-root ... --domain
+   red_blood_cell --json`` at 128^2 with the trained weights (the CLI must
+   load rbc's sibling style vector), against the port's
+   ``evaluate_mat_tree`` on the CPU for the same release: each batch within
+   0.005 dB, each distance within 0.05 µm, no kernel launched.
+15. ``domain`` — the trained domain releases (``rbc_release``, ``bead_release``,
+   width 1.0) through ``evaluate_synth_domain`` by their records' protocol
+   (batches of 32 of the JAX package's ``jax.random`` stream, seed 7777,
+   bank seed 7919), each path with every kernel's launches counted from 0
+   just before it and read just after: fp32 over the record's 10 batches
+   (the mean within 0.005 dB and R² within 1e-4 of
+   ``<tag>_domain_metrics.json``; every batch within 0.005 dB and every
+   distance within 3 µm of the port's CPU reading, the records' per-batch
+   arrays being another run's); refined (200 steps rbc, 100 bead) over the
+   10 batches, the mean within 0.05 dB and R² within 1e-4 of its record;
+   refine-distance (60 steps, the distance refined too) over the first 5
+   batches, within 0.05 dB and R² 1e-4 of the port's CPU reading of those
+   5 (the phase's time allows no more), the 10-batch record printed; int8
+   in bf16 with the stacks off over the int8 record's 3 batches, within
+   0.05 dB and R² 1e-4 of the port's CPU reading (the int8 records were
+   taken elsewhere, both packages miss them alike), the record printed; the
+   same with the stacks on, printed, one head and one tail launch a batch,
+   each on the tensor cores. No ASM kernel launches on these band-limited paths. Then the
+   stream's first batch through ``retrieval_step`` with the ``cuda`` ring
+   (exactly 20 ``border_lines`` launches) against ``matpad``, by the slice
+   phase's rules. Last, the band-limited refocus at B = 32 timed through
+   ``torch.fft`` beside the same refocus without the band limit, through
+   ``torch.fft`` and ``asm_const``.
 16. ``train``  — training at the flagship's configuration
    (``checkpoints/config.json``: width 1.0, 128², B = 32, adversarial 1.0,
    EMA 0.999, clip 1.0, the encoder trained) on the golden train-split
@@ -587,11 +619,10 @@ STREAM_BATCH = 8
 # CPU with the same weights, each batch's PSNR within GOLDEN_FP32_BATCH_DB
 # (fp32 paths: a net that ran in bf16 or TF32 would miss it) and each
 # distance within CARD_CPU_UM, the style vector within STYLE_TOL of max. The
-# domain phase: evaluate_synth_domain on the seeded width-1.0 net, one batch
-# of DOMAIN_BATCH of each domain's stream (seed 7777, bank seed 7919, the
-# records' protocol), card against CPU with the same limits; and the
-# band-limited refocus timed at that batch. CARD_CPU_UM is five times the
-# largest card-against-CPU distance either phase read, 0.0098 µm (PERF.md
+# mat phase's `eval --mat-root` on rbc_release at IMAGE^2 is held to the same
+# release on the CPU by the same limits. The band-limited refocus is timed at
+# DOMAIN_BATCH in the domain phase. CARD_CPU_UM is five times the largest
+# card-against-CPU distance read when it was set, 0.0098 µm (PERF.md
 # section 6), as the golden phase's GOLDEN_UM is set against its record.
 # The eval phase's profiler trace holds each asm_const launch as a region on
 # the host and on the card and ASM_TC_GEMMS device GEMMs (asm_propagate.cu's
@@ -606,7 +637,32 @@ MAT_IMAGE = 64
 MAT_TRAIN_STEPS = 2
 STYLE_TOL = 1e-4
 DOMAIN_BATCH = 32
-DOMAINS = {"rbc": ("red_blood_cell", synth.rbc_bank), "bead": ("polystyrene", synth.bead_bank)}
+# The domain releases (checkpoints/<tag>_release, width 1.0) by the records'
+# protocol: (preset, eval bank, the refined record's steps), the stream and
+# bank seeds, the refine-distance record's steps and the batches the phase
+# refines so (the first DOMAIN_REFINE_DISTANCE_BATCHES: all 10 would take the
+# phase past its budget). Held to <tag>_domain_metrics.json: the fp32 mean
+# within GOLDEN_FP32_BATCH_DB and R² within SUITE_R2, refined the mean
+# within REFINE_DB_TOL and R² within SUITE_R2. Where the records cannot be
+# reproduced by either package, the card is held to the port's own CPU
+# reading (DOMAIN_CPU_READINGS, written by `scripts/port_domain_eval.py
+# --save`, the command beside each reading): the fp32 records' per-batch
+# PSNRs and distances are not the run their means and R² come from (they
+# average to another mean; ROADMAP C.8), so every fp32 batch is held within
+# GOLDEN_FP32_BATCH_DB and every distance within GOLDEN_UM of the port's
+# CPU reading; the int8 records were taken on another stream or release
+# (ROADMAP C.6), so the int8 path in bf16 with the stacks off is held to the
+# port's CPU reading by the int8 rule (SUITE_DB, SUITE_R2). Refine-distance
+# on its 5 batches is held to the port's CPU reading of those batches by the
+# refined rule (REFINE_DB_TOL, SUITE_R2). The records' figures are printed
+# beside.
+DOMAINS = {"rbc": ("red_blood_cell", synth.rbc_bank, 200), "bead": ("polystyrene", synth.bead_bank, 100)}
+DOMAIN_STREAM_SEED = 7777
+DOMAIN_BANK_SEED = 7919
+DOMAIN_REFINE_DISTANCE_STEPS = 60
+DOMAIN_REFINE_DISTANCE_BATCHES = 5
+DOMAIN_CPU_READINGS = os.path.join(REPO, "checkpoints", "port_cpu_domain_readings.json")
+RBC_RELEASE = os.path.join(REPO, "checkpoints", "rbc_release")
 # The export phase: `fast` frozen at EXPORT_BATCH through the asm_const op;
 # the artifact against the live RetrievalService on one golden batch within
 # ARTIFACT_TOL of max (bit for bit expected: the same aten graph on the
@@ -1910,6 +1966,78 @@ def drive_serve(fast_net, fast_cfg, fast_style, fast_scales, goldens, dev, card_
     return {"nvidia_smi": smi, "batch": SERVE_BATCH, "requests": requests,
             "health": health, "rates": rates, "launches": dict(launches),
             "tolerance": "bit-equal (same batch shapes on the card)"}
+
+
+def drive_serve_domain(dev, smi) -> dict:
+    """The service that ``serve --checkpoint checkpoints/rbc_release --quant
+    auto`` runs (``cli.build_service``): its ``loaded`` lines must name rbc's
+    release, sibling style vector and band-limited config, and its answers
+    must be those of rbc's int8 scales and style vector, which the
+    flagship's would change. Two requests over HTTP (5 and 37 holograms of
+    the rbc stream: one chunk, and two with the last padded), each launching
+    no kernel and equal bit for bit to the direct int8 call on the service's
+    net with rbc's files."""
+    ckpt = os.path.join(REPO, "checkpoints")
+    argv = ["serve", "--checkpoint", RBC_RELEASE, "--quant", "auto"]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        service = port_cli.build_service(port_cli.build_parser().parse_args(argv))
+    if service is None:
+        _die(f"cli.build_service({argv}) found no style vector: {err.getvalue()}", 1)
+    with open(os.path.join(ckpt, "rbc_config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    scales = quant.load_scales(os.path.join(ckpt, "rbc_quant_scales.json"))
+    style = load_style_vector(os.path.join(ckpt, "rbc_style_vector.npz"))
+    loaded = {
+        line: line in err.getvalue()
+        for line in (f"loaded checkpoint {RBC_RELEASE}",
+                     f"loaded style vector {os.path.join(ckpt, 'rbc_style_vector.npz')}",
+                     f"loaded run config {os.path.join(ckpt, 'rbc_config.json')}")
+    }
+    loaded["rbc_config_physics"] = service.config.physics == cfg.physics and cfg.physics.band_limit
+    loaded["quantized"] = service.health()["quantized"]
+    if not all(loaded.values()):
+        _die(f"the rbc service loaded other files than rbc's: {loaded}; stderr: {err.getvalue()}", 1)
+    proto, _, bank, _ = domain_protocol("rbc")
+    holo = np.concatenate([domain_stream_batch(proto, bank, dev, i)[0].cpu().numpy() for i in (0, 1)])
+    d_style = float(cfg.physics.to_network_units(cfg.data.style_distances[0]))
+    fn = make_retrieval_fn(cfg.physics, alpha=cfg.eval.alpha, dtype=torch.bfloat16, quant_scales=scales,
+                           device=dev)
+    service.warmup()
+    requests, answers = {}, {}
+    with serving(service) as url:
+        for b in (5, 37):
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            t0 = time.monotonic()
+            got = retrieve_remote(url, holo[:b])
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            launches = _launch_counts()
+            if any(launches.values()):
+                _die(f"a band-limited rbc request of {b} launched {launches}", 1)
+            check_equal(got, direct_answer(fn, service.net, holo[:b], style, d_style, service.batch_size, dev),
+                        f"rbc int8 request of {b}")
+            requests[f"B{b}"] = {"equal": True, "launches": launches, "seconds": seconds}
+            answers[b] = got
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    if not health["quantized"] or health["batch_size"] != SERVE_BATCH:
+        _die(f"the rbc service's /healthz: {health}", 1)
+    # The flagship's int8 scales, or its style vector, answer otherwise.
+    flagship_fn = make_retrieval_fn(cfg.physics, alpha=cfg.eval.alpha, dtype=torch.bfloat16, device=dev,
+                                    quant_scales=quant.load_scales(os.path.join(ckpt, "quant_scales.json")))
+    flagship_style = load_style_vector(os.path.join(ckpt, "style_vector.npz"))
+    for name, (other_fn, other_style) in {"flagship_scales": (flagship_fn, style),
+                                          "flagship_style": (fn, flagship_style)}.items():
+        other = direct_answer(other_fn, service.net, holo[:5], other_style, d_style, service.batch_size, dev)
+        loaded[f"{name}_answer_otherwise"] = any(not np.array_equal(other[k], answers[5][k]) for k in other)
+    if not all(loaded.values()):
+        _die(f"the rbc service's answers do not tell rbc's files from the flagship's: {loaded}", 1)
+    x = torch.from_numpy(holo[:SERVE_BATCH]).to(dev)
+    direct_ms = median_ms(lambda: fn(service.net, x, *style, d_style), reps=SERVE_TIMED, warmup=2)
+    return {"nvidia_smi": smi, "argv": argv, "loaded": loaded, "health": health, "requests": requests,
+            "direct_int8_ms_B32": direct_ms, "tolerance": "bit-equal (same batch shapes on the card)"}
 
 
 def drive_stream(fast_net, fast_cfg, fast_style, goldens, dev, smi):
@@ -3492,7 +3620,47 @@ def _max_diff(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
 
 
-def drive_mat(dev):
+def mat_eval_release(state, dev) -> dict:
+    """``eval --checkpoint checkpoints/rbc_release --mat-root`` on the card
+    at IMAGE^2, against the port's ``evaluate_mat_tree`` on the CPU for the
+    same release and style vector: each batch's PSNR within
+    GOLDEN_FP32_BATCH_DB, each distance within CARD_CPU_UM, no kernel
+    launched (band-limited). The CLI must have loaded the release's sibling
+    style vector."""
+    argv = ["eval", "--checkpoint", RBC_RELEASE, "--mat-root", MAT_TREE, "--domain", "red_blood_cell",
+            "--image-size", str(IMAGE), "--batch-size", "4", "--json"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mat_rbc_") as tmp:
+        _reset_launch_counts()
+        t0 = time.monotonic()
+        lines, err = run_cli(argv + ["--save-dir", tmp, "--exp-name", "rbc"])
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = _launch_counts()
+        with open(os.path.join(tmp, "rbc", "mat_eval_metrics.json")) as f:
+            card = json.load(f)
+    style_path = os.path.join(REPO, "checkpoints", "rbc_style_vector.npz")
+    cfg = DOMAIN_PRESETS["red_blood_cell"]()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, image_size=IMAGE))
+    net_cpu = StyleTransferNet.from_state_dict(state, cfg.model.width)
+    cpu = evaluate_mat_tree(net_cpu, MAT_TREE, cfg, load_style_vector(style_path), domain="red_blood_cell",
+                            batch_size=4, device="cpu")
+    readings = {"psnr_db": _max_diff(card["psnr_per_batch"], cpu["psnr_per_batch"]),
+                "distance_um": _max_diff(card["distance_pred_um"], cpu["distance_pred_um"])}
+    loaded = [line for line in err.splitlines() if line.startswith("loaded ")]
+    held = (readings["psnr_db"] < GOLDEN_FP32_BATCH_DB and readings["distance_um"] < CARD_CPU_UM
+            and not any(launches.values()) and card["n_gt_scored"] == 9
+            and f"loaded checkpoint {RBC_RELEASE}" in loaded and f"loaded style vector {style_path}" in loaded)
+    info = {"argv": argv, "printed": lines, "loaded": loaded, "card_minus_cpu": readings,
+            "limits": [GOLDEN_FP32_BATCH_DB, CARD_CPU_UM],
+            "card": {k: card[k] for k in ("mean_psnr", "r2", "n_samples", "n_gt_scored")},
+            "cpu": {k: cpu[k] for k in ("mean_psnr", "r2")}, "launches": launches, "seconds": seconds}
+    if not held:
+        emit({"mat_rbc_release_readings": info})
+        _die("eval --mat-root on rbc_release: the card and the CPU disagree, or it loaded other files", 1)
+    return info
+
+
+def drive_mat(dev, rbc_state):
     """The mat phase (see the module docstring); returns its readings."""
     tree = ["--mat-root", MAT_TREE, "--domain", "red_blood_cell"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mat_") as tmp:
@@ -3547,31 +3715,183 @@ def drive_mat(dev):
     if not held:
         emit({"mat_readings": info})
         _die("the measured-tree chain on the card missed its checks", 1)
+    info["rbc_release"] = mat_eval_release(rbc_state, dev)
     return info
 
 
-def drive_domain(dev, smi):
-    """The domain phase (see the module docstring); returns its readings."""
-    net = seeded_weights_(StyleTransferNet(width=1.0), seed=0).eval()
-    net_card = copy.deepcopy(net).to(dev)
-    rows = {}
-    for tag, (preset, make_bank) in DOMAINS.items():
-        cfg = DOMAIN_PRESETS[preset]()
-        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=DOMAIN_BATCH))
-        style = load_style_vector(os.path.join(REPO, "checkpoints", f"{tag}_style_vector.npz"))
-        bank = make_bank(n=512, seed=7919)
-        asm_cuda.reset_launches()
-        t0 = time.monotonic()
-        card = evaluate_synth_domain(net_card, cfg, bank, style, n_batches=1, device=dev)
+def load_domain_release(tag: str):
+    """``checkpoints/<tag>_release`` read by the port's own orbax reader, as
+    ``drive_release`` reads the flagship (``bead``'s, saved on a TPU, with
+    no target): (its state dict, the read's seconds and bytes)."""
+    path = os.path.join(REPO, "checkpoints", f"{tag}_release")
+    t0 = time.monotonic()
+    store = ocdbt.Store(path)
+    tree = orbax_read.restore(path, store=store)
+    read = {"seconds": time.monotonic() - t0,
+            "bytes": store.bytes_read + os.path.getsize(os.path.join(path, "_METADATA"))}
+    return convert_params(tree["params"]), read
+
+
+def domain_protocol(tag: str):
+    """The records' protocol of a domain: (its preset at DOMAIN_BATCH, its
+    style vector, its eval bank, its records: fp32 and int8)."""
+    preset, make_bank, _ = DOMAINS[tag]
+    cfg = DOMAIN_PRESETS[preset]()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=DOMAIN_BATCH))
+    style = load_style_vector(os.path.join(REPO, "checkpoints", f"{tag}_style_vector.npz"))
+    records = {}
+    for kind, name in (("fp32", f"{tag}_domain_metrics.json"), ("int8", f"{tag}_quant_domain_metrics.json")):
+        with open(os.path.join(REPO, "checkpoints", name)) as f:
+            records[kind] = json.load(f)
+    return cfg, style, make_bank(n=512, seed=DOMAIN_BANK_SEED), records
+
+
+def domain_stream_batch(cfg, bank, device, i: int = 0):
+    """Batch ``i`` of the records' stream: (intensity holograms, GT phase)."""
+    batch = synth.synth_batch_from_key(jax_random.fold_in(jax_random.key(DOMAIN_STREAM_SEED), i),
+                                       torch.as_tensor(bank, device=device), cfg.data, cfg.physics,
+                                       return_gt=True)
+    return batch["content_holo"] ** 2, batch["phase_content"]
+
+
+_KERNEL_COUNTS = (asm_cuda, conv_stack, reflect_border, halo_conv)
+
+
+def _launch_counts() -> dict:
+    """Every kernel's launches since ``_reset_launch_counts``."""
+    return {k: v for m in _KERNEL_COUNTS for k, v in m.LAUNCHES.items()}
+
+
+def _reset_launch_counts() -> None:
+    for m in _KERNEL_COUNTS:
+        m.reset_launches()
+
+
+def domain_ring_batch(net, cfg, style, bank, dev) -> dict:
+    """The stream's first batch through ``retrieval_step`` in fp32 with the
+    ``cuda`` ring (exactly REFLECT_CONVS launches) against ``matpad``, by the
+    slice phase's rules."""
+    holo, _ = domain_stream_batch(cfg, bank, dev)
+    sm, ss = (torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev) for v in style)
+    d_style = float(cfg.physics.to_network_units(float(cfg.data.style_distances[0])))
+    fn = make_retrieval_fn(cfg.physics, alpha=cfg.eval.alpha, device=dev)
+    try:
+        set_reflect_backend("cuda")
+        _reset_launch_counts()
+        out_cuda = fn(net, holo, sm, ss, d_style)
         torch.cuda.synchronize()
-        seconds = time.monotonic() - t0
-        launches = dict(asm_cuda.LAUNCHES)
-        cpu = evaluate_synth_domain(net, cfg, bank, style, n_batches=1, device="cpu")
-        rows[tag] = {"psnr_db": _max_diff(card["psnr_per_batch"], cpu["psnr_per_batch"]),
-                     "distance_um": _max_diff(card["distance_pred_um"], cpu["distance_pred_um"]),
-                     "card_mean_psnr": card["mean_psnr"], "cpu_mean_psnr": cpu["mean_psnr"],
-                     "card_r2": card["r2"], "cpu_r2": cpu["r2"], "launches": launches,
-                     "card_seconds": seconds}
+        launches = _launch_counts()
+        set_reflect_backend("matpad")
+        out_matpad = fn(net, holo, sm, ss, d_style)
+        torch.cuda.synchronize()
+    finally:
+        set_reflect_backend("auto")
+    want = {k: 0 for k in launches} | {"border_lines": REFLECT_CONVS}
+    if launches != want:
+        _die(f"the domain batch with the cuda ring launched {launches}, want {want}", 1)
+    return {"launches": launches,
+            "cuda_vs_matpad": compare_outputs(out_cuda, out_matpad, SLICE_AMP_TOL, SLICE_DIST_TOL,
+                                              SLICE_PHASE_TOL, SLICE_PHASE_FRACTION,
+                                              "the domain batch's cuda and matpad rings")}
+
+
+def held_mean(metrics, want_db, want_r2, db_tol) -> dict:
+    """Mean PSNR within ``db_tol`` and R² within SUITE_R2 of a reading."""
+    d_db, d_r2 = metrics["mean_psnr"] - want_db, metrics["r2"] - want_r2
+    return {"mean_psnr": metrics["mean_psnr"], "want_mean_psnr": want_db, "mean_psnr_diff_db": d_db,
+            "margin_db": db_tol - abs(d_db), "r2": metrics["r2"], "want_r2": want_r2, "r2_diff": d_r2,
+            "limits": [db_tol, SUITE_R2], "held": abs(d_db) < db_tol and abs(d_r2) < SUITE_R2}
+
+
+def run_domain_release(tag, state, dev) -> dict:
+    """Every path of a domain release on its stream, each against its record
+    (see DOMAINS): fp32, refined, refine-distance, int8 with the stacks off
+    and on, and one batch with the ``cuda`` ring. Each path's launches are
+    counted from 0 just before it and read just after."""
+    _, _, refine_steps = DOMAINS[tag]
+    cfg, style, bank, records = domain_protocol(tag)
+    rec, q_rec = records["fp32"], records["int8"]
+    net = StyleTransferNet.from_state_dict(state, cfg.model.width).to(dev)
+    scales = quant.load_scales(os.path.join(REPO, "checkpoints", f"{tag}_quant_scales.json"))
+    n, n_q, bf16 = len(rec["psnr_per_batch"]), q_rec["n_batches"], torch.bfloat16
+    if (rec["refined_steps"], rec["refine_distance_steps"]) != (refine_steps, DOMAIN_REFINE_DISTANCE_STEPS):
+        _die(f"{tag}'s records were refined for {rec['refined_steps']} and {rec['refine_distance_steps']} "
+             f"steps, the phase runs {refine_steps} and {DOMAIN_REFINE_DISTANCE_STEPS}", 1)
+    paths = {
+        "fp32": ("off", n, {}),
+        "refined": ("off", n, {"refine_steps": refine_steps}),
+        "refine_distance": ("off", DOMAIN_REFINE_DISTANCE_BATCHES,
+                            {"refine_steps": DOMAIN_REFINE_DISTANCE_STEPS, "refine_distance": True}),
+        "int8_stacks_off": ("off", n_q, {"quant_scales": scales, "dtype": bf16}),
+        "int8_stacks_on": ("on", n_q, {"quant_scales": scales, "dtype": bf16}),
+    }
+    runs, launches, tc, seconds = {}, {}, {}, {}
+    try:
+        for path, (stacks, nb, kw) in paths.items():
+            quant.set_fused_stacks(stacks)
+            _reset_launch_counts()
+            t0 = time.monotonic()
+            runs[path] = evaluate_synth_domain(net, cfg, bank, style, n_batches=nb,
+                                               seed=DOMAIN_STREAM_SEED, device=dev, **kw)
+            torch.cuda.synchronize()
+            seconds[path] = time.monotonic() - t0
+            launches[path] = _launch_counts()
+            tc[path] = dict(conv_stack.TC_LAUNCHES)
+    finally:
+        quant.set_fused_stacks("auto")
+    with open(DOMAIN_CPU_READINGS) as f:
+        cpu = json.load(f)[tag]
+    fp, cpu_fp, cpu_rd = runs["fp32"], cpu["fp32"], cpu["refine_distance"]
+    batch_db = _max_diff(fp["psnr_per_batch"], cpu_fp["psnr_per_batch"])
+    um = _max_diff(fp["distance_pred_um"], cpu_fp["distance_pred_um"])
+    true_um = _max_diff(fp["distance_true_um"], rec["distance_true_um"])
+    on, off = runs["int8_stacks_on"], runs["int8_stacks_off"]
+    fp32 = held_mean(fp, rec["mean_psnr"], rec["r2"], GOLDEN_FP32_BATCH_DB)
+    fp32.update({
+        "max_batch_psnr_diff_db_vs_cpu": batch_db, "batch_db_margin": GOLDEN_FP32_BATCH_DB - batch_db,
+        "max_distance_diff_um_vs_cpu": um, "max_true_distance_diff_um": true_um,
+        "batch_limits": [GOLDEN_FP32_BATCH_DB, GOLDEN_UM],
+        "record_max_batch_psnr_diff_db": _max_diff(fp["psnr_per_batch"], rec["psnr_per_batch"]),
+        "record_max_distance_diff_um": _max_diff(fp["distance_pred_um"], rec["distance_pred_um"]),
+        "cpu_command": cpu_fp["command"],
+    })
+    fp32["held"] = (fp32["held"] and batch_db < GOLDEN_FP32_BATCH_DB and um < GOLDEN_UM
+                    and true_um < 1e-3 and cpu_fp["batches"] == n)
+    readings = {
+        "fp32": fp32,
+        "refined": {"steps": refine_steps, **held_mean(runs["refined"], rec["refined_mean_psnr"],
+                                                       rec["refined_r2"], REFINE_DB_TOL)},
+        "refine_distance": {"steps": DOMAIN_REFINE_DISTANCE_STEPS, "batches": DOMAIN_REFINE_DISTANCE_BATCHES,
+                            **held_mean(runs["refine_distance"], cpu_rd["mean_psnr"], cpu_rd["r2"], REFINE_DB_TOL),
+                            "record_mean_psnr_10_batches": rec["refine_distance_mean_psnr"],
+                            "record_r2_10_batches": rec["refine_distance_r2"], "cpu_command": cpu_rd["command"]},
+        "int8_stacks_off": {"batches": n_q, **held_mean(off, cpu["int8"]["mean_psnr"], cpu["int8"]["r2"],
+                                                        SUITE_DB),
+                            "record_mean_psnr": q_rec["mean_psnr"], "record_r2": q_rec["r2"],
+                            "cpu_command": cpu["int8"]["command"]},
+        "int8_stacks_on": {"mean_psnr": on["mean_psnr"], "r2": on["r2"],
+                           "minus_stacks_off_db": on["mean_psnr"] - off["mean_psnr"],
+                           "tensor_core_launches": tc["int8_stacks_on"]},
+    }
+    readings["int8_stacks_off"]["held"] &= cpu["int8"]["batches"] == n_q
+    readings["refine_distance"]["held"] &= cpu_rd["batches"] == DOMAIN_REFINE_DISTANCE_BATCHES
+    stacks = {"fused_encoder_head": n_q, "fused_conv_tail": n_q}
+    want = {p: {k: stacks.get(k, 0) if p == "int8_stacks_on" else 0 for k in launches[p]} for p in paths}
+    misses = [p for p, r in readings.items() if not r.get("held", True)]
+    if launches != want or tc["int8_stacks_on"] != stacks:
+        misses.append("launches")
+    info = {"readings": readings, "launches": launches, "seconds_by_path": seconds}
+    if misses:
+        emit({"domain_readings": {tag: info}, "want_launches": want})
+        _die(f"the {tag} release on the card missed {misses}", 1)
+    info["ring_batch"] = domain_ring_batch(net, cfg, style, bank, dev)
+    return info
+
+
+def drive_domain(releases, dev, smi):
+    """The domain phase (see the module docstring); returns its readings."""
+    rows = {tag: {"read": releases[tag][1], **run_domain_release(tag, releases[tag][0], dev)}
+            for tag in DOMAINS}
     # The band-limited refocus of a retrieval at this batch (rbc's style
     # plane, -6 mm): torch.fft, as neither kernel takes a band limit; beside
     # the same refocus without it through torch.fft and through asm_const.
@@ -3586,14 +3906,11 @@ def drive_domain(dev, smi):
         "torch_fft_ms": median_ms(lambda: propagate_torch(field, d_m, **kw)),
         "asm_const_ms": median_ms(lambda: asm_cuda.asm_const(xre, xim, d_m, **kw)),
     }
-    held = all(r["psnr_db"] < GOLDEN_FP32_BATCH_DB and r["distance_um"] < CARD_CPU_UM
-               and r["launches"] == {"asm_const": 0, "asm_dynamic": 0} for r in rows.values())
-    info = {"nvidia_smi": smi, "card_vs_cpu": rows, "limits": [GOLDEN_FP32_BATCH_DB, CARD_CPU_UM],
-            "band_limited_refocus": timing}
-    if not held:
-        emit({"domain_readings": info})
-        _die("the domain phase: card and CPU disagree, or a band-limited path launched a kernel", 1)
-    return info
+    launches = collections.Counter()
+    for row in rows.values():
+        for counts in (*row["launches"].values(), row["ring_batch"]["launches"]):
+            launches.update(counts)
+    return {"nvidia_smi": smi, "releases": rows, "launches": dict(launches), "band_limited_refocus": timing}
 
 
 def start_cold(script: str, *args: str):
@@ -4257,10 +4574,12 @@ def main() -> int:
 
     with Phase("release") as phase:
         release_info = drive_release(goldens, dev, smi)
-        phase.info = release_info
+        domain_releases = {tag: load_domain_release(tag) for tag in DOMAINS}
+        phase.info = {**release_info, "domain_reads": {t: r[1] for t, r in domain_releases.items()}}
 
     with Phase("serve") as phase:
         serve_info = drive_serve(fast_net, fast_cfg, fast_style, fast_scales, goldens, dev, name, smi)
+        serve_info["rbc_release"] = drive_serve_domain(dev, smi)
         phase.info = serve_info
 
     with Phase("stream") as phase:
@@ -4272,11 +4591,11 @@ def main() -> int:
         phase.info = eval_info
 
     with Phase("mat") as phase:
-        mat_info = drive_mat(dev)
+        mat_info = drive_mat(dev, domain_releases["rbc"][0])
         phase.info = mat_info
 
     with Phase("domain") as phase:
-        domain_info = drive_domain(dev, smi)
+        domain_info = drive_domain(domain_releases, dev, smi)
         phase.info = domain_info
 
     with Phase("export") as phase:
@@ -4530,7 +4849,7 @@ def main() -> int:
                                  "eval": eval_info["launches"][k],
                                  "eval_refine": eval_info["refine_launches"][k],
                                  "mat": mat_info["launches"][k],
-                                 "domain": sum(r["launches"][k] for r in domain_info["card_vs_cpu"].values()),
+                                 "domain": domain_info["launches"][k],
                                  "export": export_info["launches"][k],
                                  "synth_bench": commands_info["synth_bench"]["launches"][k],
                                  "sweep": commands_info["sweep"]["launches"][k],
@@ -4563,6 +4882,7 @@ def main() -> int:
                          "train_bf16_step_convs": ring_train["convs"],
                          "train_bf16_worst_bf16_ulps": train_mixed["bf16_card_vs_cpu"]["ring_worst_bf16_ulps"],
                          "launches_by_path": {"reflect": launches["border_lines"],
+                                              "domain": domain_info["launches"]["border_lines"],
                                               "ablations": ablation_info["launches"]["border_lines"],
                                               "parallel": parallel_info["launches"]["border_lines"],
                                               "pipeline_and_sharded_refocus":
@@ -4597,6 +4917,7 @@ def main() -> int:
             "library_ms_by_dtype": {_dt(d): conv_timings[k, d][2] for d in CONV_TOLERANCES},
             **({"launches_by_path": {"quant": launches[k], "golden": golden_launches[k],
                                      "release": release_info["launches"][k],
+                                     "domain": domain_info["launches"][k],
                                      "export_int8": export_info["int8_launches"][k]}}
                if k in golden_launches else {}),
             **extras.get(k, {}),

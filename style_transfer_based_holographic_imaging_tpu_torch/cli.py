@@ -364,10 +364,8 @@ def cmd_serve(args):
     """Long-lived retrieval server (pipelines/server.py): the weights on the
     card, npz requests over HTTP; with ``--artifact`` a frozen export file
     instead of a checkpoint."""
-    device = _setup_backend(args)
     from style_transfer_based_holographic_imaging_tpu_torch.pipelines.server import (
         ArtifactService,
-        RetrievalService,
         serve_forever,
     )
 
@@ -382,7 +380,7 @@ def cmd_serve(args):
                   "quantization from the file: drop --quant/--checkpoint/--style-vector "
                   "(use 'export' to change them)", file=sys.stderr)
             return 1
-        service = ArtifactService(args.artifact, device)
+        service = ArtifactService(args.artifact, _setup_backend(args))
         if args.batch_size is not None and args.batch_size != service.batch_size:
             print(f"note: --batch-size {args.batch_size} ignored: the artifact was exported "
                   f"at batch {service.batch_size}; requests are padded/chunked to that",
@@ -392,15 +390,31 @@ def cmd_serve(args):
         serve_forever(service, args.host, args.port, ready=_ready(service))
         return 0
 
-    from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
+    service = build_service(args)
+    if service is None:
+        return 1
+    print("warming up ...", file=sys.stderr)
+    service.warmup()
+    serve_forever(service, args.host, args.port, ready=_ready(service))
+    return 0
 
+
+def build_service(args):
+    """The ``RetrievalService`` that ``serve`` runs for a checkpoint: the
+    weights, style vector, run config and ``--quant`` scales found as the
+    other commands find them (a domain release's ``<tag>_*`` siblings).
+    None, after a line on stderr, when no style vector is found."""
+    from style_transfer_based_holographic_imaging_tpu_torch.models import StyleTransferNet
+    from style_transfer_based_holographic_imaging_tpu_torch.pipelines.server import RetrievalService
+
+    device = _setup_backend(args)
     state = _load_params(args)
     style = _load_style(args)
     if style is None:
         print("no style vector found — required for serving", file=sys.stderr)
-        return 1
+        return None
     cfg = _load_config(args) or ExperimentConfig(model=ModelConfig(image_size=args.image_size))
-    service = RetrievalService(
+    return RetrievalService(
         StyleTransferNet.from_state_dict(state, cfg.model.width),
         style,
         cfg,
@@ -411,10 +425,6 @@ def cmd_serve(args):
         device=device,
         mesh=_mesh(args) if args.devices and args.devices > 1 else None,
     )
-    print("warming up ...", file=sys.stderr)
-    service.warmup()
-    serve_forever(service, args.host, args.port, ready=_ready(service))
-    return 0
 
 
 def cmd_export(args):

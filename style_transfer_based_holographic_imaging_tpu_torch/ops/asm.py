@@ -27,6 +27,7 @@ import os
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 __all__ = [
     "kz_rel_grid",
@@ -85,6 +86,33 @@ def kz_rel_grid(height: int, width: int, *, pixel_size: float, wavelength: float
     out = (np.float32(2.0 * math.pi) * rel).astype(np.float32)
     out.setflags(write=False)
     return out
+
+
+def _make_grids(height: int, width: int, pixel_size: float, wavelength: float, device: torch.device):
+    """``kz_rel_grid`` and the absolute fp32 frequencies ``|fy|``, ``|fx|``
+    of a padded grid, on ``device``; plain tensors even under
+    ``torch.inference_mode``, so that a later differentiated call may use
+    them."""
+    with torch.inference_mode(False):
+        kz_rel = torch.tensor(kz_rel_grid(height, width, pixel_size=pixel_size, wavelength=wavelength),
+                              device=device)
+        fy = torch.tensor(_fftfreq32(height, pixel_size), device=device).abs()
+        fx = torch.tensor(_fftfreq32(width, pixel_size), device=device).abs()
+    return kz_rel, fy, fx
+
+
+_cached_grids = functools.lru_cache(maxsize=16)(_make_grids)
+
+
+def _device_grids(field: torch.Tensor, height: int, width: int, pixel_size: float, wavelength: float):
+    """``_make_grids`` on ``field``'s device, made once for real tensors: a
+    copy from host memory at every call would wait there for the card to
+    drain its queue, three times a propagation. Shared by every caller:
+    read them, never write. A traced call (fake tensors, ``torch.compile``)
+    makes its own."""
+    if torch.compiler.is_compiling() or is_fake(field):
+        return _make_grids(height, width, pixel_size, wavelength, field.device)
+    return _cached_grids(height, width, pixel_size, wavelength, field.device)
 
 
 def pad_replicate(field: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
@@ -195,7 +223,7 @@ def propagate_torch(
         field = pad_replicate(field, h * (pad_factor - 1) // 2, w * (pad_factor - 1) // 2)
     ph, pw = field.shape[-2], field.shape[-1]
 
-    kz_rel = torch.tensor(kz_rel_grid(ph, pw, pixel_size=pixel_size, wavelength=wavelength), device=dev)
+    kz_rel, fy, fx = _device_grids(field, ph, pw, pixel_size, wavelength)
     d = torch.as_tensor(distance, dtype=torch.float32, device=dev)
     phase = d * kz_rel
     transfer = torch.complex(torch.cos(phase), torch.sin(phase))
@@ -203,8 +231,6 @@ def propagate_torch(
     if band_limit:
         # Matsushima & Shimobaba 2009: beyond f_lim the sampled transfer
         # function's local fringe frequency aliases; zero it.
-        fy = torch.tensor(_fftfreq32(ph, pixel_size), device=dev).abs()
-        fx = torch.tensor(_fftfreq32(pw, pixel_size), device=dev).abs()
         d_abs = d.abs()
         span_h = float(np.float32(ph * pixel_size))
         span_w = float(np.float32(pw * pixel_size))

@@ -3,7 +3,9 @@
 Relative tolerance 1e-5 of max|ref| (fp32 sums taken in another order),
 except where stated: the static and per-sample refocus distances must agree
 bit for bit, and the congruent unwrap must match exactly in whole multiples
-of 2 pi away from ties of its rounding.
+of 2 pi away from ties of its rounding. The propagator's grids, made once
+a device and shape, give what fresh ones give, bit for bit, and keep their
+gradient after a first call under ``torch.inference_mode``.
 """
 
 import math
@@ -227,3 +229,24 @@ def test_config_parses_release_config():
     assert cfg.physics == PhysicsConfig(wavelength=5.32e-07, pixel_size=1.5e-06)
     assert cfg.physics.to_network_units(cfg.physics.to_metres(0.4) * 1e3) == pytest.approx(0.4)
     assert cfg.eval.alpha == 1.0
+
+
+@pytest.mark.parametrize("band_limit", [False, True])
+def test_propagate_grids_made_once_keep_results_and_gradients(band_limit):
+    from style_transfer_based_holographic_imaging_tpu_torch.ops import asm
+
+    kw = dict(wavelength=5.32e-7, pixel_size=1.5e-6, band_limit=band_limit)
+    rng = np.random.default_rng(3)
+    x = torch.complex(*(torch.from_numpy(rng.standard_normal((2, 1, 24, 24)).astype(np.float32)) for _ in "ri"))
+    d = torch.tensor([4e-3, 7e-3]).reshape(2, 1, 1, 1)
+    asm._cached_grids.cache_clear()
+    with torch.inference_mode():  # the first call makes the grids
+        first = asm.propagate_torch(x, d, **kw)
+    d_grad = d.clone().requires_grad_(True)
+    again = asm.propagate_torch(x, d_grad, **kw)
+    assert torch.equal(first, again.detach())
+    (grad,) = torch.autograd.grad(again.abs().square().sum() + again.real.sum(), d_grad)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
+    fresh = asm._make_grids(48, 48, kw["pixel_size"], kw["wavelength"], torch.device("cpu"))
+    assert all(torch.equal(a, b) for a, b in zip(asm._cached_grids(48, 48, kw["pixel_size"], kw["wavelength"],
+                                                                   torch.device("cpu")), fresh))
