@@ -121,6 +121,30 @@ line naming it and ends the run with exit code 3; nothing hangs):
    Then the two domain releases, ``checkpoints/rbc_release`` and
    ``bead_release`` (``bead``'s, saved on a TPU, with no target), read by
    the same reader for phases 11, 14 and 15.
+10c. ``narrow_releases`` — the narrow MNIST releases ``balanced``,
+   ``turbo`` and ``ultra`` (widths 0.75, 0.375, 0.25) read by the same
+   reader (seconds and bytes), each over the whole suite through the
+   ``golden`` phase's fp32 and int8 paths (``run_golden``): fp32 every
+   batch within 0.3 dB of ``golden_metrics.json``, and within 0.005 dB and
+   every distance within 3 µm of the port's CPU reading
+   (``checkpoints/port_cpu_golden_readings.json``), since both packages
+   miss the records' distances alike (ROADMAP C.10); int8 with the stacks
+   off within 0.05 dB and R² 1e-4 of ``quant_golden_metrics.json``,
+   ``ultra``'s R² against the port's CPU reading (ROADMAP C.2); the stacks
+   on printed, the head and tail 20 launches each, on the tensor cores.
+   Then the refine with the distance (``eval --refine N
+   --refine-distance``) at the records' 240 steps on the first 3 golden
+   batches of ``balanced`` and ``turbo``, batch by batch: the mean within
+   0.05 dB and R² within 1e-4 of the port's CPU reading of those batches at
+   2 torch threads, the 20-batch records printed, ``asm_const`` 3 and
+   ``asm_dynamic`` 3 x (120 + 240 + 1) launches. Last, ``cli eval
+   --checkpoint checkpoints/turbo/release --refine 10 --refine-distance``
+   in process (the whole suite: the CLI scores no fewer batches) against
+   the direct ``evaluate_golden_suite`` call with the same arguments, each
+   batch within 2e-4 dB and each distance within 0.05 µm, 20 + 420 ASM
+   launches. Every count is reset just before its path and read just
+   after; a propagation through ``torch.fft`` on these paths fails the
+   phase.
 11. ``serve``  — ``RetrievalService`` on the ``fast`` weights (bf16, batch
    32) behind ``serve_forever`` on 127.0.0.1, port 0, in a daemon thread:
    requests of B = 1, 5 (a golden batch) and 37 (chunked and padded) through
@@ -449,12 +473,14 @@ from style_transfer_based_holographic_imaging_tpu_torch.ops import (  # noqa: E4
     unwrap_phase,
     unwrap_phase_native,
 )
+from style_transfer_based_holographic_imaging_tpu_torch.ops import asm as asm_ops  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops.asm import propagate, propagate_torch  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.ops.stats import (  # noqa: E402
     adain_with_stats,
     calc_mean_std,
 )
 from style_transfer_based_holographic_imaging_tpu_torch import parallel  # noqa: E402
+from style_transfer_based_holographic_imaging_tpu_torch import pipelines as port_pipelines  # noqa: E402
 from style_transfer_based_holographic_imaging_tpu_torch.pipelines import (  # noqa: E402
     ArtifactService,
     RetrievalService,
@@ -523,7 +549,7 @@ TOTAL_BUDGET_S = 285.0
 BUDGETS_S = {
     "device": 60.0, "build": 150.0, "kernels": 90.0, "slice": 90.0, "refine": 60.0,
     "conv_kernels": 90.0, "quant": 90.0, "reflect": 60.0, "halo": 60.0, "golden": 60.0, "serve": 90.0,
-    "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "release": 25.0, "export": 45.0, "commands": 30.0,
+    "stream": 30.0, "eval": 30.0, "mat": 30.0, "domain": 30.0, "release": 25.0, "narrow_releases": 20.0, "export": 45.0, "commands": 30.0,
     "train": 90.0, "parallel": 45.0, "ablations": 20.0, "timing": 120.0,
 }
 TOLERANCES = {"highest": 1e-5, "high": 1e-4, "bf16": 2e-2}
@@ -593,6 +619,32 @@ FAST = os.path.join(REPO, "checkpoints", "fast")
 # The flagship release (the `release` phase): its orbax weights, config,
 # style vector, int8 scales and records.
 FLAGSHIP = os.path.join(REPO, "checkpoints")
+# The narrow MNIST releases (the `narrow_releases` phase): checkpoints/<name>
+# at widths 0.75, 0.375 and 0.25, each through run_golden's fp32 and int8
+# paths (NARROW_PATHS). ultra's int8 R² is held to the port's CPU reading
+# (GOLDEN_CPU_READINGS, written by `scripts/port_golden_eval.py --save`),
+# since both packages miss its record alike (ROADMAP C.2); its mean to the
+# record. The refine with the distance (`eval --refine N --refine-distance`)
+# at the records' NARROW_REFINE_DISTANCE_STEPS on the first
+# NARROW_REFINE_DISTANCE_BATCHES batches of balanced and turbo, held to the
+# port's CPU reading of those batches at FEW_THREADS torch threads (the
+# refine with the distance moves with them, ROADMAP C.7): the mean within
+# REFINE_DB_TOL and R² within SUITE_R2; the 20-batch records printed. Then
+# `cli eval --refine NARROW_CLI_REFINE_STEPS --refine-distance` on turbo in
+# process against the direct call with the same arguments: each batch's
+# PSNR within CLI_REPEAT_DB (repeated refines on the card part by up to
+# 2e-4 dB, PERF.md section 6) and each distance within CARD_CPU_UM.
+NARROW_RELEASES = ("balanced", "turbo", "ultra")
+NARROW_PATHS = ("fp32", "int8_stacks_off", "int8_stacks_on")
+NARROW_INT8_R2_FROM_CPU = ("ultra",)
+NARROW_REFINE_DISTANCE = ("balanced", "turbo")
+NARROW_REFINE_DISTANCE_STEPS = 240
+NARROW_REFINE_DISTANCE_BATCHES = 3
+NARROW_CLI_RELEASE = "turbo"
+NARROW_CLI_REFINE_STEPS = 10
+FEW_THREADS = 2
+CLI_REPEAT_DB = 2e-4
+GOLDEN_CPU_READINGS = os.path.join(REPO, "checkpoints", "port_cpu_golden_readings.json")
 GOLDEN_BATCH_DB = 0.3
 # fp32 every batch also within GOLDEN_FP32_BATCH_DB, tight enough to tell
 # fp32 from bf16: the card's fp32 reads 4.4e-5 dB at most on a batch, the
@@ -1702,12 +1754,21 @@ def suite_rule(metrics, record):
             "held": abs(d_db) < SUITE_DB and abs(d_r2) < SUITE_R2}
 
 
-def run_golden(net, goldens, cfg, style, scales, records, device):
-    """Every path of the release over the suite on the card, each against
-    its record (the bf16 path only where the release has a bf16 record).
+GOLDEN_PATHS = ("fp32", "int8_stacks_off", "int8_stacks_on", "refined", "bf16")
+
+
+def run_golden(net, goldens, cfg, style, scales, records, device, paths=GOLDEN_PATHS, fp32_reading=None):
+    """``paths`` of the release (``GOLDEN_PATHS``, every one by default) over
+    the suite on the card, each against its record (the bf16 path only where
+    the release has a bf16 record; int8 with the stacks on printed beside
+    the stacks off). fp32 every batch within GOLDEN_BATCH_DB of the record,
+    and every batch within GOLDEN_FP32_BATCH_DB and every distance within
+    GOLDEN_UM of the record or, where neither package reproduces the
+    record's per-batch arrays (``fp32_reading``, the port's CPU reading;
+    ROADMAP C.10), of that reading, the record's distances printed.
     Returns (readings, launches, seconds by path)."""
     bf16 = torch.bfloat16
-    paths = {
+    kwargs = {
         "fp32": ("off", {}),
         "int8_stacks_off": ("off", {"quant_scales": scales, "dtype": bf16}),
         "int8_stacks_on": ("on", {"quant_scales": scales, "dtype": bf16}),
@@ -1718,7 +1779,8 @@ def run_golden(net, goldens, cfg, style, scales, records, device):
     asm_cuda.reset_launches()
     conv_stack.reset_launches()
     try:
-        for path, (stacks, kw) in paths.items():
+        for path in paths:
+            stacks, kw = kwargs[path]
             quant.set_fused_stacks(stacks)
             t0 = time.monotonic()
             runs[path] = evaluate_golden_suite(net, goldens, cfg, style_override=style, device=device, **kw)
@@ -1729,44 +1791,71 @@ def run_golden(net, goldens, cfg, style, scales, records, device):
     launches = {**asm_cuda.LAUNCHES, **conv_stack.LAUNCHES}
     tc = dict(conv_stack.TC_LAUNCHES)
 
-    fp, rec = runs["fp32"], records["fp32"]
-    batch_db = max(abs(a - b) for a, b in zip(fp["psnr_per_batch"], rec["psnr_per_batch"]))
-    um = max(abs(a - b) for a, b in zip(fp["distance_pred_um"], rec["distance_pred_um"]))
-    ref = runs["refined"]
-    d_ref = ref["mean_psnr"] - rec["refined_mean_psnr"]
-    d_held = ref["heldout_mean_psnr"] - rec["refined_heldout_mean_psnr"]
-    on, off = runs["int8_stacks_on"], runs["int8_stacks_off"]
-    readings = {
-        "fp32": {"mean_psnr": fp["mean_psnr"], "record_mean_psnr": rec["mean_psnr"],
-                 "heldout_mean_psnr": fp["heldout_mean_psnr"], "r2": fp["r2"], "record_r2": rec["r2"],
-                 "max_batch_psnr_diff_db": batch_db, "max_distance_diff_um": um,
-                 "batch_db_limits": [GOLDEN_BATCH_DB, GOLDEN_FP32_BATCH_DB],
-                 "batch_db_margin": GOLDEN_FP32_BATCH_DB - batch_db,
-                 "held": batch_db < GOLDEN_BATCH_DB and batch_db < GOLDEN_FP32_BATCH_DB
-                 and um < GOLDEN_UM},
-        "int8_stacks_off": suite_rule(off, records["int8"]),
-        "int8_stacks_on": {"mean_psnr": on["mean_psnr"], "heldout_mean_psnr": on["heldout_mean_psnr"],
-                           "r2": on["r2"], "minus_stacks_off_db": on["mean_psnr"] - off["mean_psnr"],
-                           "tensor_core_launches": tc},
-        "refined": {"mean_psnr": ref["mean_psnr"], "record_mean_psnr": rec["refined_mean_psnr"],
-                    "heldout_mean_psnr": ref["heldout_mean_psnr"],
-                    "record_heldout_mean_psnr": rec["refined_heldout_mean_psnr"],
-                    "mean_psnr_diff_db": d_ref, "heldout_diff_db": d_held,
-                    "held": abs(d_ref) < REFINE_DB_TOL and abs(d_held) < REFINE_DB_TOL},
+    rec = records["fp32"]
+    readings = {}
+    if "fp32" in runs:
+        fp = runs["fp32"]
+        held_to = fp32_reading or rec
+        batch_db = _max_diff(fp["psnr_per_batch"], rec["psnr_per_batch"])
+        tight_db = _max_diff(fp["psnr_per_batch"], held_to["psnr_per_batch"])
+        um = _max_diff(fp["distance_pred_um"], held_to["distance_pred_um"])
+        readings["fp32"] = {
+            "mean_psnr": fp["mean_psnr"], "record_mean_psnr": rec["mean_psnr"],
+            "heldout_mean_psnr": fp["heldout_mean_psnr"], "r2": fp["r2"], "record_r2": rec["r2"],
+            "max_batch_psnr_diff_db": batch_db, "max_distance_diff_um": um,
+            "batch_db_limits": [GOLDEN_BATCH_DB, GOLDEN_FP32_BATCH_DB],
+            "tight_batch_psnr_diff_db": tight_db,
+            "tight_against": fp32_reading["command"] if fp32_reading else "the record",
+            "max_distance_diff_vs_record_um": _max_diff(fp["distance_pred_um"], rec["distance_pred_um"]),
+            "batch_db_margin": GOLDEN_FP32_BATCH_DB - tight_db,
+            "held": batch_db < GOLDEN_BATCH_DB and tight_db < GOLDEN_FP32_BATCH_DB and um < GOLDEN_UM}
+    if "int8_stacks_off" in runs:
+        readings["int8_stacks_off"] = suite_rule(runs["int8_stacks_off"], records["int8"])
+    if "int8_stacks_on" in runs:
+        on = runs["int8_stacks_on"]
+        readings["int8_stacks_on"] = {
+            "mean_psnr": on["mean_psnr"], "heldout_mean_psnr": on["heldout_mean_psnr"], "r2": on["r2"],
+            "tensor_core_launches": tc,
+            **({"minus_stacks_off_db": on["mean_psnr"] - runs["int8_stacks_off"]["mean_psnr"]}
+               if "int8_stacks_off" in runs else {})}
+    if "refined" in runs:
+        ref = runs["refined"]
+        d_ref = ref["mean_psnr"] - rec["refined_mean_psnr"]
+        d_held = ref["heldout_mean_psnr"] - rec["refined_heldout_mean_psnr"]
+        readings["refined"] = {
+            "mean_psnr": ref["mean_psnr"], "record_mean_psnr": rec["refined_mean_psnr"],
+            "heldout_mean_psnr": ref["heldout_mean_psnr"],
+            "record_heldout_mean_psnr": rec["refined_heldout_mean_psnr"],
+            "mean_psnr_diff_db": d_ref, "heldout_diff_db": d_held,
+            "held": abs(d_ref) < REFINE_DB_TOL and abs(d_held) < REFINE_DB_TOL}
+    if "bf16" in runs:
         # a release without a bf16 record (the flagship): printed, not held
-        "bf16": (suite_rule(runs["bf16"], records["bf16"]) if "bf16" in records
-                 else {"mean_psnr": runs["bf16"]["mean_psnr"], "r2": runs["bf16"]["r2"],
-                       "heldout_mean_psnr": runs["bf16"]["heldout_mean_psnr"],
-                       "minus_fp32_db": runs["bf16"]["mean_psnr"] - fp["mean_psnr"], "gated": False}),
-    }
+        readings["bf16"] = (suite_rule(runs["bf16"], records["bf16"]) if "bf16" in records
+                            else {"mean_psnr": runs["bf16"]["mean_psnr"], "r2": runs["bf16"]["r2"],
+                                  "heldout_mean_psnr": runs["bf16"]["heldout_mean_psnr"],
+                                  "minus_fp32_db": runs["bf16"]["mean_psnr"] - runs["fp32"]["mean_psnr"],
+                                  "gated": False})
     n = goldens.n_batches
-    want = {"asm_const": len(paths) * n, "asm_dynamic": n * (REFINE_STEPS + 1),
-            "fused_encoder_head": n, "fused_conv_tail": n}
+    stacks_on = n if "int8_stacks_on" in runs else 0
+    want = {"asm_const": len(runs) * n, "asm_dynamic": n * (REFINE_STEPS + 1) if "refined" in runs else 0,
+            "fused_encoder_head": stacks_on, "fused_conv_tail": stacks_on}
     misses = [p for p, r in readings.items() if not r.get("held", True)]
     if launches != want or tc != conv_stack.LAUNCHES or misses:
         emit({"golden_readings": readings, "launches": launches, "want_launches": want})
         _die(f"the release on the card missed {misses or 'its launch counts'}", 1)
     return readings, launches, seconds
+
+
+def read_release(path: str):
+    """An orbax release read by the port's own reader (``bead``'s, saved on
+    a TPU, with no target): (its state dict, the read's seconds and
+    bytes)."""
+    t0 = time.monotonic()
+    store = ocdbt.Store(path)
+    tree = orbax_read.restore(path, store=store)
+    read = {"seconds": time.monotonic() - t0,
+            "bytes": store.bytes_read + os.path.getsize(os.path.join(path, "_METADATA"))}
+    return convert_params(tree["params"]), read
 
 
 def drive_release(goldens, device, smi) -> dict:
@@ -1775,13 +1864,7 @@ def drive_release(goldens, device, smi) -> dict:
     int8 with the stacks off and on, refined (``run_golden``; the flagship
     has no bf16 record: its bf16 mean is printed). The CLI's loader with no
     ``--checkpoint`` must give the same state dict."""
-    path = os.path.join(FLAGSHIP, "release")
-    t0 = time.monotonic()
-    store = ocdbt.Store(path)
-    tree = orbax_read.restore(path, store=store)
-    read = {"seconds": time.monotonic() - t0,
-            "bytes": store.bytes_read + os.path.getsize(os.path.join(path, "_METADATA"))}
-    state = convert_params(tree["params"])
+    state, read = read_release(os.path.join(FLAGSHIP, "release"))
     with open(os.path.join(FLAGSHIP, "config.json")) as f:
         cfg = ExperimentConfig.from_json(f.read())
     net = StyleTransferNet.from_state_dict(state, cfg.model.width).to(device)
@@ -1799,6 +1882,164 @@ def drive_release(goldens, device, smi) -> dict:
     return {"release": "checkpoints/release", "width": cfg.model.width, "read": read,
             "leaves": len(state), "default_load_params_equal": True, "readings": readings,
             "launches": launches, "seconds_by_path": seconds, "nvidia_smi": smi}
+
+
+def narrow_release(name: str, device):
+    """``checkpoints/<name>`` on the card: (net, config, style vector, int8
+    scales, records: fp32 and int8, the read's seconds and bytes)."""
+    root = os.path.join(REPO, "checkpoints", name)
+    state, read = read_release(os.path.join(root, "release"))
+    with open(os.path.join(root, "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    net = StyleTransferNet.from_state_dict(state, cfg.model.width).to(device)
+    records = {}
+    for kind, fname in (("fp32", "golden_metrics.json"), ("int8", "quant_golden_metrics.json")):
+        with open(os.path.join(root, fname)) as f:
+            records[kind] = json.load(f)
+    return (net, cfg, load_style_vector(os.path.join(root, "style_vector.npz")),
+            quant.load_scales(os.path.join(root, "quant_scales.json")), records, read)
+
+
+@contextlib.contextmanager
+def propagate_never_through_torch_fft():
+    """``ops.asm.propagate_torch`` dies while the block runs: a propagation
+    that fell back to the ``torch.fft`` composition instead of a kernel
+    fails the phase."""
+    real = asm_ops.propagate_torch
+
+    def refused(*args, **kwargs):
+        _die("a propagation fell back to torch.fft on the card", 1)
+
+    asm_ops.propagate_torch = refused
+    try:
+        yield
+    finally:
+        asm_ops.propagate_torch = real
+
+
+def refine_distance_launches(batches: int, steps: int) -> dict:
+    """A refine with the distance over ``batches`` golden batches: a batch's
+    refocus (one ``asm_const``), max(steps // 2, 10) distance steps, ``steps``
+    joint steps and the residual (one ``asm_dynamic`` each)."""
+    return {"asm_const": batches, "asm_dynamic": batches * (max(steps // 2, 10) + steps + 1),
+            "fused_encoder_head": 0, "fused_conv_tail": 0}
+
+
+def narrow_refine_distance(net, goldens, cfg, style, record, reading, device) -> dict:
+    """The refine with the distance at NARROW_REFINE_DISTANCE_STEPS on the
+    first NARROW_REFINE_DISTANCE_BATCHES golden batches on the card, batch by
+    batch as the JAX package refines, held to the port's CPU reading of the
+    same batches; the launches counted from 0 around it."""
+    n, steps = NARROW_REFINE_DISTANCE_BATCHES, NARROW_REFINE_DISTANCE_STEPS
+    if (reading["batches"], reading["refine_steps"], reading["threads"]) != (n, steps, FEW_THREADS):
+        _die(f"{GOLDEN_CPU_READINGS} holds another reading: {reading['command']}", 1)
+    asm_cuda.reset_launches()
+    conv_stack.reset_launches()
+    t0 = time.monotonic()
+    with propagate_never_through_torch_fft():
+        got = evaluate_golden_suite(net, goldens.subset(n), cfg, style_override=style, refine_steps=steps,
+                                    refine_distance=True, device=device)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = {**asm_cuda.LAUNCHES, **conv_stack.LAUNCHES}
+    want = refine_distance_launches(n, steps)
+    d_db, d_r2 = got["mean_psnr"] - reading["mean_psnr"], got["r2"] - reading["r2"]
+    out = {"batches": n, "steps": steps, "mean_psnr": got["mean_psnr"], "r2": got["r2"],
+           "cpu_mean_psnr": reading["mean_psnr"], "cpu_r2": reading["r2"], "cpu_threads": reading["threads"],
+           "mean_psnr_diff_db": d_db, "r2_diff": d_r2,
+           "batch_psnr_diff_db": [a - b for a, b in zip(got["psnr_per_batch"], reading["psnr_per_batch"])],
+           "max_distance_diff_um": _max_diff(got["distance_pred_um"], reading["distance_pred_um"]),
+           "limits": [REFINE_DB_TOL, SUITE_R2],
+           "record_20_batches": {"mean_psnr": record["refine_distance_mean_psnr"], "r2": record["refine_distance_r2"],
+                                 "steps": record["refine_distance_steps"]},
+           "launches": launches, "want_launches": want, "seconds": seconds}
+    if abs(d_db) >= REFINE_DB_TOL or abs(d_r2) >= SUITE_R2 or launches != want:
+        emit({"narrow_refine_distance": out})
+        _die("the refine with the distance on the card missed the port's CPU reading or its launches", 1)
+    return out
+
+
+@contextlib.contextmanager
+def recording_golden_suites():
+    """``pipelines.evaluate_golden_suite``, which ``cli eval`` imports at its
+    call, with each call's metrics recorded: yields the list."""
+    seen, real = [], port_pipelines.evaluate_golden_suite
+
+    def recording(*args, **kwargs):
+        seen.append(real(*args, **kwargs))
+        return seen[-1]
+
+    port_pipelines.evaluate_golden_suite = recording
+    try:
+        yield seen
+    finally:
+        port_pipelines.evaluate_golden_suite = real
+
+
+def cli_refine_distance(net, goldens, cfg, style, device) -> dict:
+    """``cli eval --checkpoint checkpoints/<NARROW_CLI_RELEASE>/release
+    --refine N --refine-distance`` in process on the card (the CLI scores the
+    whole suite) against the direct ``evaluate_golden_suite`` call with the
+    same arguments: the flag must reach the path."""
+    steps = NARROW_CLI_REFINE_STEPS
+    argv = ["eval", "--checkpoint", os.path.join(REPO, "checkpoints", NARROW_CLI_RELEASE, "release"),
+            "--save-dir", "", "--refine", str(steps), "--refine-distance", "--json"]
+    asm_cuda.reset_launches()
+    conv_stack.reset_launches()
+    t0 = time.monotonic()
+    with recording_golden_suites() as seen, propagate_never_through_torch_fft():
+        lines, _ = run_cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = {**asm_cuda.LAUNCHES, **conv_stack.LAUNCHES}
+    want = refine_distance_launches(goldens.n_batches, steps)
+    direct = evaluate_golden_suite(net, goldens, cfg, style_override=style, refine_steps=steps,
+                                   refine_distance=True, device=device)
+    got = seen[0]
+    batch_db = _max_diff(got["psnr_per_batch"], direct["psnr_per_batch"])
+    um = _max_diff(got["distance_pred_um"], direct["distance_pred_um"])
+    out = {"argv": argv, "printed": lines, "mean_psnr": got["mean_psnr"], "r2": got["r2"],
+           "direct_mean_psnr": direct["mean_psnr"], "direct_r2": direct["r2"],
+           "max_batch_psnr_diff_db": batch_db, "max_distance_diff_um": um,
+           "limits": [CLI_REPEAT_DB, CARD_CPU_UM], "launches": launches, "want_launches": want,
+           "seconds": seconds}
+    if len(seen) != 1 or batch_db > CLI_REPEAT_DB or um > CARD_CPU_UM or launches != want:
+        emit({"cli_refine_distance": out})
+        _die("cli eval --refine-distance on the card differs from the direct call or its launches", 1)
+    return out
+
+
+def drive_narrow_releases(goldens, device, smi) -> dict:
+    """The narrow_releases phase (see the module docstring); returns its
+    readings and the launches of every path it counted, summed."""
+    with open(GOLDEN_CPU_READINGS) as f:
+        cpu = json.load(f)
+    releases, total = {}, collections.Counter()
+    for name in NARROW_RELEASES:
+        net, cfg, style, scales, records, read = narrow_release(name, device)
+        if name in NARROW_INT8_R2_FROM_CPU:
+            reading = cpu[name]["int8"]
+            if reading["batches"] != goldens.n_batches or reading["fused_stacks"] != "off":
+                _die(f"{GOLDEN_CPU_READINGS} holds another int8 reading of {name}: {reading['command']}", 1)
+            int8_r2 = {"record_r2": records["int8"]["r2"], "cpu_r2": reading["r2"], "command": reading["command"]}
+            records["int8"] = {**records["int8"], "r2": reading["r2"]}
+        readings, launches, seconds = run_golden(net, goldens, cfg, style, scales, records, device,
+                                                 paths=NARROW_PATHS, fp32_reading=cpu[name]["fp32"])
+        total.update(launches)
+        entry = {"width": cfg.model.width, "read": read, "readings": readings, "launches": launches,
+                 "seconds_by_path": seconds}
+        if name in NARROW_INT8_R2_FROM_CPU:
+            entry["int8_r2_held_to_the_cpu_reading"] = int8_r2
+        if name in NARROW_REFINE_DISTANCE:
+            entry["refine_distance"] = narrow_refine_distance(
+                net, goldens, cfg, style, records["fp32"], cpu[name]["refine_distance"], device)
+            total.update(entry["refine_distance"]["launches"])
+        if name == NARROW_CLI_RELEASE:
+            entry["cli_refine_distance"] = cli_refine_distance(net, goldens, cfg, style, device)
+            total.update(entry["cli_refine_distance"]["launches"])
+        releases[name] = entry
+        del net
+    return {"nvidia_smi": smi, "releases": releases, "launches": dict(total)}
 
 
 @contextlib.contextmanager
@@ -3723,13 +3964,7 @@ def load_domain_release(tag: str):
     """``checkpoints/<tag>_release`` read by the port's own orbax reader, as
     ``drive_release`` reads the flagship (``bead``'s, saved on a TPU, with
     no target): (its state dict, the read's seconds and bytes)."""
-    path = os.path.join(REPO, "checkpoints", f"{tag}_release")
-    t0 = time.monotonic()
-    store = ocdbt.Store(path)
-    tree = orbax_read.restore(path, store=store)
-    read = {"seconds": time.monotonic() - t0,
-            "bytes": store.bytes_read + os.path.getsize(os.path.join(path, "_METADATA"))}
-    return convert_params(tree["params"]), read
+    return read_release(os.path.join(REPO, "checkpoints", f"{tag}_release"))
 
 
 def domain_protocol(tag: str):
@@ -4577,6 +4812,10 @@ def main() -> int:
         domain_releases = {tag: load_domain_release(tag) for tag in DOMAINS}
         phase.info = {**release_info, "domain_reads": {t: r[1] for t, r in domain_releases.items()}}
 
+    with Phase("narrow_releases") as phase:
+        narrow_info = drive_narrow_releases(goldens, dev, smi)
+        phase.info = narrow_info
+
     with Phase("serve") as phase:
         serve_info = drive_serve(fast_net, fast_cfg, fast_style, fast_scales, goldens, dev, name, smi)
         serve_info["rbc_release"] = drive_serve_domain(dev, smi)
@@ -4844,6 +5083,7 @@ def main() -> int:
             "library_ms": timings[k][2],
             "launches_by_path": {"slice": launches[k], "refine": refine_launches[k],
                                  "golden": golden_launches[k], "release": release_info["launches"][k],
+                                 "narrow_releases": narrow_info["launches"][k],
                                  "serve": serve_info["launches"][k],
                                  "stream": stream_info["launches"][k],
                                  "eval": eval_info["launches"][k],
@@ -4917,6 +5157,7 @@ def main() -> int:
             "library_ms_by_dtype": {_dt(d): conv_timings[k, d][2] for d in CONV_TOLERANCES},
             **({"launches_by_path": {"quant": launches[k], "golden": golden_launches[k],
                                      "release": release_info["launches"][k],
+                                     "narrow_releases": narrow_info["launches"][k],
                                      "domain": domain_info["launches"][k],
                                      "export_int8": export_info["int8_launches"][k]}}
                if k in golden_launches else {}),

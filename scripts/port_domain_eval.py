@@ -49,23 +49,15 @@ KEYS = ("mean_psnr", "mean_mae", "r2")
 DOMAINS = {"rbc": "red_blood_cell", "bead": "polystyrene"}
 
 
-def distance_gradients(net, cfg, jphysics, bank, style, eps=1e-3):
-    """The refine loss's gradient in each sample's distance (network units)
-    at the net's prediction on the stream's first batch, the phase the
-    net's and the amplitude the known one, as ``physics_refine`` starts its
-    distance stage: (the port's autograd, the JAX package's ``jax.grad``, a
-    central difference of the JAX package's loss by ``eps``, the net's
-    distances), each (B,).
-    The loss is a mean over the batch, each sample's term its own, so one
-    pair of evaluations gives every sample's difference."""
-    import jax
-    import jax.numpy as jnp
+def distance_stage_inputs(net, cfg, bank, style):
+    """Where ``physics_refine`` starts its distance stage on the stream's
+    first batch: (the known amplitude, the net's phase in network units, the
+    net's distances, the measured amplitude), numpy fp32 of ``(B, 1, H, W)``
+    and ``(B, 1, 1, 1)``."""
     import numpy as np
     import torch
 
-    from style_transfer_based_holographic_imaging_tpu.ops import holo_forward as j_holo_forward
     from style_transfer_based_holographic_imaging_tpu_torch.data.synth import synth_batch_from_key
-    from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward
     from style_transfer_based_holographic_imaging_tpu_torch.pipelines.field_retrieval import make_retrieval_fn
     from style_transfer_based_holographic_imaging_tpu_torch.utils import jax_random
 
@@ -78,10 +70,29 @@ def distance_gradients(net, cfg, jphysics, bank, style, eps=1e-3):
             net, batch["content_holo"] ** 2, *(torch.as_tensor(np.asarray(v)) for v in style), d_style)
     amp = np.full(out["amp_foc"].shape, cfg.data.amplitude, np.float32)
     phase = out["ph_foc"].numpy() / np.float32(physics.phase_normalize)
-    d0, meas = out["distance_pred"].numpy(), batch["content_holo"].numpy()
+    return amp, phase, out["distance_pred"].numpy(), batch["content_holo"].numpy()
 
+
+def distance_gradients_at(inputs, physics, jphysics, eps=1e-3, asm_backend=None):
+    """The refine loss's gradient in each sample's distance (network units)
+    at ``inputs`` (``distance_stage_inputs``' four arrays): (the port's
+    autograd through ``holo_forward`` with ``asm_backend``, the JAX
+    package's ``jax.grad``, a central difference of the JAX package's loss
+    by ``eps``), each (B,). The loss is a mean over the batch, each sample's
+    term its own, so one pair of evaluations gives every sample's
+    difference."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from style_transfer_based_holographic_imaging_tpu.ops import holo_forward as j_holo_forward
+    from style_transfer_based_holographic_imaging_tpu_torch.ops import holo_forward
+
+    amp, phase, d0, meas = inputs
     d = torch.tensor(d0, requires_grad=True)
-    r = torch.sqrt(torch.clamp(holo_forward(torch.tensor(amp), torch.tensor(phase), d, physics), min=0.0))
+    r = torch.sqrt(torch.clamp(holo_forward(torch.tensor(amp), torch.tensor(phase), d, physics,
+                                            asm_backend=asm_backend), min=0.0))
     (port,) = torch.autograd.grad(torch.mean((r - torch.tensor(meas)) ** 2), d)
 
     def j_terms(dist):
@@ -91,7 +102,16 @@ def distance_gradients(net, cfg, jphysics, bank, style, eps=1e-3):
     jgrad = jax.grad(lambda dist: jnp.sum(j_terms(dist)))(jnp.asarray(d0))
     diff = (np.asarray(j_terms(jnp.asarray(d0 + eps)), np.float64)
             - np.asarray(j_terms(jnp.asarray(d0 - eps)), np.float64)) / (2 * eps)
-    return port.numpy().ravel(), np.asarray(jgrad).ravel(), diff.ravel(), d0.ravel()
+    return port.numpy().ravel(), np.asarray(jgrad).ravel(), diff.ravel()
+
+
+def distance_gradients(net, cfg, jphysics, bank, style, eps=1e-3):
+    """``distance_gradients_at`` the distance stage's start on the stream's
+    first batch (``distance_stage_inputs``): (the port's autograd, the JAX
+    package's ``jax.grad``, the central difference, the net's distances),
+    each (B,)."""
+    inputs = distance_stage_inputs(net, cfg, bank, style)
+    return (*distance_gradients_at(inputs, cfg.physics, jphysics, eps), inputs[2].ravel())
 
 
 def band_limit_steps(physics, d, eps, size):

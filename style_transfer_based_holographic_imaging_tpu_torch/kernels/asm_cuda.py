@@ -475,16 +475,22 @@ def _fold_edges(g: torch.Tensor, n: int, dim: int) -> torch.Tensor:
     return core
 
 
-def _adjoint(ctx, gre, gim, dist, x=None):
+def _adjoint(ctx, gre, gim, dist, x=None, y=None):
     """The VJP of ``propagate_torch`` (replicate pad P, fft2, x H, ifft2,
     x g, crop C) written as its adjoint, for the cotangents (gre, gim) of
     (yre, yim) of ``(B, H, W)`` images and ``dist`` a host float or a
     ``(B,)`` tensor. The field's gradient is ``P^T ifft2(conj(H) E)`` with
-    ``E = fft2(conj(g) C^T gy)``; with ``x = (xre, xim)`` also the
-    distance's, ``-sum Im(conj(E) H fft2(P x)) (kz + k0) / N`` over each
-    image's padded spectrum (N its size), the two phases' terms summed
-    apart as autograd sums them. None of the forward is re-run: the field's
-    gradient needs none of it, the distance's one FFT of the padded input.
+    ``E = fft2(conj(g) C^T gy)``; with ``x = (xre, xim)`` and the forward's
+    output ``y = (yre, yim)`` also the distance's: the transfer function's
+    term ``-sum Im(conj(E) H fft2(P x)) kz / N`` over each image's padded
+    spectrum (N its size), and the global phasor's ``-k0 sum Im(conj(gy) y)``
+    over the image, its equal by Parseval. That second term is taken where
+    the cotangent was made: a loss of ``|y|`` gives ``gy`` parallel to ``y``
+    pixel by pixel, so the sum is zero up to one rounding a pixel, while the
+    spectral sum cancels FFT rounding to the same zero and multiplies what is
+    left by k0 (1.2e7 rad/m at 532 nm), 2-6 % of an MNIST refine's distance
+    gradient in fp32. None of the forward is re-run: the field's gradient
+    needs none of it, the distance's one FFT of the padded input.
     Returns ``(gxre or None, gxim or None, gdist or None)``."""
     b, h, w = gre.shape
     dev = gre.device
@@ -514,7 +520,8 @@ def _adjoint(ctx, gre, gim, dist, x=None):
         spectrum = torch.fft.fft2(pad_replicate(torch.complex(*x), h // 2, w // 2))
         t = torch.imag(torch.conj(e_hat) * transfer * spectrum)
         n = float(4 * h * w)
-        gdist = -((t * kz).sum((1, 2)) + k0 * t.sum((1, 2))) / n
+        yre, yim = y
+        gdist = -(t * kz).sum((1, 2)) / n - k0 * (gre * yim - gim * yre).sum((1, 2))
     return gxre, gxim, gdist
 
 
@@ -529,13 +536,14 @@ def _const_backward(ctx, gre, gim):
 
 def _dynamic_setup(ctx, inputs, output):
     xre, xim, dist, ctx.wavelength, ctx.pixel_size, _ = inputs
-    # The field is needed only for the distance's gradient.
-    ctx.save_for_backward(*((xre, xim, dist) if ctx.needs_input_grad[2] else (dist,)))
+    # The field and the output are needed only for the distance's gradient.
+    ctx.save_for_backward(dist, *((xre, xim, *output) if ctx.needs_input_grad[2] else ()))
 
 
 def _dynamic_backward(ctx, gre, gim):
-    *x, dist = ctx.saved_tensors
-    return _adjoint(ctx, gre, gim, dist, tuple(x) or None) + (None, None, None)
+    dist, *xy = ctx.saved_tensors
+    x, y = (tuple(xy[:2]), tuple(xy[2:])) if xy else (None, None)
+    return _adjoint(ctx, gre, gim, dist, x, y) + (None, None, None)
 
 
 # The ops: the kernel forward on a card, the plain version on the CPU, the
